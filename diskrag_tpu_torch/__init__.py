@@ -1,0 +1,22 @@
+"""diskrag_tpu_torch — the PyTorch/CUDA port of diskrag_tpu.
+
+Serves the flat (exhaustive) index on an NVIDIA Hopper card through
+hand-written CUDA kernels (`csrc/`), with the JAX package's on-disk
+formats, entry points and results. It imports torch, never jax, and
+nothing of `diskrag_tpu`.
+
+Layer map, mirroring the JAX package:
+
+    interfaces     cli.py
+    orchestration  engine.py, build_index.py, convert.py
+    data           data/
+    index          index/persist.py
+    ops            ops/distance.py, ops/flat.py, ops/flat_scan.py
+    kernels        csrc/*.cu, built at first use by kernels/_build.py
+    device         device.py (explicit device, cuda by default)
+"""
+
+from diskrag_tpu_torch import device as _device  # noqa: F401  (pins f32 matmuls)
+
+__version__ = "0.1.0"
+__all__ = ["__version__"]

@@ -1,0 +1,312 @@
+"""CLI — the flat-index part of `diskrag_tpu/cli.py`: `process`, `index`,
+`search`, `list` and `delete`, plus `--device {cuda,cpu}` (default cuda),
+given before the subcommand.
+
+    python -m diskrag_tpu_torch.cli --config config.yaml process faq.csv -c faq
+    python -m diskrag_tpu_torch.cli --config config.yaml index faq --index-type flat
+    python -m diskrag_tpu_torch.cli --config config.yaml search faq "question" -k 3 --faq
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import pathlib
+import sys
+from typing import Optional
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+def load_dotenv(path: str = ".env") -> None:
+    """Manual .env parser (reference diskrag.py:17-30)."""
+    env = pathlib.Path(path)
+    if not env.exists():
+        return
+    for line in env.read_text(encoding="utf-8").splitlines():
+        line = line.strip()
+        if line and not line.startswith("#") and "=" in line:
+            key, value = line.split("=", 1)
+            os.environ.setdefault(key.strip(), value.strip())
+
+
+class DiskRAG:
+    """High-level facade over the pipeline, on one device."""
+
+    def __init__(
+        self,
+        config_path: str = "config.yaml",
+        base_dir: str = "collections",
+        device: str = "cuda",
+    ):
+        from diskrag_tpu_torch.data import (
+            CollectionManager,
+            PreprocessingConfig,
+            load_config,
+        )
+
+        load_dotenv()
+        self.config_path = config_path
+        if pathlib.Path(config_path).exists():
+            self.config = load_config(config_path)
+        else:
+            self.config = PreprocessingConfig(collection="default")
+        self.base_dir = base_dir
+        self.device = device
+        self.manager = CollectionManager(base_dir)
+
+    # --- process ---------------------------------------------------------
+    def process(
+        self,
+        file_path: str,
+        collection: Optional[str] = None,
+        generate_questions: bool = False,
+    ) -> str:
+        """Dispatch by file type; returns the resolved collection name
+        (CLI arg > config > file stem)."""
+        path = pathlib.Path(file_path)
+        name = collection or self.config.collection or path.stem
+        suffix = path.suffix.lower()
+        if suffix == ".csv":
+            self._process_csv(path, name, generate_questions)
+        elif suffix in (".md", ".markdown"):
+            self._process_markdown(path, name)
+        else:
+            raise ValueError(f"unsupported file type: {suffix}")
+        return name
+
+    def _process_csv(self, path: pathlib.Path, name: str, questions: bool) -> None:
+        import dataclasses
+
+        import pandas as pd
+
+        from diskrag_tpu_torch.data import EmbeddingGenerator, Preprocessor
+        from diskrag_tpu_torch.data.question_generator import QuestionGenerator
+
+        cols = set(pd.read_csv(path, nrows=0).columns)
+        if "title" in cols and "paragraph_text" in cols:
+            self._process_article_csv(path, name)
+            return
+        cfg = dataclasses.replace(self.config, collection=name)
+        qgen = None
+        if questions and cfg.question_generation.enabled:
+            qgen = QuestionGenerator(dict(cfg.question_generation.__dict__))
+        elif not questions:
+            cfg = dataclasses.replace(
+                cfg,
+                question_generation=dataclasses.replace(
+                    cfg.question_generation, enabled=False
+                ),
+            )
+        pre = Preprocessor(
+            cfg,
+            manager=self.manager,
+            embedding_generator=EmbeddingGenerator(cfg.embedding),
+            question_generator=qgen,
+        )
+        pre.process_file(str(path))
+
+    def _process_article_csv(self, path: pathlib.Path, name: str) -> None:
+        from diskrag_tpu_torch.data import EmbeddingGenerator, TextChunker
+
+        chunks = TextChunker(self.config.chunk).process_csv(path)
+        if not chunks:
+            print("(no chunks produced)")
+            return
+        gen = EmbeddingGenerator(self.config.embedding)
+        vectors, valid = gen.generate_embeddings([c.text for c in chunks])
+        kept = [chunks[i] for i in valid]
+        metas = [
+            {
+                "type": "article",
+                "source_id": c.source_id,
+                "section": c.section,
+                **(c.metadata or {}),
+            }
+            for c in kept
+        ]
+        if self.manager.get_collection_info(name) is None:
+            self.manager.create_collection(
+                name, vectors.shape[1], config=self.config.to_dict(),
+                source_file=str(path),
+            )
+        self.manager.update_collection(
+            name, vectors, [c.text for c in kept], metas, source_file=str(path)
+        )
+
+    def _process_markdown(self, path: pathlib.Path, name: str) -> None:
+        from diskrag_tpu_torch.data import EmbeddingGenerator, TextChunker
+        from diskrag_tpu_torch.data.chunker import DocumentProcessor
+
+        proc = DocumentProcessor(
+            TextChunker(self.config.chunk),
+            EmbeddingGenerator(self.config.embedding),
+            self.manager,
+        )
+        result = proc.process_file(path, name)
+        print(f"processed {result['processed']} chunks ({result['skipped']} skipped)")
+
+    # --- index -----------------------------------------------------------
+    def build_index(
+        self, collection: str, target_quality: str | None = None,
+        force_rebuild: bool = False, index_type: str | None = None,
+    ) -> dict:
+        from diskrag_tpu_torch.build_index import build_index_from_vectors
+
+        info = self.manager.get_collection_info(collection)
+        if info is None:
+            raise ValueError(f"collection {collection} not found")
+        vectors = np.load(self.manager.get_vectors_path(collection))
+        icfg = self.config.index
+        meta = build_index_from_vectors(
+            vectors,
+            self.manager.get_index_dir(collection),
+            target_quality=target_quality or icfg.target_quality,
+            metric=icfg.metric,
+            index_type=index_type or icfg.type,
+            force_rebuild=force_rebuild,
+            flat_precision=icfg.flat_precision,
+            flat_rerank_width=icfg.flat_rerank_width,
+            device=self.device,
+        )
+        info = self.manager.get_collection_info(collection)
+        info.chunk_stats["index"] = {
+            "index_type": meta.get("index_type", "vamana"),
+            "R": meta.get("R"), "L": meta.get("L"), "alpha": meta.get("alpha"),
+            "use_pq": meta.get("use_pq"),
+            "build_seconds": meta.get("build_seconds"),
+        }
+        self.manager.save_collection_info(info)
+        return meta
+
+    # --- search ----------------------------------------------------------
+    def search(
+        self, collection: str, query: str, k: int = 5, faq: bool = False,
+    ) -> dict:
+        from diskrag_tpu_torch.data import EmbeddingGenerator
+        from diskrag_tpu_torch.engine import SearchEngine
+
+        engine = SearchEngine(collection, base_dir=self.base_dir, device=self.device)
+        fn = EmbeddingGenerator(self.config.embedding).generate
+        if faq:
+            return engine.faq_search(query, k=k, embedding_fn=fn)
+        return engine.search(query, k=k, embedding_fn=fn)
+
+    # --- management ------------------------------------------------------
+    def list_collections(self):
+        return self.manager.list_collections()
+
+    def delete_collection(self, name: str) -> bool:
+        return self.manager.delete_collection(name)
+
+
+def _print_results(out: dict) -> None:
+    """FAQ-aware result printing."""
+    results = out.get("results", [])
+    if not results:
+        print("(no results)")
+        return
+    for i, r in enumerate(results, 1):
+        meta = r.get("metadata", {})
+        print(f"\n#{i}  distance={r['distance']:.4f}")
+        if meta.get("type") == "faq":
+            q = meta.get("original_question") or meta.get("question")
+            if q:
+                print(f"  Q: {q}")
+            a = meta.get("answer")
+            if a:
+                print(f"  A: {a[:300]}")
+            if meta.get("is_generated"):
+                print("  (matched via generated question)")
+        else:
+            print(f"  {r['text'][:300]}")
+    timing = out.get("timing", {})
+    if timing:
+        print(
+            f"\nembedding {timing.get('embedding_time', 0)*1e3:.1f}ms | "
+            f"search {timing.get('search_time', 0)*1e3:.1f}ms | "
+            f"total {timing.get('total_time', 0)*1e3:.1f}ms"
+        )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="diskrag-tpu-torch",
+        description="DiskRAG on PyTorch/CUDA — flat-index serving",
+    )
+    parser.add_argument("--config", default="config.yaml", help="config file path")
+    parser.add_argument("--base-dir", default="collections", help="collections dir")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="device to build and search on (default cuda)")
+    parser.add_argument("--verbose", "-v", action="store_true")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("process", help="process a source file into vectors")
+    p.add_argument("file")
+    p.add_argument("--collection", "-c")
+    p.add_argument("--questions", "-q", action="store_true",
+                   help="generate similar questions for FAQ CSVs")
+
+    p = sub.add_parser("index", help="build the index for a collection")
+    p.add_argument("collection")
+    p.add_argument("--target-quality", choices=["fast", "balanced", "high"],
+                   default=None)
+    p.add_argument("--index-type", "--type", dest="index_type",
+                   choices=["flat", "auto"], default=None,
+                   help="default: config index.type")
+    p.add_argument("--force-rebuild", action="store_true")
+
+    p = sub.add_parser("search", help="search a collection")
+    p.add_argument("collection")
+    p.add_argument("query")
+    p.add_argument("--top-k", "-k", type=int, default=5)
+    p.add_argument("--faq", action="store_true",
+                   help="FAQ mode: dedup by qa_id, keep type=='faq' entries")
+
+    sub.add_parser("list", help="list collections")
+
+    p = sub.add_parser("delete", help="delete a collection")
+    p.add_argument("collection")
+    return parser
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO if args.verbose else logging.WARNING,
+        format="%(levelname)s %(name)s: %(message)s",
+    )
+    rag = DiskRAG(args.config, base_dir=args.base_dir, device=args.device)
+    if args.command == "process":
+        name = rag.process(args.file, args.collection, args.questions)
+        print(f"done — now run: diskrag-tpu-torch index {name}")
+    elif args.command == "index":
+        meta = rag.build_index(
+            args.collection, args.target_quality, args.force_rebuild,
+            index_type=args.index_type,
+        )
+        print(
+            f"index built: type={meta.get('index_type')} "
+            f"N={meta['num_points']} precision={meta.get('flat_precision')}"
+        )
+    elif args.command == "search":
+        _print_results(rag.search(args.collection, args.query, args.top_k, faq=args.faq))
+    elif args.command == "list":
+        infos = rag.list_collections()
+        if not infos:
+            print("(no collections)")
+        for info in infos:
+            print(
+                f"{info.name}: {info.num_vectors} vectors, dim {info.dimension}, "
+                f"updated {info.updated_at}"
+            )
+    elif args.command == "delete":
+        print("deleted" if rag.delete_collection(args.collection) else "not found")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

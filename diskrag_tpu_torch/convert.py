@@ -1,0 +1,62 @@
+"""Carry state across from the JAX package.
+
+`flat_state_from_jax` builds the port's `FlatIndex` from the arrays of a
+JAX `diskrag_tpu.ops.flat.FlatIndex` handed over as numpy arrays, so the
+same index computes the same results in both packages (the scan table is
+taken as it is, not rebuilt). Persisted indexes need no conversion:
+both packages read and write the same `index/` layout.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from diskrag_tpu_torch.device import resolve_device
+from diskrag_tpu_torch.ops.flat import FlatIndex
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: move the raw bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)  # a writable copy
+
+
+def flat_state_from_jax(
+    arrays: dict[str, np.ndarray],
+    *,
+    metric: str = "l2",
+    rerank_width: int | None = None,
+    device: str = "cuda",
+) -> FlatIndex:
+    """The port's index over a JAX FlatIndex's arrays: `vectors` (f32
+    master), optionally `norms_sq` (its squared norms, which the bf16
+    scan subtracts), `_fused_db` (int8 table or bf16 copy) and, for int8,
+    `_fused_db_norms` ([2, Npad] norm block), `_fused_db_scales` and
+    `_fused_n_valid`. A packed-int8 index (`_fused_db_scale_global` set)
+    needs kernels of the next slice and raises NotImplementedError."""
+    if arrays.get("_fused_db_scale_global") is not None:
+        raise NotImplementedError(
+            "packed-int8 flat indexes need the packed scan kernels (B2, B3),"
+            " the next slice in ROADMAP.md"
+        )
+    dev = resolve_device(device)
+    fused_db = _tensor(arrays["_fused_db"], dev)
+    opt = {
+        key: None if arrays.get(name) is None else _tensor(arrays[name], dev)
+        for key, name in (
+            ("fused_db_norms", "_fused_db_norms"),
+            ("fused_db_scales", "_fused_db_scales"),
+            ("norms_sq", "norms_sq"),
+        )
+    }
+    n_valid = arrays.get("_fused_n_valid")
+    return FlatIndex.from_state(
+        _tensor(arrays["vectors"], dev).to(torch.float32),
+        fused_db,
+        metric=metric,
+        n_valid=None if n_valid is None else int(n_valid),
+        rerank_width=rerank_width,
+        **opt,
+    )

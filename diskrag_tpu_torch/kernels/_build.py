@@ -1,0 +1,111 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+placed in `build/diskrag_tpu_torch/` beside the package and loaded with
+`ctypes`. A library is rebuilt only when the hash of its source (and of
+the build flags) changes. All stale sources are compiled together, one
+`nvcc` process each, so the first call pays for the slowest file only.
+
+Every C entry point returns `cudaGetLastError()` after its launches;
+`check()` raises on a non-zero code, because a launch CUDA refused
+(too many threads, too much shared memory) never runs and a later
+`torch.cuda.synchronize()` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = (
+    pathlib.Path(__file__).resolve().parents[2] / "build" / "diskrag_tpu_torch"
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# per-source compiler reports of this process's builds (-Xptxas -v:
+# registers, shared memory, spills)
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (pathlib.Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(src: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, pathlib.Path]:
+    """Compile every stale `csrc/*.cu` in parallel; returns {stem: path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {s.stem: (s, _lib_path(s)) for s in sorted(CSRC.glob("*.cu"))}
+    stale = {k: v for k, v in targets.items() if not v[1].exists()}
+    if stale:
+        nvcc = _nvcc()
+        procs = {}
+        for stem, (src, out) in stale.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            procs[stem] = (
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                ),
+                tmp, out,
+            )
+        failed = []
+        for stem, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            build_logs[stem] = log
+            if proc.returncode != 0:
+                failed.append(f"{stem}.cu:\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {k: v[1] for k, v in targets.items()}
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<stem>.cu`, building all stale
+    sources on the first call."""
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            paths = build_all()
+            for name, path in paths.items():
+                if name not in _libs:
+                    _libs[name] = ctypes.CDLL(str(path))
+            lib = _libs[stem]
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
