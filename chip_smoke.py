@@ -5,11 +5,13 @@
 Builds the port's CUDA kernels from `diskrag_tpu_torch/csrc/` (into
 `build/diskrag_tpu_torch/`), holds each against its plain PyTorch version
 on the card, then serves the flat index end to end at the benchmark's
-size (1,000,000 x 128 vectors, 1000 queries, k = 10) through
-`build_index_from_vectors` and `SearchEngine.search_batch`, and checks
-recall@10 against an exact ground truth. Every phase prints one JSON
-line; the line before the last is the card's name and power limit as
-nvidia-smi gives them, and the last line is
+sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000 queries, k = 10)
+through `build_index_from_vectors` and `SearchEngine.search_batch` — with
+the per-row int8 scan (kernels B1, B4) and with `flat_precision:
+int8_packed` (kernels B2, B3) — runs the pipelined fold (B6) through its
+wrapper at the 1M shape, and checks recall@10 against an exact ground
+truth. Every phase prints one JSON line; the line before the last is the
+card's name and power limit as nvidia-smi gives them, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -88,6 +90,18 @@ def b4_bound_ms(b: int, nb: int, kk: int) -> tuple[float, str]:
     t_bytes = (b * nb * 4 + b * kk * 4) / PEAK_BYTES
     t_ops = b * nb / PEAK_F32_OPS
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+def packed_bound_ms(b: int, n: int, d: int, out_ints: int) -> tuple[float, str]:
+    """Least time for a packed fold's work (B2, B3, B6) over the n valid
+    rows: the products (2 ops per multiply-add) at the int8 tensor-core
+    peak, or each input byte read once (codes, the nf row, query codes)
+    and each output written once (`out_ints` int32/f32 values per query:
+    kk ids with the fused cut, 2 * NB without) at HBM bandwidth — the
+    larger."""
+    t_ops = 2.0 * b * n * d / PEAK_INT8_OPS
+    t_bytes = (n * d + n * 4 + b * d + b * out_ints * 4) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_device() -> dict:
@@ -236,7 +250,130 @@ def phase_kernels() -> dict:
     return {}
 
 
-def profile_batch(engine, q, steps: int = 3) -> dict:
+def compare_packed(kind, qc, qs, db, norms, scale, *, n_buckets, n_valid, cut_kk=None,
+                   db_tile=2048, query_block=1024):
+    """A packed fold's public wrapper (`kind` "B2", "B3" or "B6") on card
+    tensors against its plain version on the operands the wrapper builds
+    from the same arguments (NB, the pad rows scanned, nf, 1 / q_scale).
+    After one f32 product the folds are integer arithmetic, so scores and
+    ids (or the fused cut's ids) must be bit-identical. Returns the
+    wrapper's (scores, ids) and what was measured: the count of ids that
+    differ and, where the wrapper returns scores, their largest absolute
+    difference over the finite entries (None for a fused cut)."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    kw = dict(n_buckets=n_buckets, query_block=query_block, db_tile=db_tile,
+              n_valid=n_valid, cut_kk=cut_kk)
+    args = (qc, qs, db, norms, scale)
+    if kind == "B2":
+        out = fs.scan_bucketed_topk_packed(*args, **kw)
+        ops = fs._packed_fold_operands(*args, **kw)
+        ref = fs.scan_bucketed_topk_packed_ref(*ops)
+    else:
+        pipe = kind == "B6"
+        out = fs.scan_bucketed_topk_hier(*args, pipelined=pipe, **kw)
+        ops = fs._hier_fold_operands(*args, pipelined=pipe, **kw)
+        ref = fs.scan_bucketed_topk_hier_ref(*ops)
+    torch.cuda.synchronize()
+    what = (f"{kind} n={ops[6]} rows={db.shape[0]} d={qc.shape[1]} nb={ops[4]} "
+            f"n_scan={ops[5]} table={n_valid is not None} cut={cut_kk}")
+    measured = {"id_mismatches": int((out[1] != ref[1]).sum()), "max_abs_err": None}
+    require(measured["id_mismatches"] == 0,
+            f"{what}: ids differ in {measured['id_mismatches']} places")
+    if cut_kk is None:
+        fin = torch.isfinite(ref[0])
+        measured["max_abs_err"] = (float((out[0][fin] - ref[0][fin]).abs().max())
+                                   if bool(fin.any()) else 0.0)
+        require(bool(torch.equal(out[0], ref[0])),
+                f"{what}: scores differ, max_abs_err={measured['max_abs_err']}")
+    else:
+        require(out[0] is None and out[1].shape == (qc.shape[0], cut_kk), f"{what}: cut shape")
+    return out, measured
+
+
+def packed_inputs(pts_d, q_d, metric: str):
+    """Both contracts of the packed wrappers for one dataset, as the main
+    path builds them (`FlatIndex` + `flat_search_fused`): query codes and
+    scale, then (codes, norms or nf, scale, n_valid) for the pre-padded
+    table and for the unpadded rows."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    if metric == "cosine":
+        src = pts_d * torch.rsqrt(torch.sum(pts_d * pts_d, -1) + 1e-12)[:, None]
+        qf = q_d / (torch.linalg.vector_norm(q_d, dim=-1, keepdim=True) + 1e-12)
+    else:
+        src, qf = pts_d, q_d
+    qc, qs = fs.quantize_int8_global(qf)
+    codes, nf, scale, n = fs.build_packed_scan_table(src)
+    table = (codes, nf, scale, n)
+    unpadded = (codes[:n], torch.sum(src * src, -1), scale, None)
+    return qc, qs, table, unpadded
+
+
+def phase_packed_kernels() -> None:
+    """B2, B3 and B6 (and both fused cuts) against their plain versions on
+    the card: 200k x 128 and a ragged 5000 x 44 (rows zero-padded to 16
+    bytes, real pad rows), l2 and cosine, both contracts, NB 512 and 8192,
+    no cut and cuts of 20 and 40; B6 also against B3; plus a block built
+    for ties and exhaustion (every row twice; fewer valid rows than kk)."""
+    import torch
+
+    from diskrag_tpu_torch.benchmark import make_dataset
+
+    dev = torch.device("cuda", 0)
+
+    def all_kinds(qc, qs, contract, nbs, cuts):
+        db, norms, scale, n_valid = contract
+        cases = 0
+        for nb in nbs:
+            for cut in cuts:
+                for kind in ("B2", "B3"):
+                    compare_packed(kind, qc, qs, db, norms, scale, n_buckets=nb,
+                                   n_valid=n_valid, cut_kk=cut)
+                    cases += 1
+            # B6 narrows the reference's tile to 2 * NB, which can change the
+            # pad rows scanned: B3 gets the same tile for the comparison
+            tile = min(2048, 2 * nb)
+            b6, _ = compare_packed("B6", qc, qs, db, norms, scale, n_buckets=nb,
+                                   n_valid=n_valid, db_tile=tile)
+            b3, _ = compare_packed("B3", qc, qs, db, norms, scale, n_buckets=nb,
+                                   n_valid=n_valid, db_tile=tile)
+            require(bool(torch.equal(b6[0], b3[0]) and torch.equal(b6[1], b3[1])),
+                    f"B6 differs from B3 at nb={nb}")
+            cases += 2
+        return cases
+
+    for n_pts, d in ((CMP_N, MAIN_D), (5000, 44)):
+        pts, q = make_dataset(n_pts, d, MAIN_B, seed=7)
+        pts_d = torch.as_tensor(pts, device=dev)
+        q_d = torch.as_tensor(q, device=dev)
+        for metric in ("l2", "cosine"):
+            qc, qs, table, unpadded = packed_inputs(pts_d, q_d, metric)
+            cases = sum(all_kinds(qc, qs, c, (512, 8192), (None, 20, 40))
+                        for c in (table, unpadded))
+            emit({"phase": "kernels", "kernel": "B2+B3+B6", "n": n_pts, "d": d,
+                  "metric": metric, "contracts": ["table", "unpadded"], "nb": [512, 8192],
+                  "cut_kk": [None, 20, 40], "comparisons": cases, "match": "bit-identical"})
+        del pts_d, q_d
+    # ties and exhaustion: every row twice (equal packed scores in two
+    # segments), and a table with 30 valid rows under a cut of 40
+    pts, q = make_dataset(3000, 64, 64, seed=5)
+    pts[1500:] = pts[:1500]
+    cases = 0
+    for rows in (pts, pts[:30]):
+        qc, qs, table, unpadded = packed_inputs(
+            torch.as_tensor(rows, device=dev), torch.as_tensor(q, device=dev), "l2")
+        cases += sum(all_kinds(qc, qs, c, (128, 512), (None, 40)) for c in (table, unpadded))
+    emit({"phase": "kernels", "kernel": "B2+B3+B6", "case": "duplicate rows; 30 valid rows, kk 40",
+          "comparisons": cases, "match": "bit-identical"})
+    torch.cuda.empty_cache()
+
+
+def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8") -> dict:
     """Device time by kernel name per `search_batch` (torch.profiler,
     CUPTI; one warm-up step first, since the profiler can miss kernels at
     its start) and the device's idle share of the profiled host time."""
@@ -262,63 +399,83 @@ def profile_batch(engine, q, steps: int = 3) -> dict:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "phase": "profile", "batches": steps, "wall_ms_per_batch": wall_ms / steps,
+        "phase": "profile", "path": path, "batches": steps,
+        "wall_ms_per_batch": wall_ms / steps,
         "device_busy_ms_per_batch": busy,
         "device_idle_share": (1.0 - busy * steps / wall_ms) if busy else "not measured",
         "device_ms_by_kernel_per_batch": [[k[:90], v] for k, v in top],
     }
 
 
-def phase_main(smi: str) -> dict:
-    """The main path at the bench size, plus each kernel's time at the
-    shapes the main path hands it."""
+def serve(base, name: str, pts, precision: str):
+    """Persist `pts` as collection `name` with a flat index of the given
+    precision and load it into a `SearchEngine` on the card — the entry
+    points a user's `index` and `search` commands go through."""
     import numpy as np
-    import torch
 
-    from diskrag_tpu_torch.benchmark import ground_truth, make_dataset, recall_at_k
     from diskrag_tpu_torch.build_index import build_index_from_vectors
     from diskrag_tpu_torch.data.collection import CollectionManager
     from diskrag_tpu_torch.data.config import CollectionInfo
     from diskrag_tpu_torch.engine import SearchEngine
-    from diskrag_tpu_torch.ops import flat_scan as fs
 
-    t0 = time.perf_counter()
-    pts, q = make_dataset(MAIN_N, MAIN_D, MAIN_B, seed=42)
-    base = ROOT / "build" / "chip_smoke" / "collections"
-    shutil.rmtree(base, ignore_errors=True)
-    name = "bench_1m"
     mgr = CollectionManager(base)
     (base / name).mkdir(parents=True)
     np.save(mgr.get_vectors_path(name), pts)
     mgr.save_collection_info(CollectionInfo(
-        name=name, config={}, dimension=MAIN_D, num_vectors=MAIN_N,
+        name=name, config={}, dimension=pts.shape[1], num_vectors=len(pts),
         created_at="", updated_at="", source_files=[],
     ))
     meta = build_index_from_vectors(pts, mgr.get_index_dir(name), index_type="flat",
-                                    device="cuda")
-    require(meta["index_type"] == "flat", "build did not make a flat index")
+                                    flat_precision=precision, device="cuda")
+    require(meta["index_type"] == "flat" and meta["flat_precision"] == precision,
+            "build did not make the requested flat index")
     engine = SearchEngine(name, base_dir=str(base), device="cuda")
     require(bool(engine.diagnostics and engine.diagnostics["passed"]),
             f"startup diagnostic failed: {engine.diagnostics}")
-    setup_s = time.perf_counter() - t0
+    return engine
 
-    reps = 5
+
+def drive(engine, q, reps: int):
+    """`reps` timed `search_batch` calls with every launch count set to 0
+    just before and read just after: (dists, ids, stats, seconds per
+    batch, launches by kernel)."""
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
     fs.reset_launch_counts()
     batch_s = []
     for _ in range(reps):
         t = time.perf_counter()
         dists, ids, stats = engine.search_batch(q, k=MAIN_K)
         batch_s.append(time.perf_counter() - t)
-    launches = {"B1": fs.scan_bucketed_topk.launches, "B4": fs.topk_lanes.launches}
-    require(launches["B1"] > 0 and launches["B4"] > 0,
-            f"main path did not launch every kernel: {launches}")
+    launches = {
+        "B1": fs.scan_bucketed_topk.launches, "B4": fs.topk_lanes.launches,
+        "B2": fs.scan_bucketed_topk_packed.launches,
+        "B3": fs.scan_bucketed_topk_hier.launches,
+        "B6": fs.scan_bucketed_topk_hier.launches_pipelined,
+    }
+    return dists, ids, stats, batch_s, launches
+
+
+def phase_main(smi: str, base, pts, q, gt) -> dict:
+    """The per-row int8 main path at the bench size, plus B1's and B4's
+    times at the shapes that path hands them."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    t0 = time.perf_counter()
+    engine = serve(base, "bench_1m", pts, "int8")
+    setup_s = time.perf_counter() - t0
+
+    reps = 5
+    dists, ids, stats, batch_s, launches = drive(engine, q, reps)
+    require(launches["B1"] == reps and launches["B4"] == reps,
+            f"main path did not launch B1 and B4 once per batch: {launches}")
     require(ids.shape == (MAIN_B, MAIN_K) and dists.shape == (MAIN_B, MAIN_K),
             "result shape")
     require(bool(np.isfinite(dists).all()), "non-finite distances")
-
-    t = time.perf_counter()
-    gt = ground_truth(pts, q, MAIN_K, device="cuda")
-    gt_s = time.perf_counter() - t
     recall = recall_at_k(ids, gt, MAIN_K)
     # the nearest distance must agree with the exact one (sqrt at the edge)
     pts_d = torch.as_tensor(pts, device="cuda")
@@ -333,7 +490,7 @@ def phase_main(smi: str) -> dict:
         "ms_per_batch_median": med * 1e3, "ms_per_batch": [s * 1e3 for s in batch_s],
         "top1_dist_max_abs_err": d0_err, "launches": launches,
         "launches_per_search_batch": {k: v / reps for k, v in launches.items()},
-        "setup_seconds": setup_s, "ground_truth_seconds": gt_s,
+        "setup_seconds": setup_s,
         "search_type": stats["search_type"], "card": smi,
     })
 
@@ -353,7 +510,9 @@ def phase_main(smi: str) -> dict:
     b1_plain = cuda_ms(lambda: fs.scan_bucketed_topk_ref(*ops), 3)
     kk = 40
     lk, lr = fs.topk_lanes(vals, kk), fs.topk_lanes_ref(vals, kk)
-    require(bool(torch.equal(lk, lr)), "B4 differs at the main-path shape")
+    # B4 returns lanes: its error is the largest difference between lanes
+    b4_err = float((lk - lr).abs().max())
+    require(bool(torch.equal(lk, lr)), f"B4 differs at the main-path shape by {b4_err} lanes")
     b4_ms = cuda_ms(lambda: fs.topk_lanes(vals, kk), 50)
     b4_plain = cuda_ms(lambda: fs.topk_lanes_ref(vals, kk), 20)
     b4_lib = cuda_ms(lambda: torch.topk(vals, kk, dim=1), 50)
@@ -369,13 +528,157 @@ def phase_main(smi: str) -> dict:
         {"name": "B4 topk_lanes (candidate cut)", "route": "cuda",
          "source": "diskrag_tpu_torch/csrc/topk_lanes.cu",
          "replaces": "diskrag_tpu/ops/flat_scan_pallas.py:1244",
-         "launches": launches["B4"], "max_abs_err": 0.0, "match": "bit-identical",
+         "launches": launches["B4"], "max_abs_err": b4_err, "match": "bit-identical",
          "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": b4_bound, "bound_by": b4_by,
          "library_ms": b4_lib},
     ]
-    del engine, flat, pts_d, q_d
-    shutil.rmtree(base, ignore_errors=True)
+    del engine, flat, pts_d, q_d, vals
+    torch.cuda.empty_cache()
     return {"kernels": kernels}
+
+
+# recall@10 per rerank width that the JAX package records for its packed
+# path on these two datasets (docs/PERFORMANCE.md): integer arithmetic, so
+# the port should land on or near them whatever the card
+REFERENCE_RECALL = {
+    200_000: {17: 0.9537, 18: 0.9621, 20: 0.974},
+    1_000_000: {18: 0.9449, 22: 0.9677, 26: 0.9782},
+}
+
+
+def packed_kernel_row(kind: str, flat, q_d, plan, *, cut_kk, reps: int) -> dict:
+    """One packed fold at the shapes the main path hands it: held against
+    its plain version, then timed (kernel, plain version) and bounded.
+    `max_abs_err` is measured on the scores of the fold's state output
+    (a fused cut returns ids only, so the same fold is also run without
+    the cut); `id_mismatches` on the ids of the form the main path uses."""
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    qc, qs = fs.quantize_int8_global(q_d)
+    args = (qc, qs, flat._fused_db, flat._fused_nf, flat._fused_db_scale_global)
+    kw = dict(n_buckets=512, query_block=plan.query_block, db_tile=plan.db_tile,
+              n_valid=flat._fused_n_valid, cut_kk=cut_kk)
+    _, measured = compare_packed(kind, *args, **kw)
+    if cut_kk is not None:
+        _, state = compare_packed(kind, *args, **{**kw, "cut_kk": None})
+        measured["max_abs_err"] = state["max_abs_err"]
+        measured["id_mismatches"] += state["id_mismatches"]
+    if kind == "B2":
+        ops = fs._packed_fold_operands(*args, **kw)
+        ms = cuda_ms(lambda: fs.scan_bucketed_topk_packed(*args, **kw), reps)
+        plain = cuda_ms(lambda: fs.scan_bucketed_topk_packed_ref(*ops), 2)
+    else:
+        pipe = kind == "B6"
+        ops = fs._hier_fold_operands(*args, pipelined=pipe, **kw)
+        ms = cuda_ms(lambda: fs.scan_bucketed_topk_hier(*args, pipelined=pipe, **kw), reps)
+        plain = cuda_ms(lambda: fs.scan_bucketed_topk_hier_ref(*ops), 2)
+    nb, n_valid = ops[4], ops[6]
+    bound, by = packed_bound_ms(q_d.shape[0], n_valid, q_d.shape[1],
+                                cut_kk if cut_kk else 2 * nb)
+    return {"nb": nb, "n_scan": ops[5], "n_valid": n_valid, "cut_kk": cut_kk,
+            **measured, "match": "bit-identical", "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
+    """The packed main path (`flat_precision: int8_packed`) at both bench
+    sizes through `build_index_from_vectors` and `SearchEngine.search_batch`;
+    B2's and B3's times at the shapes it hands them; B6 through its wrapper
+    at the 1M shape; one `sweep_flat` run at 200k; a profile at 1M."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k, sweep_flat
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    reps = 5
+    rows = {}
+    for n_pts, (fold, kernel, want_nb) in ((CMP_N, ("packed", "B2", 1024)),
+                                           (MAIN_N, ("hier", "B3", 512))):
+        pts, q, gt = sets[n_pts]
+        t0 = time.perf_counter()
+        engine = serve(base, f"packed_{n_pts}", pts, "int8_packed")
+        setup_s = time.perf_counter() - t0
+        flat = engine.flat
+        require(flat._fused_db_scale_global is not None, "the index is not packed")
+        plan = fs.plan_packed_search(flat._fused_db.shape[0], flat._fused_n_valid, MAIN_D,
+                                     MAIN_B, 512, 40)
+        require((plan.fold, plan.nb, plan.cut_kk) == (fold, want_nb, 40),
+                f"n={n_pts}: routed to {plan}, expected {fold} at NB={want_nb}")
+        dists, ids, stats, batch_s, launches = drive(engine, q, reps)
+        others = {k: v for k, v in launches.items() if k != kernel}
+        require(launches[kernel] == reps and not any(others.values()),
+                f"n={n_pts}: expected {reps} launches of {kernel} and no other: {launches}")
+        require(ids.shape == (MAIN_B, MAIN_K) and bool(np.isfinite(dists).all())
+                and bool((np.diff(dists, axis=1) >= 0).all()),
+                f"n={n_pts}: distances not finite and ascending")
+        recall = recall_at_k(ids, gt, MAIN_K)
+        require(recall >= 0.96, f"n={n_pts}: packed recall@10 {recall} < 0.96")
+        by_width = {}
+        for rw, ref in REFERENCE_RECALL[n_pts].items():
+            flat.rerank_width = rw
+            _, ids_w, _ = engine.search_batch(q, k=MAIN_K)
+            by_width[rw] = {"recall_at_10": recall_at_k(ids_w, gt, MAIN_K),
+                            "jax_package_recorded": ref}
+        flat.rerank_width = None
+        med = float(np.median(batch_s))
+        emit({
+            "phase": "main-packed", "n": n_pts, "d": MAIN_D, "queries": MAIN_B, "k": MAIN_K,
+            "fold": fold, "kernel": kernel, "nb": plan.nb, "n_scan": plan.n_scan, "cut_kk": 40,
+            "recall_at_10": recall, "recall_by_rerank_width": by_width,
+            "qps": MAIN_B / med, "ms_per_batch_median": med * 1e3,
+            "ms_per_batch": [s * 1e3 for s in batch_s], "launches": launches,
+            "launches_per_search_batch": {k: v / reps for k, v in launches.items()},
+            "setup_seconds": setup_s, "search_type": stats["search_type"], "card": smi,
+        })
+        q_d = torch.as_tensor(q, device="cuda")
+        rows[kernel] = {"launches": launches[kernel],
+                        **packed_kernel_row(kernel, flat, q_d, plan, cut_kk=40, reps=20)}
+        if n_pts == MAIN_N:
+            emit(profile_batch(engine, q, path="flat-1M-packed"))
+            # B6: its entry point is the wrapper with pipelined=True (no engine
+            # option selects it, as in the JAX package). Driven at the 1M
+            # shape with the counts set to 0 just before and read just after
+            qc, qs = fs.quantize_int8_global(q_d)
+            args = (qc, qs, flat._fused_db, flat._fused_nf, flat._fused_db_scale_global)
+            kw = dict(n_buckets=512, n_valid=flat._fused_n_valid)
+            fs.reset_launch_counts()
+            for _ in range(3):
+                b6 = fs.scan_bucketed_topk_hier(*args, pipelined=True, **kw)
+            torch.cuda.synchronize()
+            b6_launches = fs.scan_bucketed_topk_hier.launches_pipelined
+            require(b6_launches == 3 and fs.scan_bucketed_topk_hier.launches == 0,
+                    "the pipelined wrapper did not launch B6")
+            b3 = fs.scan_bucketed_topk_hier(*args, db_tile=1024, **kw)
+            require(bool(torch.equal(b6[0], b3[0]) and torch.equal(b6[1], b3[1])),
+                    "B6 differs from B3 at the 1M shape")
+            rows["B6"] = {"launches": b6_launches,
+                          **packed_kernel_row("B6", flat, q_d, plan, cut_kk=None, reps=20)}
+            rows["B3"]["ms_without_cut"] = cuda_ms(
+                lambda: fs.scan_bucketed_topk_hier(*args, **kw), 20)
+        del engine, flat, q_d
+        torch.cuda.empty_cache()
+
+    pts, q, gt = sets[CMP_N]
+    t0 = time.perf_counter()
+    points = sweep_flat(pts, q, gt, k=MAIN_K, repeats=3, min_seconds=0.3, device="cuda")
+    emit({"phase": "sweep_flat", "n": CMP_N, "d": MAIN_D, "queries": MAIN_B, "k": MAIN_K,
+          "seconds": time.perf_counter() - t0, "card": smi,
+          "points": [{"mode": p.mode, "rerank_width": p.search_width, "recall": p.recall,
+                      "qps": p.qps, "ms_per_batch": p.mean_latency_ms * MAIN_B}
+                     for p in points]})
+    torch.cuda.empty_cache()
+
+    meta = {
+        "B2": ("B2 packed_scan (packed-int32 fold + fused cut)",
+               "diskrag_tpu_torch/csrc/packed_scan.cu", "diskrag_tpu/ops/flat_scan_pallas.py:325"),
+        "B3": ("B3 hier_scan (hierarchical packed fold + fused cut)",
+               "diskrag_tpu_torch/csrc/hier_scan.cu", "diskrag_tpu/ops/flat_scan_pallas.py:387"),
+        "B6": ("B6 hier_scan pipelined (staged rows, product overlaps fold)",
+               "diskrag_tpu_torch/csrc/hier_scan.cu", "diskrag_tpu/ops/flat_scan_pallas.py:468"),
+    }
+    return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
+             "replaces": meta[k][2], **rows[k]} for k in ("B2", "B3", "B6")]
 
 
 def main() -> int:
@@ -395,7 +698,25 @@ def main() -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     phase_kernels()
-    out = phase_main(dev["smi"])
+    phase_packed_kernels()
+
+    from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
+
+    base = ROOT / "build" / "chip_smoke" / "collections"
+    shutil.rmtree(base, ignore_errors=True)
+    sets = {}
+    for n_pts in (MAIN_N, CMP_N):
+        t = time.perf_counter()
+        pts, q = make_dataset(n_pts, MAIN_D, MAIN_B, seed=42)
+        gt = ground_truth(pts, q, MAIN_K, device="cuda")
+        sets[n_pts] = (pts, q, gt)
+        emit({"phase": "data", "n": n_pts, "d": MAIN_D, "queries": MAIN_B,
+              "seconds_with_ground_truth": time.perf_counter() - t})
+    try:
+        out = phase_main(dev["smi"], base, *sets[MAIN_N])
+        out["kernels"] += phase_main_packed(dev["smi"], base, sets)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(json.dumps({"kernels": out["kernels"]}))
     print(dev["smi"])

@@ -1,10 +1,14 @@
 """Benchmark helpers — part of `diskrag_tpu/benchmark.py`: the seeded
-dataset (numpy, byte-identical to the JAX package's), recall@k, and an
-exact tiled ground-truth oracle in PyTorch. A test and smoke tool, not on
-the search path.
+dataset (numpy, byte-identical to the JAX package's), recall@k, an exact
+tiled ground-truth oracle in PyTorch, and the flat-index sweep
+(`sweep_flat`, `adaptive_flat_point`) with its timing helper. A test,
+smoke and measurement tool, not on the search path.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -55,3 +59,118 @@ def ground_truth(
     q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     _, ids = exact_topk_tiled(q, pts, k, metric, query_block=1024)
     return ids.cpu().numpy()
+
+
+@dataclasses.dataclass
+class SweepPoint:
+    search_width: int
+    recall: float
+    qps: float
+    mean_latency_ms: float
+    mode: str
+
+
+def _measure(run, repeats: int, device: torch.device, min_seconds: float = 1.5):
+    """Warm up, then time whole passes of `run()` on the host clock, each
+    window closed by a device synchronize (PyTorch returns before the
+    card finishes), growing the repeat count until a window lasts
+    `min_seconds`. Returns (seconds per pass, last result)."""
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = run()
+    sync()
+    reps = max(repeats, 1)
+    while True:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = run()
+        sync()
+        total = time.perf_counter() - t0
+        if total >= min_seconds or reps >= 512:
+            return total / reps, out
+        reps *= min(16, max(2, int(min_seconds / max(total, 1e-3)) + 1))
+
+
+def _point(idx, q, gt, k, mode, repeats, min_seconds, width=0) -> SweepPoint:
+    """Time `idx.search(q)` and take its recall against `gt`."""
+    b = q.shape[0]
+    dt, (_, ids) = _measure(lambda: idx.search(q, k=k), repeats, idx.device, min_seconds)
+    rec = recall_at_k(ids.cpu().numpy(), gt, k)
+    return SweepPoint(width, rec, b / dt, dt / b * 1e3, mode)
+
+
+def sweep_flat(
+    pts: np.ndarray, queries: np.ndarray, gt: np.ndarray, *, k: int,
+    metric: str = "l2", repeats: int = 3, adaptive_target: float = 0.96,
+    min_seconds: float = 1.5, device: str = "cuda",
+) -> list[SweepPoint]:
+    """Exhaustive-scan sweep (the JAX package's `sweep_flat`): the default
+    per-row int8 scan ("flat"), its narrow-rerank point ("flat-rr24") and,
+    for l2 and cosine, the packed scan at the default width
+    ("flat-packed") and at 24 ("flat-packed-rr24"), and the
+    recall-targeted adaptive width point. (The reference's bigger-batch
+    point and `expand_width` field come with the port's bench script.) Variants of one precision share
+    one index: only `rerank_width` changes."""
+    from diskrag_tpu_torch.ops.flat import FlatIndex
+
+    idx = FlatIndex(pts, metric=metric, device=device)
+    q = torch.as_tensor(np.asarray(queries, np.float32), device=idx.device)
+    points = [_point(idx, q, gt, k, "flat", repeats, min_seconds)]
+    variants = [("flat-rr24", "int8", 24)]
+    if metric != "dot":
+        variants += [("flat-packed", "int8_packed", None),
+                     ("flat-packed-rr24", "int8_packed", 24)]
+    indexes = {"int8": idx}
+    for mode, prec, rw in variants:
+        if prec not in indexes:
+            indexes[prec] = FlatIndex(pts, metric=metric, fused_precision=prec, device=device)
+        indexes[prec].rerank_width = rw
+        points.append(_point(indexes[prec], q, gt, k, mode, repeats, min_seconds))
+    idx.rerank_width = None
+    if metric != "dot":
+        p = adaptive_flat_point(
+            pts, queries, gt, k=k, metric=metric, target_recall=adaptive_target,
+            repeats=repeats, idx=indexes["int8_packed"], min_seconds=min_seconds,
+            device=device,
+        )
+        if p is not None:
+            points.append(p)
+    return points
+
+
+def adaptive_flat_point(
+    pts: np.ndarray, queries: np.ndarray, gt: np.ndarray, *, k: int,
+    metric: str = "l2", target_recall: float = 0.96, max_width: int = 48,
+    repeats: int = 3, idx=None, min_seconds: float = 1.5, device: str = "cuda",
+) -> SweepPoint | None:
+    """Recall-targeted rerank width for the packed flat scan: binary-search
+    the narrowest `rerank_width` whose recall@k on the first half of the
+    queries clears `target_recall` (recall is monotone in the width), then
+    measure QPS at that width on all queries. None when even `max_width`
+    misses the target. `idx` shares an already-built packed index."""
+    from diskrag_tpu_torch.ops.flat import FlatIndex
+
+    if idx is None:
+        idx = FlatIndex(pts, metric=metric, fused_precision="int8_packed", device=device)
+    q = torch.as_tensor(np.asarray(queries, np.float32), device=idx.device)
+    n_sel = max(1, q.shape[0] // 2)
+
+    def recall_at_width(rw: int) -> float:
+        idx.rerank_width = rw
+        _, ids = idx.search(q[:n_sel], k=k)
+        return recall_at_k(ids.cpu().numpy(), gt[:n_sel], k)
+
+    lo, hi = k, max_width
+    if recall_at_width(hi) < target_recall:
+        return None
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if recall_at_width(mid) >= target_recall:
+            hi = mid
+        else:
+            lo = mid + 1
+    idx.rerank_width = hi
+    return _point(idx, q, gt, k, f"flat-packed-rr{hi}-auto", repeats, min_seconds, width=hi)

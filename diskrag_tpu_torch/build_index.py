@@ -84,11 +84,8 @@ def build_index_from_vectors(
             "flat indexes; the Vamana graph, IVF and sharded builds are "
             "queued in ROADMAP.md ('Modules still to port')"
         )
-    if flat_precision == "int8_packed":
-        raise NotImplementedError(
-            "flat_precision='int8_packed' needs the packed scan kernels "
-            "(B2, B3), the next slice in ROADMAP.md"
-        )
+    if flat_precision not in ("int8", "int8_packed", "bf16"):
+        raise ValueError(f"unknown flat_precision: {flat_precision!r}")
     meta = save_flat_index(
         index_dir, vectors, metric=metric,
         meta_extra={

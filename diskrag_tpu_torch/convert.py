@@ -32,15 +32,10 @@ def flat_state_from_jax(
 ) -> FlatIndex:
     """The port's index over a JAX FlatIndex's arrays: `vectors` (f32
     master), optionally `norms_sq` (its squared norms, which the bf16
-    scan subtracts), `_fused_db` (int8 table or bf16 copy) and, for int8,
-    `_fused_db_norms` ([2, Npad] norm block), `_fused_db_scales` and
-    `_fused_n_valid`. A packed-int8 index (`_fused_db_scale_global` set)
-    needs kernels of the next slice and raises NotImplementedError."""
-    if arrays.get("_fused_db_scale_global") is not None:
-        raise NotImplementedError(
-            "packed-int8 flat indexes need the packed scan kernels (B2, B3),"
-            " the next slice in ROADMAP.md"
-        )
+    scan subtracts), `_fused_db` (int8 table or bf16 copy) and, for
+    per-row int8, `_fused_db_norms` ([2, Npad] norm block),
+    `_fused_db_scales` and `_fused_n_valid`; for packed int8, `_fused_nf`
+    ([1, Npad] nf row), `_fused_db_scale_global` and `_fused_n_valid`."""
     dev = resolve_device(device)
     fused_db = _tensor(arrays["_fused_db"], dev)
     opt = {
@@ -48,6 +43,8 @@ def flat_state_from_jax(
         for key, name in (
             ("fused_db_norms", "_fused_db_norms"),
             ("fused_db_scales", "_fused_db_scales"),
+            ("fused_db_scale_global", "_fused_db_scale_global"),
+            ("fused_nf", "_fused_nf"),
             ("norms_sq", "norms_sq"),
         )
     }

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 placed in `build/diskrag_tpu_torch/` beside the package and loaded with
-`ctypes`. A library is rebuilt only when the hash of its source (and of
-the build flags) changes. All stale sources are compiled together, one
+`ctypes`. A library is rebuilt only when the hash of its source, of the
+shared headers (`csrc/*.cuh`) and of the build flags changes. All stale sources are compiled together, one
 `nvcc` process each, so the first call pays for the slowest file only.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
@@ -55,6 +55,9 @@ def _nvcc() -> str:
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,9 +1,11 @@
 """Flat (exhaustive) index — counterpart of `diskrag_tpu/ops/flat.py`.
 
-`FlatIndex.search` runs the fused per-row scan (`ops/flat_scan.py`: B1
-scan, B4 cut, exact f32 rerank) with the int8 scan copy by default, or
-the bf16 copy. On a card the scan and the cut are the hand-written CUDA
-kernels; with `device="cpu"` their plain PyTorch versions.
+`FlatIndex.search` runs a fused scan of `ops/flat_scan.py`, a candidate
+cut and the exact f32 rerank: by default the per-row int8 scan (B1) with
+the cut B4; with `fused_precision="int8_packed"` the packed folds (B2 or
+B3, with the cut fused in); or the per-row scan on a bf16 copy. On a card
+the scans and cuts are the hand-written CUDA kernels; with `device="cpu"`
+their plain PyTorch versions.
 `flat_search` is the chunked path with an exact per-chunk top-k, used
 when a caller passes `chunk`.
 """
@@ -19,11 +21,7 @@ from diskrag_tpu_torch.ops.distance import (
     rerank_exact_topk,
     smallest_k,
 )
-
-_NEXT_SLICE = (
-    "fused_precision='int8_packed' needs the packed scan kernels (B2, B3), "
-    "the next slice of the port in ROADMAP.md"
-)
+from diskrag_tpu_torch.ops.flat_scan import align_code_rows
 
 
 def flat_search(
@@ -77,7 +75,14 @@ def flat_search(
 
 class FlatIndex:
     """On-device exhaustive index: f32 master vectors, their squared
-    norms and the scan copy (int8 table or bf16)."""
+    norms and the scan copy (per-row int8 table, packed int8 table or
+    bf16).
+
+    A request for `int8_packed` is served per-row int8 instead, as in the
+    JAX package, where the packed fold cannot run: the dot metric (the
+    fold is L2-only; cosine rides it on normalized copies), D > 192 (the
+    packed int32 would overflow), or so many rows that the reference's
+    packed layout fits no TPU block."""
 
     def __init__(
         self,
@@ -88,9 +93,7 @@ class FlatIndex:
         *,
         device: str | torch.device = "cuda",
     ):
-        if fused_precision == "int8_packed":
-            raise NotImplementedError(_NEXT_SLICE)
-        if fused_precision not in ("int8", "bf16"):
+        if fused_precision not in ("int8", "int8_packed", "bf16"):
             raise ValueError(f"unknown fused_precision: {fused_precision!r}")
         self.device = resolve_device(device)
         self.rerank_width = rerank_width
@@ -101,12 +104,35 @@ class FlatIndex:
         self.norms_sq = torch.sum(self.vectors * self.vectors, dim=-1)
         self._fused_db_norms = None
         self._fused_db_scales = None
+        self._fused_db_scale_global = None
+        self._fused_nf = None
         self._fused_n_valid = None
+        if fused_precision == "int8_packed":
+            from diskrag_tpu_torch.ops.flat_scan import _PACKED_MAX_DIM, _packed_layout
+
+            n, d = self.vectors.shape
+            if (
+                self.metric == Metric.DOT.value
+                or d > _PACKED_MAX_DIM
+                or _packed_layout(n, d, 1024, 1024, 2048)[2] == 0
+            ):
+                fused_precision = "int8"
         if self.metric == Metric.COSINE.value:
             scan_src = self.vectors * torch.rsqrt(self.norms_sq + 1e-12)[:, None]
         else:
             scan_src = self.vectors
-        if fused_precision == "int8":
+        if fused_precision == "int8_packed":
+            from diskrag_tpu_torch.ops.flat_scan import build_packed_scan_table
+
+            # the nf row carries the scan copy's own norms (ones for
+            # cosine) over the global dequant scale
+            (
+                self._fused_db,
+                self._fused_nf,
+                self._fused_db_scale_global,
+                self._fused_n_valid,
+            ) = build_packed_scan_table(scan_src)
+        elif fused_precision == "int8":
             from diskrag_tpu_torch.ops.flat_scan import build_rowscan_table
 
             (
@@ -117,6 +143,7 @@ class FlatIndex:
             ) = build_rowscan_table(scan_src, metric=self.metric)
         else:
             self._fused_db = scan_src.to(torch.bfloat16)
+        self._fused_db = align_code_rows(self._fused_db)
 
     @classmethod
     def from_state(
@@ -127,6 +154,8 @@ class FlatIndex:
         metric: str = "l2",
         fused_db_norms: torch.Tensor | None = None,
         fused_db_scales: torch.Tensor | None = None,
+        fused_db_scale_global: torch.Tensor | None = None,
+        fused_nf: torch.Tensor | None = None,
         n_valid: int | None = None,
         rerank_width: int | None = None,
         norms_sq: torch.Tensor | None = None,
@@ -142,9 +171,11 @@ class FlatIndex:
         if norms_sq is None:
             norms_sq = torch.sum(self.vectors * self.vectors, dim=-1)
         self.norms_sq = norms_sq
-        self._fused_db = fused_db
+        self._fused_db = align_code_rows(fused_db)
         self._fused_db_norms = fused_db_norms
         self._fused_db_scales = fused_db_scales
+        self._fused_db_scale_global = fused_db_scale_global
+        self._fused_nf = fused_nf
         self._fused_n_valid = n_valid
         return self
 
@@ -174,6 +205,8 @@ class FlatIndex:
             k=k,
             metric=self.metric,
             db_scales=self._fused_db_scales,
+            db_scale_global=self._fused_db_scale_global,
             rerank_width=self.rerank_width,
+            db_nf=self._fused_nf,
             n_valid=self._fused_n_valid,
         )

@@ -1,7 +1,7 @@
-"""Fused exhaustive scan + candidate cut + exact rerank (counterpart of the
-per-row part of `diskrag_tpu/ops/flat_scan_pallas.py`).
+"""Fused exhaustive scans + candidate cut + exact rerank (counterpart of
+`diskrag_tpu/ops/flat_scan_pallas.py`).
 
-Two hand-written CUDA kernels carry this module on the card:
+Hand-written CUDA kernels carry this module on the card:
 
   B1 `csrc/flat_scan.cu` behind `scan_bucketed_topk`: scores q . db
      (int8 x int8 with per-query x per-row scales, or bf16), subtracts the
@@ -9,22 +9,41 @@ Two hand-written CUDA kernels carry this module on the card:
      j % NB) the best score and its earliest segment;
   B4 `csrc/topk_lanes.cu` behind `topk_lanes`: the exact top-kk lanes of
      the [B, NB] bucket block, lowest lane on ties, sentinel NB once a row
-     runs out of finite lanes.
+     runs out of finite lanes;
+  B2 `csrc/packed_scan.cu` behind `scan_bucketed_topk_packed`: int8 L2
+     with one scale for the whole database and one per query batch; score
+     and segment packed into one int32, p = 512*cross + seg - 256*nint,
+     max-folded per bucket lane (the larger segment wins ties);
+  B3 `csrc/hier_scan.cu` behind `scan_bucketed_topk_hier`: the B2 fold per
+     super-tile of 256 segments with local segment ids, merged across
+     super-tiles into (score_int, global segment) with a strict '>' (the
+     earlier super-tile wins ties), so NB does not grow with N;
+  B6 the same source, behind `scan_bucketed_topk_hier(pipelined=True)`:
+     B3's output from a kernel that stages the rows through three
+     shared-memory buffers (cp.async) and overlaps one tile's product
+     with the previous tile's fold.
+
+B2 and B3 can fuse the candidate cut (`cut_kk`): the pass that merges the
+parallel parts extracts the top-kk element ids from the exact int32 state
+and only [B, kk] ids reach PyTorch.
 
 Each wrapper runs its kernel for CUDA tensors (or raises) and its plain
-PyTorch version (`scan_bucketed_topk_ref`, `topk_lanes_ref`) only for CPU
-tensors; `chip_smoke.py` holds each kernel against its plain version on
-the card. Each wrapper counts its launches in `<wrapper>.launches`.
+PyTorch version (`*_ref`) only for CPU tensors; `chip_smoke.py` holds each
+kernel against its plain version on the card. Each wrapper counts its
+launches in `<wrapper>.launches` (B6 in
+`scan_bucketed_topk_hier.launches_pipelined`).
 
 Scores are similarities (maximized): L2 uses 2*q.v - ||v||^2 with the
-factor 2 pre-folded (into the row scales for int8, into the bf16 query
-copy otherwise); cosine and dot use q.v and mask pad rows (+inf norm) to
--inf.
+factor 2 pre-folded (into the row scales for per-row int8, into the bf16
+query copy, into the packed integer); cosine and dot use q.v on the
+per-row path and mask pad rows (+inf norm) to -inf; the packed path serves
+cosine as L2 on normalized copies.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -73,6 +92,27 @@ def build_rowscan_table(
     row0 = torch.cat([norms, torch.full((pad,), torch.inf, device=dev)])
     row1 = torch.cat([scales * 2.0 if l2 else scales, torch.zeros((pad,), device=dev)])
     return codes, torch.stack([row0, row1]), scales, n
+
+
+def align_code_rows(codes: torch.Tensor) -> torch.Tensor:
+    """`codes` [R, D] (int8 or bf16) with zero columns appended until a row
+    is a whole number of 16 bytes, which is how the kernels read rows. Done
+    once where an index is built or loaded (`FlatIndex`), so that no scan
+    copies the table; a zero column adds nothing to any product. The
+    wrappers widen the query codes to match (`_match_width`)."""
+    extra = -(codes.shape[1] * codes.element_size()) % 16 // codes.element_size()
+    if extra:
+        codes = torch.nn.functional.pad(codes, (0, extra))
+    return codes.contiguous()
+
+
+def _match_width(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """`q` with zero columns appended up to the width of rows that
+    `align_code_rows` widened."""
+    extra = db.shape[1] - q.shape[1]
+    if extra < 0:
+        raise ValueError(f"queries are wider ({q.shape[1]}) than the rows ({db.shape[1]})")
+    return torch.nn.functional.pad(q, (0, extra)) if extra else q
 
 
 # --- B1: the bucketed scan ---------------------------------------------------
@@ -159,11 +199,10 @@ def _scan_cuda(q, db, norm_block, nb, use_norms, q_scales, n):
     if b == 0 or rows == 0:
         return vals.fill_(NEG_INF), ids.fill_(-1)
     esize = q.element_size()
-    if (d * esize) % 16:  # rows are read 16 bytes at a time: zero-pad D
-        extra = (-(d * esize) % 16) // esize
-        q = torch.nn.functional.pad(q, (0, extra))
-        db = torch.nn.functional.pad(db, (0, extra))
-        d += extra
+    if (d * esize) % 16:  # rows a caller did not align: a copy per call
+        db = align_code_rows(db)
+        q = _match_width(q, db)
+        d = db.shape[1]
     q, db, norm_block = q.contiguous(), db.contiguous(), norm_block.contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
@@ -247,7 +286,7 @@ def _scan_operands(queries, db, db_norms, *, n_buckets, use_norms, q_scales, db_
         block = torch.stack([db_norms.to(torch.float32), scales.to(torch.float32)])
     else:
         block = db_norms[None, :]
-    return q, db, block.to(torch.float32), nb, use_norms, q_scales, n
+    return _match_width(q, db), db, block.to(torch.float32), nb, use_norms, q_scales, n
 
 
 # --- B4: the candidate cut ---------------------------------------------------
@@ -297,30 +336,533 @@ topk_lanes.launches = 0
 def reset_launch_counts() -> None:
     scan_bucketed_topk.launches = 0
     topk_lanes.launches = 0
+    scan_bucketed_topk_packed.launches = 0
+    scan_bucketed_topk_hier.launches = 0
+    scan_bucketed_topk_hier.launches_pipelined = 0
 
 
-# --- the per-row fused search ---------------------------------------------
+# --- geometry rules kept from the reference ------------------------------------
 
 
 def _fit_query_block(
     query_block: int, db_tile: int, n_buckets: int, d: int,
     *, state_bytes: int, itemsize: int, norm_rows: int = 1,
-    batch: int | None = None,
+    batch: int | None = None, scratch_row_bytes: int = 0,
 ) -> int:
     """The JAX package's VMEM fit (`flat_scan_pallas.py:741`): the largest
-    query block whose working set fits a TPU's 16 MB scoped VMEM, 0 when
-    none does. Kept only for the brute-force rule in `flat_search_fused`."""
+    query block whose working set (double-buffered input tiles, the
+    [QB, T] score tile, the [QB, NB] state, `scratch_row_bytes` of scratch
+    per query row) fits a TPU's 16 MB scoped VMEM, 0 when none does. No
+    kernel of the port is tiled by it. It is kept because it decides
+    results: the brute-force rule in `flat_search_fused`, and which of
+    the two packed folds (B2 or B3) serves a batch (`plan_packed_search`)."""
     in_tile_bytes = 2 * (db_tile * d * itemsize + norm_rows * db_tile * 4)
     budget = (15 << 20) - in_tile_bytes
     if budget <= 0:
         return 0
-    row1 = db_tile * 4 + n_buckets * state_bytes
+    row1 = db_tile * 4 + n_buckets * state_bytes + scratch_row_bytes
     qb1 = min(query_block, budget // row1 // 8 * 8)
     if qb1 >= 8 and batch is not None and batch <= qb1:
         return qb1
-    row2 = db_tile * 4 + 2 * n_buckets * state_bytes
+    row2 = db_tile * 4 + 2 * n_buckets * state_bytes + scratch_row_bytes
     qb2 = min(query_block, budget // row2 // 8 * 8)
     return 0 if qb2 < 8 else qb2
+
+
+_PACK = 256  # segment ids per packed int32
+_PACK_BITS = 8
+_INT32_MIN = -(1 << 31)
+_EMPTY_HIER = _INT32_MIN >> _PACK_BITS  # below any reachable score_int
+# |512*cross| + 256*2^21 + 256 < 2^31 needs |cross| <= 127*127*D with
+# D <= 192; past that the packed int32 overflows and corrupts winners.
+_PACKED_MAX_DIM = 192
+
+
+def _cut_scratch_row_bytes(cut_kk: int | None) -> int:
+    """The [QB, kkpad] int32 scratch row the reference's fused cut charges
+    to the VMEM fit (kkpad = cut_kk rounded up to 128 lanes)."""
+    return 0 if cut_kk is None else max(128, -(-cut_kk // 128) * 128) * 4
+
+
+def _packed_layout(
+    n: int, d: int, n_buckets: int, query_block: int, db_tile: int,
+    batch: int | None = None, scratch_row_bytes: int = 0,
+) -> tuple[int, int, int, int]:
+    """The reference's geometry for the flat packed fold
+    (`flat_scan_pallas.py:793`): (nb, db_tile, query_block, pad_n). NB is
+    the request rounded up to a power of two (>= 128, halved for tiny
+    databases) and then doubled until the `n` physical rows (pads
+    included) make at most 256 segments; the rows are padded to a
+    multiple of the TPU tile. query_block 0 means no TPU block fits: the
+    caller routes elsewhere. Only nb, pad_n and "query_block == 0 / is it
+    smaller than the batch" decide results."""
+    nb = 1 << max(7, (n_buckets - 1).bit_length())
+    while nb > 128 and nb > n:
+        nb //= 2
+    db_tile = max(nb, (min(db_tile, 1 << 20) // nb) * nb)
+    db_tile = nb * (1 << (max(1, db_tile // nb).bit_length() - 1))
+    pad_n = (-n) % db_tile
+    while (n + pad_n) > _PACK * nb:
+        nb *= 2
+        db_tile = nb * (1 << (max(1, db_tile // nb).bit_length() - 1))
+        pad_n = (-n) % db_tile
+    query_block = _fit_query_block(
+        query_block, db_tile, nb, d, state_bytes=4, itemsize=1,
+        batch=batch, scratch_row_bytes=scratch_row_bytes,
+    )
+    return nb, db_tile, query_block, pad_n
+
+
+def _hier_layout(
+    n_phys: int, n: int, d: int, n_buckets: int, query_block: int, db_tile: int,
+    batch: int | None = None, cut_kk: int | None = None, pipelined: bool = False,
+) -> tuple[int, int, int, int]:
+    """The reference's geometry for the hierarchical fold
+    (`flat_scan_pallas.py:608-638`): (nb, db_tile, query_block, pad_n). NB
+    is the request rounded up to a power of two, halved while it exceeds
+    the `n` logical rows; the TPU tile holds at most 256 segments and the
+    `n_phys` physical rows are padded to a multiple of it. Whatever the
+    tile, a super-tile is 256 segments (merge_every * tile / nb == 256)."""
+    nb = 1 << max(7, (n_buckets - 1).bit_length())
+    while nb > 128 and nb > n:
+        nb //= 2
+    if pipelined:
+        db_tile = min(db_tile, 2 * nb)
+    db_tile = max(nb, (min(db_tile, 1 << 20) // nb) * nb)
+    db_tile = min(db_tile, nb * _PACK)
+    db_tile = nb * (1 << (max(1, db_tile // nb).bit_length() - 1))
+    pad_n = (-n_phys) % db_tile
+    scratch_rb = nb * 4 + (2 * db_tile * 4 if pipelined else 0)
+    scratch_rb += _cut_scratch_row_bytes(cut_kk)
+    query_block = _fit_query_block(
+        query_block, db_tile, nb, d, state_bytes=8, itemsize=1,
+        batch=batch, scratch_row_bytes=scratch_rb,
+    )
+    return nb, db_tile, query_block, pad_n
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedPlan:
+    """What decides the packed search's results for one call: which fold
+    runs ("packed" = B2, "hier" = B3, "brute" = exact brute force), its
+    bucket count, the rows it scans (physical rows plus the reference's
+    pad rows), the fused cut's width (None = two-stage cut with B4), and
+    the TPU tile requests the fold's wrapper derives that geometry from."""
+
+    fold: str
+    nb: int = 0
+    n_scan: int = 0
+    cut_kk: int | None = None
+    query_block: int = 0
+    db_tile: int = 0
+
+
+def plan_packed_search(
+    n_phys: int, n: int, d: int, b: int, n_buckets: int, kk: int,
+) -> PackedPlan:
+    """The reference's routing for the packed path
+    (`flat_scan_pallas.py:1142-1218`) as plain integer arithmetic. These
+    are TPU rules (a 16 MB VMEM fit), kept only so the port returns what
+    the JAX package returns; no kernel of the port is tiled by them.
+    `n_buckets` is the request after the k-widening, `kk` the rerank
+    width, `n_phys` / `n` the table's physical / logical rows.
+
+      - exact brute force where no TPU query block fits at all, where
+        the chosen fold's own refit finds none, or where D > 192;
+      - the cut is fused when kk <= 64;
+      - the flat packed fold (B2) serves when its widened layout still
+        fits the whole batch in as few blocks as requested, else the
+        hierarchical fold (B3) at the requested NB with the TPU tile
+        capped at 4 * n_buckets (which sets its pad rows)."""
+    db_tile = max(_TPU_DB_TILE, n_buckets)
+    fit = _fit_query_block(_TPU_QUERY_BLOCK, db_tile, n_buckets, d, state_bytes=4,
+                           itemsize=1, norm_rows=1, batch=b)
+    if fit == 0 or d > _PACKED_MAX_DIM:  # the folds refuse D > 192
+        return PackedPlan("brute")
+    query_block = max(8, fit)
+    cut = kk if kk <= 64 else None
+    cut_rb = _cut_scratch_row_bytes(cut)
+    nb_flat, _, qb_flat, pad_flat = _packed_layout(
+        n_phys, d, n_buckets, query_block, db_tile, batch=b, scratch_row_bytes=cut_rb)
+    if qb_flat == 0 or qb_flat < min(b, query_block):
+        hier_tile = min(db_tile, 4 * n_buckets)
+        nb, _, qb, pad_n = _hier_layout(
+            n_phys, n, d, n_buckets, query_block, hier_tile, batch=b, cut_kk=cut)
+        if qb == 0:
+            return PackedPlan("brute")
+        return PackedPlan("hier", nb, n_phys + pad_n, cut, query_block, hier_tile)
+    return PackedPlan("packed", nb_flat, n_phys + pad_flat, cut, query_block, db_tile)
+
+
+def quantize_int8_global(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with one scale for the whole array:
+    codes [..., D] int8 and a 0-d f32 scale (1 for an all-zero array).
+    Divides by the scale (the per-row `quantize_int8` multiplies by a
+    reciprocal), rounds half to even, clips, casts — the JAX package's
+    order, so codes and scale are bit-identical."""
+    x = x.to(torch.float32)
+    s = torch.amax(torch.abs(x)) / 127.0
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    codes = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return codes, s
+
+
+def build_packed_scan_table(
+    scan_src: torch.Tensor, *, granule: int = 4096
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Pre-padded packed-scan table: (codes [Npad, D] int8, nf [1, Npad]
+    f32 = squared norms / scale with +inf at pads, scale 0-d f32, n logical
+    rows), padded to a multiple of `granule`. Same layout as the JAX
+    package's table. Serve it with `flat_search_fused(..., db_nf=nf,
+    n_valid=n)`."""
+    n, d = scan_src.shape
+    codes, scale = quantize_int8_global(scan_src)
+    src = scan_src.to(torch.float32)
+    norms = torch.sum(src * src, dim=-1)
+    pad = (-n) % granule
+    dev = scan_src.device
+    codes = torch.cat([codes, torch.zeros((pad, d), dtype=torch.int8, device=dev)])
+    nf = torch.cat([norms / scale, torch.full((pad,), torch.inf, device=dev)])
+    return codes, nf[None, :], scale, n
+
+
+# --- B2, B3, B6: the packed folds ------------------------------------------------
+
+
+def _super_tile_maxima(q, db, nf, inv_qs, nb, n_scan):
+    """Yields, per super-tile of 256 segments, the max-folded packed state
+    [B, nb] int32: packed = 512*cross + (seg & 255) - 256*nint with
+    nint = int(clip(round(nf * inv_qs), 0, 2^21)), the product in f32 and
+    the clip before the cast. The int8 cross product is taken in float64
+    (exact: |cross| <= 127^2 * 192 < 2^53) and everything after it in
+    int64, inside int32's range for D <= 192. Rows at or past the table's
+    end, up to `n_scan`, are pad rows: zero codes, +inf nf. The table is
+    walked in chunks of whole segments that never cross a super-tile."""
+    b = q.shape[0]
+    n_phys = db.shape[0]
+    dev = q.device
+    n_seg = n_scan // nb
+    qf = q.to(torch.float64)
+    chunk = max(1, min(_PACK, (1 << 24) // max(1, b * nb)))
+    chunk = 1 << (chunk.bit_length() - 1)  # divides 256
+    local = None
+    for s0 in range(0, n_seg, chunk):
+        s1 = min(n_seg, s0 + chunk)
+        r0, r1 = s0 * nb, s1 * nb
+        blk = db[r0:min(r1, n_phys)]
+        nfc = nf[r0:min(r1, n_phys)]
+        tail = (r1 - r0) - blk.shape[0]
+        cross = (qf @ blk.to(torch.float64).T).to(torch.int64)
+        nint = torch.clamp(torch.round(nfc * inv_qs), 0.0, float(1 << 21)).to(torch.int64)
+        if tail:
+            cross = torch.nn.functional.pad(cross, (0, tail))
+            nint = torch.nn.functional.pad(nint, (0, tail), value=1 << 21)
+        seg = (torch.arange(s0, s1, device=dev) & (_PACK - 1)).repeat_interleave(nb)
+        p = cross * (2 * _PACK) + (seg - nint * _PACK)[None, :]
+        m = torch.amax(p.view(b, s1 - s0, nb), dim=1).to(torch.int32)
+        local = m if local is None else torch.maximum(local, m)
+        if s1 % _PACK == 0 or s1 == n_seg:
+            yield s0 // _PACK, local
+            local = None
+
+
+def epilogue_cut_ids_ref(
+    state: torch.Tensor, kk: int, empty: int, n_valid: int,
+    gseg: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the fused cut: top-kk element ids [B, kk]
+    int32 from the exact int32 fold state [B, NB], highest value first,
+    lowest lane on ties (a stable sort gives the iterative extraction's
+    order); id = segment * NB + lane with the segment from the value's low
+    8 bits (flat packed state) or from `gseg` (hierarchical state); -1 once
+    a row holds only `empty`, and -1 for an id at or past `n_valid` (which
+    can sit inside a row)."""
+    b, nb = state.shape
+    vals, lanes = torch.sort(state, dim=1, descending=True, stable=True)
+    take = min(kk, nb)
+    vals, lanes = vals[:, :take], lanes[:, :take]
+    seg = torch.bitwise_and(vals, _PACK - 1) if gseg is None else torch.gather(gseg, 1, lanes)
+    ids = seg.to(torch.int64) * nb + lanes
+    ids = torch.where((vals == empty) | (ids >= n_valid), -1, ids)
+    if kk > nb:
+        ids = torch.nn.functional.pad(ids, (0, kk - nb), value=-1)
+    return ids.to(torch.int32)
+
+
+def scan_bucketed_topk_packed_ref(
+    q: torch.Tensor, inv_qs: torch.Tensor, db: torch.Tensor, nf: torch.Tensor,
+    nb: int, n_scan: int, n_valid: int, cut_kk: int | None = None,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Plain PyTorch version of B2 on the kernel's own contract: `q`
+    [B, D] int8, `inv_qs` 0-d f32 = 1 / q_scale, `db` [R, D] int8 with
+    `nf` [R] f32, scanned as `n_scan` rows in `n_scan / nb` <= 256
+    segments. The fold is a plain max of the packed int32, so the larger
+    segment wins ties. Returns (scores [B, nb] f32 = the packed ints cast,
+    -inf where empty; ids [B, nb] int32) or, with `cut_kk`, (None, ids
+    [B, cut_kk])."""
+    if n_scan > _PACK * nb:
+        raise ValueError("the flat packed fold holds at most 256 segments")
+    b = q.shape[0]
+    packed = torch.full((b, nb), _INT32_MIN, dtype=torch.int32, device=q.device)
+    for _, local in _super_tile_maxima(q, db, nf, inv_qs, nb, n_scan):
+        packed = local
+    if cut_kk is not None:
+        return None, epilogue_cut_ids_ref(packed, cut_kk, _INT32_MIN, n_valid)
+    empty = packed == _INT32_MIN
+    seg = torch.bitwise_and(packed, _PACK - 1).to(torch.int64)  # floor mod 256
+    ids = seg * nb + torch.arange(nb, device=q.device)[None, :]
+    ids = torch.where(empty | (ids >= n_valid), -1, ids).to(torch.int32)
+    scores = torch.where(empty, NEG_INF, packed.to(torch.float32))
+    return scores, ids
+
+
+def scan_bucketed_topk_hier_ref(
+    q: torch.Tensor, inv_qs: torch.Tensor, db: torch.Tensor, nf: torch.Tensor,
+    nb: int, n_scan: int, n_valid: int, cut_kk: int | None = None,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Plain PyTorch version of B3 (and of B6, whose output is B3's), on
+    the kernel's own contract (see `scan_bucketed_topk_packed_ref`; any
+    number of segments). Per super-tile of 256 segments the B2 fold with
+    local segment ids; across super-tiles, in order, val = packed >> 8
+    (arithmetic) and gseg = 256 * super_tile + (packed & 255) replace the
+    running pair where val is strictly larger, so the earlier super-tile
+    wins ties. Returns (scores [B, nb] f32 = val cast, -inf where empty;
+    ids [B, nb] int32) or, with `cut_kk`, (None, ids [B, cut_kk])."""
+    b = q.shape[0]
+    dev = q.device
+    best_v = torch.full((b, nb), _EMPTY_HIER, dtype=torch.int32, device=dev)
+    best_s = torch.full((b, nb), -1, dtype=torch.int32, device=dev)
+    for tile, p in _super_tile_maxima(q, db, nf, inv_qs, nb, n_scan):
+        val = torch.bitwise_right_shift(p, _PACK_BITS)  # arithmetic on int32
+        gseg = tile * _PACK + torch.bitwise_and(p, _PACK - 1)
+        upd = (val > best_v) & (p != _INT32_MIN)
+        best_v = torch.where(upd, val, best_v)
+        best_s = torch.where(upd, gseg, best_s)
+    if cut_kk is not None:
+        return None, epilogue_cut_ids_ref(best_v, cut_kk, _EMPTY_HIER, n_valid, gseg=best_s)
+    ids = best_s.to(torch.int64) * nb + torch.arange(nb, device=dev)[None, :]
+    ids = torch.where((best_s < 0) | (ids >= n_valid), -1, ids).to(torch.int32)
+    scores = torch.where(best_s < 0, NEG_INF, best_v.to(torch.float32))
+    return scores, ids
+
+
+def _packed_operands(queries_i8, q_scale, db_i8, db_norms, db_scale, n_valid):
+    """A packed wrapper's arguments in the kernels' contract: (q, inv_qs
+    0-d f32, db, nf [R] f32, n logical rows). With `n_valid` the rows are
+    a pre-padded table and `db_norms` its nf row; without, nf =
+    db_norms / db_scale is built here."""
+    if queries_i8.dtype != torch.int8 or db_i8.dtype != torch.int8:
+        raise TypeError("the packed folds take int8 queries and int8 rows")
+    if n_valid is not None:
+        nf = db_norms.reshape(-1)
+        n = n_valid
+    else:
+        nf = db_norms.to(torch.float32) / db_scale
+        n = db_i8.shape[0]
+    if nf.shape[0] != db_i8.shape[0]:
+        raise ValueError("one nf / norm value per table row is needed")
+    inv_qs = (1.0 / torch.as_tensor(q_scale, dtype=torch.float32, device=queries_i8.device))
+    return _match_width(queries_i8, db_i8), inv_qs.reshape(()), db_i8, nf.to(torch.float32), n
+
+
+_PACKED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int]
+_PACKED_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_TARGET_BLOCKS = 1024  # parts are cut until the grid has about this many blocks
+
+
+def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined=False):
+    """Launch B2 (`stem` "packed_scan") or B3 / B6 ("hier_scan") on the
+    kernels' contract. Allocates the outputs and the parts scratch; the
+    segments are cut into parts of a power-of-two size that divides 256
+    (so no part crosses a super-tile), which changes the grid, never the
+    result."""
+    tensors = (q, inv_qs, db, nf)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("packed scan: queries, rows, nf and scale must be on one CUDA device")
+    b, d = q.shape
+    dev = q.device
+    if n_scan % nb or n_scan < db.shape[0]:
+        raise ValueError("packed scan: n_scan must cover the table in whole segments")
+    if cut_kk is not None:
+        state_bytes = nb * 4 * (2 if stem == "hier_scan" else 1)
+        if state_bytes > 227 * 1024:
+            raise RuntimeError(
+                f"fused cut: a [{nb}] int32 state row does not fit a block's shared memory")
+        ids = torch.empty((b, cut_kk), dtype=torch.int32, device=dev)
+        scores = None
+    else:
+        ids = torch.empty((b, nb), dtype=torch.int32, device=dev)
+        scores = torch.empty((b, nb), dtype=torch.float32, device=dev)
+    if b == 0:
+        return scores, ids
+    if d % 16:  # rows a caller did not align: a copy per call
+        db = align_code_rows(db)
+        q = _match_width(q, db)
+    q, db, nf = q.contiguous(), db.contiguous(), nf.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    if db.data_ptr() % 16:
+        db = db.clone()
+    row_bytes = q.shape[1]
+    lib = _build.load(stem)
+    fn = getattr(lib, f"{stem}_launch")
+    hier = stem == "hier_scan"
+    fn.argtypes = _PACKED_ARGTYPES + ([ctypes.c_int] if hier else []) + _PACKED_TAIL
+    fn.restype = ctypes.c_int
+    bq = getattr(lib, f"{stem}_block_queries")(row_bytes)
+    lanes = getattr(lib, f"{stem}_block_lanes")()
+    base = -(-b // bq) * (nb // lanes)
+    n_seg = n_scan // nb
+    spp = _PACK
+    while spp > 16 and base * -(-n_seg // spp) < _TARGET_BLOCKS:
+        spp //= 2
+    n_parts = -(-n_seg // spp)
+    parts = torch.empty((n_parts, b, nb), dtype=torch.int32, device=dev)
+    args = [q.data_ptr(), inv_qs.data_ptr(), db.data_ptr(), nf.data_ptr(),
+            b, row_bytes, db.shape[0], n_scan, nb, n_valid, spp, n_parts,
+            parts.data_ptr(), cut_kk or 0]
+    if hier:
+        args.append(int(pipelined))
+    err = fn(*args, 0 if scores is None else scores.data_ptr(), ids.data_ptr(),
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if not hier:
+        scan_bucketed_topk_packed.launches += 1
+    elif pipelined:
+        scan_bucketed_topk_hier.launches_pipelined += 1
+    else:
+        scan_bucketed_topk_hier.launches += 1
+    _build.check(err, f"{stem}_launch")
+    return scores, ids
+
+
+def _check_packed_dim(d: int, what: str) -> None:
+    if d > _PACKED_MAX_DIM:
+        raise ValueError(
+            f"{what} caps D at {_PACKED_MAX_DIM} (int32 range proof); "
+            f"got D={d} — use the per-row int8 scan instead"
+        )
+
+
+def scan_bucketed_topk_packed(
+    queries_i8: torch.Tensor,
+    q_scale: torch.Tensor,
+    db_i8: torch.Tensor,
+    db_norms: torch.Tensor,
+    db_scale: torch.Tensor | None,
+    *,
+    n_buckets: int = 1024,
+    query_block: int = _TPU_QUERY_BLOCK,
+    db_tile: int = _TPU_DB_TILE,
+    n_valid: int | None = None,
+    cut_kk: int | None = None,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Fused L2 scan with the packed-int32 fold (B2), the JAX function's
+    contract (`flat_scan_pallas.py:832`): int8 queries with one `q_scale`
+    for the batch, int8 rows with one `db_scale`, both from
+    `quantize_int8_global`; `db_norms` [N] f32 squared norms of the f32
+    rows. Returns (scores [B, NB] — the packed ints as f32, order-correct,
+    not distances — and ids [B, NB], -1 for empty buckets). NB widens until
+    the physical rows make at most 256 segments (`_packed_layout`).
+
+    With `n_valid` the rows are a pre-padded table from
+    `build_packed_scan_table` and `db_norms` its nf row. `cut_kk` fuses the
+    candidate cut and returns (None, ids [B, cut_kk]). `query_block` and
+    `db_tile` are the reference's TPU tile requests: they size no block
+    here, but they set NB's widening, the pad rows scanned and the
+    ValueError where the reference finds no block that fits."""
+    args = _packed_fold_operands(
+        queries_i8, q_scale, db_i8, db_norms, db_scale, n_buckets=n_buckets,
+        query_block=query_block, db_tile=db_tile, n_valid=n_valid, cut_kk=cut_kk)
+    if queries_i8.is_cuda:
+        return _packed_cuda("packed_scan", *args)
+    return scan_bucketed_topk_packed_ref(*args)
+
+
+def _packed_fold_operands(queries_i8, q_scale, db_i8, db_norms, db_scale, *, n_buckets,
+                          query_block, db_tile, n_valid, cut_kk):
+    """`scan_bucketed_topk_packed`'s arguments in the kernel's own contract:
+    (q, inv_qs, db, nf, nb, n_scan, n, cut_kk), the positional arguments of
+    `scan_bucketed_topk_packed_ref` and of the kernel's launcher."""
+    b, d = queries_i8.shape
+    _check_packed_dim(d, "packed scan")
+    n_phys = db_i8.shape[0]  # physical rows: segment ids must cover pads too
+    nb, tile, qb, pad_n = _packed_layout(
+        n_phys, d, n_buckets, query_block, db_tile, batch=b,
+        scratch_row_bytes=_cut_scratch_row_bytes(cut_kk))
+    if qb == 0:
+        raise ValueError(
+            f"packed scan geometry (N={n_phys}, NB={nb}, T={tile}) exceeds the "
+            "reference's scoped-VMEM budget at any query block — use the "
+            "per-row int8/bf16 scan for databases this large"
+        )
+    q, inv_qs, db, nf, n = _packed_operands(queries_i8, q_scale, db_i8, db_norms, db_scale, n_valid)
+    return q, inv_qs, db, nf, nb, n_phys + pad_n, n, cut_kk
+
+
+scan_bucketed_topk_packed.launches = 0
+
+
+def scan_bucketed_topk_hier(
+    queries_i8: torch.Tensor,
+    q_scale: torch.Tensor,
+    db_i8: torch.Tensor,
+    db_norms: torch.Tensor,
+    db_scale: torch.Tensor | None,
+    *,
+    n_buckets: int = 512,
+    query_block: int = _TPU_QUERY_BLOCK,
+    db_tile: int = _TPU_DB_TILE,
+    pipelined: bool = False,
+    n_valid: int | None = None,
+    cut_kk: int | None = None,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Fused L2 scan with the hierarchical packed fold (B3), the JAX
+    function's contract (`flat_scan_pallas.py:562`). Same inputs as
+    `scan_bucketed_topk_packed`; NB stays at the requested width at any N.
+    Returns (scores [B, NB] — integer score units as f32 — and ids
+    [B, NB], -1 for empty buckets), or with `cut_kk` (None, ids
+    [B, cut_kk]).
+
+    `pipelined` runs B6, the kernel that overlaps one tile's product with
+    the previous tile's fold; its output is B3's. As in the reference it
+    narrows the TPU tile to 2 * NB (which can change the pad rows scanned)
+    and rejects `cut_kk`."""
+    args = _hier_fold_operands(
+        queries_i8, q_scale, db_i8, db_norms, db_scale, n_buckets=n_buckets,
+        query_block=query_block, db_tile=db_tile, pipelined=pipelined,
+        n_valid=n_valid, cut_kk=cut_kk)
+    if queries_i8.is_cuda:
+        return _packed_cuda("hier_scan", *args, pipelined=pipelined)
+    return scan_bucketed_topk_hier_ref(*args)
+
+
+def _hier_fold_operands(queries_i8, q_scale, db_i8, db_norms, db_scale, *, n_buckets,
+                        query_block, db_tile, pipelined, n_valid, cut_kk):
+    """`scan_bucketed_topk_hier`'s arguments in the kernels' own contract
+    (see `_packed_fold_operands`)."""
+    b, d = queries_i8.shape
+    _check_packed_dim(d, "packed folds")
+    n_phys = db_i8.shape[0]
+    n = n_valid if n_valid is not None else n_phys
+    if pipelined and cut_kk is not None:
+        raise ValueError("cut_kk is not supported on the pipelined variant")
+    nb, tile, qb, pad_n = _hier_layout(
+        n_phys, n, d, n_buckets, query_block, db_tile, batch=b, cut_kk=cut_kk,
+        pipelined=pipelined)
+    if qb == 0:
+        raise ValueError(
+            f"hier scan geometry (N={n}, NB={nb}, T={tile}) exceeds the "
+            "reference's scoped-VMEM budget at any query block"
+        )
+    q, inv_qs, db, nf, n = _packed_operands(queries_i8, q_scale, db_i8, db_norms, db_scale, n_valid)
+    return q, inv_qs, db, nf, nb, n_phys + pad_n, n, cut_kk
+
+
+scan_bucketed_topk_hier.launches = 0
+scan_bucketed_topk_hier.launches_pipelined = 0  # B6
+
+
+# --- the fused search -------------------------------------------------------------
 
 
 def _rerank(queries, vectors_f32, scores, ids, k, kk, m):
@@ -346,32 +888,51 @@ def flat_search_fused(
     n_buckets: int = 512,
     rerank_mult: int = 4,
     db_scales: torch.Tensor | None = None,
+    db_scale_global: torch.Tensor | None = None,
     rerank_width: int | None = None,
+    db_nf: torch.Tensor | None = None,
     n_valid: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exhaustive top-k through the fused scan (B1), the cut (B4) and an
-    exact f32 rerank: (dists [B, k] ascending, ids [B, k]). The per-row
-    branch of the JAX function (`flat_scan_pallas.py:1049`); the rules
-    that change results come across unchanged:
+    """Exhaustive top-k through a fused scan, a candidate cut and an exact
+    f32 rerank: (dists [B, k] ascending, ids [B, k]) — the JAX function
+    (`flat_scan_pallas.py:1049`). The rules that change results come
+    across unchanged:
 
       - NB widens with k until the bucket-collision bound holds;
       - exact brute force when k exceeds the effective NB (tiny DBs);
       - exact brute force when no TPU query block fits 16 MB of VMEM;
       - kk = max(rerank_mult*k, 32), or the pinned `rerank_width`.
 
-    int8: `vectors_q` holds int8 codes with `db_scales` (or, with
-    `n_valid`, the pre-padded table and its [2, Npad] norm block in the
-    `norms_sq` position). bf16: `vectors_q` is the bf16 scan copy.
-    Cosine expects the scan copy pre-normalized (FlatIndex does that)."""
+    Per-row int8 (B1 + B4): `vectors_q` holds int8 codes with `db_scales`
+    (or, with `n_valid`, the pre-padded table and its [2, Npad] norm block
+    in the `norms_sq` position). bf16: `vectors_q` is the bf16 scan copy.
+    Cosine expects the scan copy pre-normalized (FlatIndex does that).
+
+    Packed int8 (`db_scale_global` given; l2 and cosine): `vectors_q` holds
+    codes from `quantize_int8_global` and `norms_sq` the scan copy's
+    squared norms, or with `n_valid` the table of `build_packed_scan_table`
+    with its nf row in `db_nf`. The queries take ONE scale for the whole
+    batch, so splitting a batch changes ids. `plan_packed_search` picks
+    the fold (B2 or B3) and fuses the cut when kk <= 64; wider cuts go
+    through the f32 scores and B4."""
     m = Metric(metric)
     b, d = queries.shape
-    n = n_valid if n_valid is not None else vectors_q.shape[0]
+    n_phys = vectors_q.shape[0]
+    n = n_valid if n_valid is not None else n_phys
     int8 = vectors_q.dtype == torch.int8
-    if n_valid is not None and (not int8 or norms_sq.ndim != 2):
-        raise ValueError(
-            "n_valid with the per-row path needs int8 codes plus the "
-            "[2, Npad] norm block from build_rowscan_table"
-        )
+    packed = db_scale_global is not None
+    if packed and m == Metric.DOT:
+        raise ValueError("the packed-int32 scan supports l2/cosine only")
+    if n_valid is not None:
+        if packed and db_nf is None:
+            raise ValueError(
+                "n_valid with the packed path needs db_nf from build_packed_scan_table"
+            )
+        if not packed and (not int8 or norms_sq.ndim != 2):
+            raise ValueError(
+                "n_valid with the per-row path needs int8 codes plus the "
+                "[2, Npad] norm block from build_rowscan_table"
+            )
     while n_buckets < min(50 * (k - 1), 1 << 15):
         n_buckets *= 2
     eff_nb = n_buckets
@@ -380,6 +941,9 @@ def flat_search_fused(
     if k > eff_nb:
         return brute_force_topk(queries, vectors_f32, k, metric)
     kk = max(rerank_mult * k, 32) if rerank_width is None else max(rerank_width, k)
+    if packed:
+        return _packed_search(queries, vectors_q, norms_sq, vectors_f32, k, kk, m,
+                              n_buckets, db_scale_global, db_nf, n_valid)
     db_tile = max(_TPU_DB_TILE, n_buckets)
     # A TPU rule, kept only so the port returns what the JAX package
     # returns: where no Pallas query block fits the 16 MB scoped VMEM
@@ -405,4 +969,32 @@ def flat_search_fused(
         qb, vectors_q, norms_sq, n_buckets=n_buckets, use_norms=use_norms,
         q_scales=q_scales, db_scales=db_scales, n_valid=n_valid,
     )
+    return _rerank(queries, vectors_f32, scores, ids, k, kk, m)
+
+
+def _packed_search(queries, codes, norms_sq, vectors_f32, k, kk, m, n_buckets,
+                   db_scale_global, db_nf, n_valid):
+    """The packed branch of `flat_search_fused`. Cosine rides the L2 fold:
+    on a normalized database copy with normalized queries, L2 order is
+    cosine order, and the rerank computes the true cosine distances."""
+    b, d = queries.shape
+    n_phys = codes.shape[0]
+    n = n_valid if n_valid is not None else n_phys
+    plan = plan_packed_search(n_phys, n, d, b, n_buckets, kk)
+    if plan.fold == "brute":
+        return brute_force_topk(queries, vectors_f32, k, m)
+    if m == Metric.COSINE:
+        qf = queries / (torch.linalg.vector_norm(queries, dim=-1, keepdim=True) + 1e-12)
+    else:
+        qf = queries
+    q_i8, q_scale = quantize_int8_global(qf)  # one scale for the whole batch
+    # the wrapper rebuilds the plan's geometry from the same tile requests
+    # (the plan already applied its "no block fits" rule)
+    scan = scan_bucketed_topk_hier if plan.fold == "hier" else scan_bucketed_topk_packed
+    scores, ids = scan(
+        q_i8, q_scale, codes, db_nf if n_valid is not None else norms_sq,
+        db_scale_global, n_buckets=n_buckets, query_block=plan.query_block,
+        db_tile=plan.db_tile, n_valid=n_valid, cut_kk=plan.cut_kk)
+    if plan.cut_kk is not None:
+        return rerank_exact_topk(queries, vectors_f32, ids, k, m)
     return _rerank(queries, vectors_f32, scores, ids, k, kk, m)

@@ -22,6 +22,12 @@ import diskrag_tpu_torch.cli, diskrag_tpu_torch.convert, diskrag_tpu_torch.engin
 import diskrag_tpu_torch.data, diskrag_tpu_torch.index.persist
 import diskrag_tpu_torch.kernels._build, diskrag_tpu_torch.ops.flat_scan
 import diskrag_tpu_torch.ops.flat
+from diskrag_tpu_torch.ops.flat_scan import (
+    build_packed_scan_table, epilogue_cut_ids_ref, plan_packed_search,
+    quantize_int8_global, scan_bucketed_topk_hier, scan_bucketed_topk_hier_ref,
+    scan_bucketed_topk_packed, scan_bucketed_topk_packed_ref,
+)
+from diskrag_tpu_torch.benchmark import SweepPoint, adaptive_flat_point, sweep_flat
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "diskrag_tpu."))
              or m == "diskrag_tpu")
@@ -98,21 +104,43 @@ def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
     assert vals.shape == ids.shape == (5, 256)  # NB 512 halves below N
     lanes = fs.topk_lanes(vals, 8)
     assert lanes.shape == (5, 8)
+    codes, nf, scale, n = fs.build_packed_scan_table(x)
+    qc, qs = fs.quantize_int8_global(x[:5])
+    for scan in (fs.scan_bucketed_topk_packed, fs.scan_bucketed_topk_hier):
+        vals, ids = scan(qc, qs, codes, nf, scale, n_valid=n)
+        assert vals.shape == ids.shape and ids.shape[0] == 5
+        assert scan(qc, qs, codes, nf, scale, n_valid=n, cut_kk=8)[1].shape == (5, 8)
+    fs.scan_bucketed_topk_hier(qc, qs, codes, nf, scale, n_valid=n, pipelined=True)
     assert fs.scan_bucketed_topk.launches == 0
     assert fs.topk_lanes.launches == 0
+    assert fs.scan_bucketed_topk_packed.launches == 0
+    assert fs.scan_bucketed_topk_hier.launches == 0
+    assert fs.scan_bucketed_topk_hier.launches_pipelined == 0
 
 
 def test_kernel_build_is_keyed_by_source_hash():
     from diskrag_tpu_torch.kernels import _build
 
     srcs = sorted(_build.CSRC.glob("*.cu"))
-    assert [s.stem for s in srcs] == ["flat_scan", "topk_lanes"]
+    assert [s.stem for s in srcs] == ["flat_scan", "hier_scan", "packed_scan", "topk_lanes"]
     paths = {_build._lib_path(s) for s in srcs}
-    assert len(paths) == 2
+    assert len(paths) == 4
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     with pytest.raises(RuntimeError, match="CUDA error 7"):
         _build.check(7, "x")
+
+
+def test_kernel_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    from diskrag_tpu_torch.kernels import _build
+
+    assert [h.name for h in _build.CSRC.glob("*.cuh")] == ["packed_common.cuh"]
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._lib_path(tmp_path / "a.cu")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._lib_path(tmp_path / "a.cu") != before  # an edited header rebuilds
 
 
 @pytest.mark.parametrize("cut", ["fused_precision", "build", "engine"])
@@ -122,8 +150,12 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
 
     pts = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     if cut == "fused_precision":
-        with pytest.raises(NotImplementedError, match="B2, B3"):
-            FlatIndex(pts, fused_precision="int8_packed", device="cpu")
+        # every precision of the reference is served now; an unknown one is
+        # refused rather than served as something else
+        assert FlatIndex(pts, fused_precision="int8_packed",
+                         device="cpu")._fused_db_scale_global is not None
+        with pytest.raises(ValueError, match="fused_precision"):
+            FlatIndex(pts, fused_precision="int4_packed", device="cpu")
     elif cut == "build":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_index_from_vectors(pts, tmp_path, index_type="vamana", device="cpu")
