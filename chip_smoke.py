@@ -9,8 +9,12 @@ sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000 queries, k = 10)
 through `build_index_from_vectors` and `SearchEngine.search_batch` — with
 the per-row int8 scan (kernels B1, B4) and with `flat_precision:
 int8_packed` (kernels B2, B3) — runs the pipelined fold (B6) through its
-wrapper at the 1M shape, and checks recall@10 against an exact ground
-truth. Every phase prints one JSON line; the line before the last is the
+wrapper at the 1M shape, builds the Vamana graph at 200,000 x 128 on the
+card (B1 and B4 inside its kNN pass), sweeps exact and PQ-guided
+traversal over it (the gathered ADC lookup, kernel B5), serves the
+default vamana configuration through the same entry points, and checks
+recall@10 against an exact ground truth. Every phase prints one JSON
+line; the line before the last is the
 card's name and power limit as nvidia-smi gives them, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -18,10 +22,18 @@ card's name and power limit as nvidia-smi gives them, and the last line is
 Any failure (no card, a build error, a mismatch, low recall, a kernel the
 main path did not launch) exits non-zero before that line. Nothing here
 imports jax or the JAX package.
+
+    python3 chip_smoke.py --graph-n 1000000
+
+runs the graph phase alone (build, PQ fit, both sweeps, launch counts) at
+that many points instead of 200,000, prints its lines and the card, and
+ends without the last line above: a measurement at another size, not the
+smoke test.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import shutil
@@ -71,6 +83,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one fn() call: the summed durations of every device
+    operation `torch.profiler` (CUPTI) records over `reps` calls, after a
+    warm-up. Unlike `cuda_ms` it leaves out the gaps between launches, so
+    it is the figure for a kernel shorter than the host's time to launch
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / reps
+
+
 def b1_bound_ms(b: int, n: int, d: int, nb: int) -> tuple[float, str]:
     """Least time for B1's int8 work over the n valid rows (the table's
     pad rows cannot change the result): the products (2 ops per
@@ -102,6 +134,120 @@ def packed_bound_ms(b: int, n: int, d: int, out_ints: int) -> tuple[float, str]:
     t_ops = 2.0 * b * n * d / PEAK_INT8_OPS
     t_bytes = (n * d + n * 4 + b * d + b * out_ints * 4) / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def b5_bound_ms(tables, codes) -> tuple[float, str]:
+    """Least time for B5's work on these inputs: bytes only (there are m
+    adds per candidate and no products). Each code byte read once, each
+    output written once, and each table entry that these codes address
+    read once — the distinct (query, subspace, code) triples, at most
+    min(C, 256) of a row's 256 entries, counted from the data — at HBM
+    bandwidth. Staging a whole table is a kernel's choice, not part of
+    the function, so entries no code addresses do not count."""
+    import torch
+
+    b, c, m = codes.shape
+    used = torch.zeros((b, m, 256), dtype=torch.bool, device=codes.device)
+    used.scatter_(2, codes.transpose(1, 2).long(), True)
+    t_bytes = (b * c * m + 4 * int(used.sum()) + 4 * b * c) / PEAK_BYTES
+    t_ops = b * c * m / PEAK_F32_OPS
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+B5_SHAPES = ((250, 192, 32), (1000, 48, 32), (1000, 24, 16), (1, 48, 64), (37, 5, 8))
+
+
+def b5_row(tables, codes, reps: int = 50) -> dict:
+    """B5's wrapper on card tensors against its plain version (same order
+    of adds: bit-identical), then timed beside the plain version, the one
+    PyTorch call that computes the same function (`torch.gather` + `sum`)
+    and its bound. B5 runs for a few microseconds, less than the host
+    takes to launch it, so `ms`, `plain_ms` and `library_ms` are times on
+    the device alone (`device_ms`, profiler); the `*_launch_to_launch`
+    keys are CUDA events around back-to-back calls, as the longer kernels
+    are timed, and measure the host's launch path here."""
+    import torch
+
+    from diskrag_tpu_torch.ops import pq_scan
+
+    b, m, _ = tables.shape
+    c = codes.shape[1]
+    got = pq_scan.adc_lookup_gathered_kernel(tables, codes)
+    want = pq_scan.adc_lookup_gathered_ref(tables, codes)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    err = float((got - want).abs().max())
+    require(mismatches == 0, f"B5 differs from its plain version at (B, C, m) = {(b, c, m)}: "
+            f"{mismatches} entries, max_abs_err {err}")
+    idx = codes.long().transpose(1, 2)
+    bound, by = b5_bound_ms(tables, codes)
+    return {"b": b, "c": c, "m": m, "max_abs_err": err, "mismatches": mismatches,
+            "match": "bit-identical",
+            "ms": device_ms(lambda: pq_scan.adc_lookup_gathered_kernel(tables, codes), 20),
+            "plain_ms": device_ms(lambda: pq_scan.adc_lookup_gathered_ref(tables, codes), 5),
+            "library_ms": device_ms(lambda: torch.gather(tables, 2, idx).sum(1), 20),
+            "ms_launch_to_launch": cuda_ms(
+                lambda: pq_scan.adc_lookup_gathered_kernel(tables, codes), reps),
+            "plain_ms_launch_to_launch": cuda_ms(
+                lambda: pq_scan.adc_lookup_gathered_ref(tables, codes), 10),
+            "library_ms_launch_to_launch": cuda_ms(
+                lambda: torch.gather(tables, 2, idx).sum(1), reps),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_b5_kernels() -> None:
+    """B5 against its plain version at the sweep's shape, the engine's
+    shapes, one table above the default 48 KB of shared memory (m = 64) and
+    a ragged one."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for b, c, m in B5_SHAPES:
+        tables = torch.rand((b, m, 256), generator=g, device=dev) * 40.0
+        codes = torch.randint(0, 256, (b, c, m), generator=g, device=dev, dtype=torch.uint8)
+        emit({"phase": "kernels", "kernel": "B5", **b5_row(tables, codes)})
+
+
+def phase_build_shape_kernels(pts, smi: str) -> dict:
+    """B1 and B4 at the shapes the graph build's kNN pass hands them: a
+    block of 4096 database rows as queries over the 200k table at
+    NB = 4096, then the cut to kk = 4 * 65 = 260 lanes. Both bit-identical
+    to their plain versions; timed and bounded."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    dev = torch.device("cuda", 0)
+    pts_d = torch.as_tensor(pts, device=dev)
+    codes, block, _, n = fs.build_rowscan_table(pts_d)
+    codes = fs.align_code_rows(codes)
+    b, nb, kk = 4096, 4096, 260
+    qc, qs = fs.quantize_int8(pts_d[:b])
+    args, kw = (qc, codes, block), dict(n_buckets=nb, use_norms=True, q_scales=qs, n_valid=n)
+    vals, row = compare_b1(*args, **kw)
+    ops = fs._scan_operands(*args, db_scales=None, **kw)
+    lk, lr = fs.topk_lanes(vals, kk), fs.topk_lanes_ref(vals, kk)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(lk, lr)), f"B4 differs at NB={nb} kk={kk}")
+    b1_bound, b1_by = b1_bound_ms(b, n, pts.shape[1], nb)
+    b4_bound, b4_by = b4_bound_ms(b, nb, kk)
+    out = {
+        "B1": {"b": b, "n": n, "nb": nb, "match": row["match"], "max_abs_err": row["max_abs_err"],
+               "ms": cuda_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 5),
+               "plain_ms": cuda_ms(lambda: fs.scan_bucketed_topk_ref(*ops), 1),
+               "bound_ms": b1_bound, "bound_by": b1_by},
+        "B4": {"b": b, "nb": nb, "kk": kk, "match": "bit-identical",
+               "max_abs_err": float((lk - lr).abs().max()),
+               "ms": cuda_ms(lambda: fs.topk_lanes(vals, kk), 10),
+               "plain_ms": cuda_ms(lambda: fs.topk_lanes_ref(vals, kk), 5),
+               "library_ms": cuda_ms(lambda: torch.topk(vals, kk, dim=1), 10),
+               "bound_ms": b4_bound, "bound_by": b4_by},
+    }
+    emit({"phase": "kernels", "case": "graph-build shapes", "card": smi, **out})
+    del pts_d, codes, vals
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_device() -> dict:
@@ -373,7 +519,8 @@ def phase_packed_kernels() -> None:
     torch.cuda.empty_cache()
 
 
-def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8") -> dict:
+def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8",
+                  l_search: int | None = None, watch: tuple[str, ...] = ()) -> dict:
     """Device time by kernel name per `search_batch` (torch.profiler,
     CUPTI; one warm-up step first, since the profiler can miss kernels at
     its start) and the device's idle share of the profiled host time."""
@@ -388,7 +535,7 @@ def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8") -> dict
                  on_trace_ready=lambda p: events.extend(p.events())) as prof:
         for i in range(steps + 1):
             t = time.perf_counter()
-            engine.search_batch(q, k=MAIN_K)
+            engine.search_batch(q, k=MAIN_K, l_search=l_search)
             if i:
                 wall_ms += (time.perf_counter() - t) * 1e3
             prof.step()
@@ -398,7 +545,12 @@ def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8") -> dict
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    watched = {w: sum(v for k, v in by_name.items() if w in k) for w in watch}
     return {
+        **({"device_ms_watched_per_batch": watched,
+            "device_launches_per_batch": sum(
+                1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")) / steps} if watch else {}),
         "phase": "profile", "path": path, "batches": steps,
         "wall_ms_per_batch": wall_ms / steps,
         "device_busy_ms_per_batch": busy,
@@ -407,10 +559,12 @@ def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8") -> dict
     }
 
 
-def serve(base, name: str, pts, precision: str):
-    """Persist `pts` as collection `name` with a flat index of the given
-    precision and load it into a `SearchEngine` on the card — the entry
-    points a user's `index` and `search` commands go through."""
+def serve(base, name: str, pts, precision: str | None):
+    """Persist `pts` as collection `name`, build its index — a flat one of
+    the given precision, or with `precision=None` whatever `index_type=
+    "auto"` and the defaults give — and load it into a `SearchEngine` on
+    the card: the entry points a user's `index` and `search` commands go
+    through. Returns (engine, meta)."""
     import numpy as np
 
     from diskrag_tpu_torch.build_index import build_index_from_vectors
@@ -425,35 +579,53 @@ def serve(base, name: str, pts, precision: str):
         name=name, config={}, dimension=pts.shape[1], num_vectors=len(pts),
         created_at="", updated_at="", source_files=[],
     ))
-    meta = build_index_from_vectors(pts, mgr.get_index_dir(name), index_type="flat",
-                                    flat_precision=precision, device="cuda")
-    require(meta["index_type"] == "flat" and meta["flat_precision"] == precision,
-            "build did not make the requested flat index")
+    if precision is None:
+        meta = build_index_from_vectors(pts, mgr.get_index_dir(name), index_type="auto",
+                                        device="cuda")
+    else:
+        meta = build_index_from_vectors(pts, mgr.get_index_dir(name), index_type="flat",
+                                        flat_precision=precision, device="cuda")
+        require(meta["index_type"] == "flat" and meta["flat_precision"] == precision,
+                "build did not make the requested flat index")
     engine = SearchEngine(name, base_dir=str(base), device="cuda")
     require(bool(engine.diagnostics and engine.diagnostics["passed"]),
             f"startup diagnostic failed: {engine.diagnostics}")
-    return engine
+    return engine, meta
 
 
-def drive(engine, q, reps: int):
-    """`reps` timed `search_batch` calls with every launch count set to 0
-    just before and read just after: (dists, ids, stats, seconds per
-    batch, launches by kernel)."""
+def reset_counts() -> None:
     from diskrag_tpu_torch.ops import flat_scan as fs
+    from diskrag_tpu_torch.ops import pq_scan
 
     fs.reset_launch_counts()
-    batch_s = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        dists, ids, stats = engine.search_batch(q, k=MAIN_K)
-        batch_s.append(time.perf_counter() - t)
-    launches = {
+    pq_scan.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from diskrag_tpu_torch.ops import flat_scan as fs
+    from diskrag_tpu_torch.ops import pq_scan
+
+    return {
         "B1": fs.scan_bucketed_topk.launches, "B4": fs.topk_lanes.launches,
         "B2": fs.scan_bucketed_topk_packed.launches,
         "B3": fs.scan_bucketed_topk_hier.launches,
         "B6": fs.scan_bucketed_topk_hier.launches_pipelined,
+        "B5": pq_scan.adc_lookup_gathered_kernel.launches,
     }
-    return dists, ids, stats, batch_s, launches
+
+
+def drive(engine, q, reps: int, l_search: int | None = None):
+    """`reps` timed `search_batch` calls with every launch count set to 0
+    just before and read just after: (dists, ids, stats of every call,
+    seconds per batch, launches by kernel)."""
+    reset_counts()
+    batch_s, all_stats = [], []
+    for _ in range(reps):
+        t = time.perf_counter()
+        dists, ids, stats = engine.search_batch(q, k=MAIN_K, l_search=l_search)
+        batch_s.append(time.perf_counter() - t)
+        all_stats.append(stats)
+    return dists, ids, all_stats, batch_s, read_counts()
 
 
 def phase_main(smi: str, base, pts, q, gt) -> dict:
@@ -466,11 +638,12 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
     from diskrag_tpu_torch.ops import flat_scan as fs
 
     t0 = time.perf_counter()
-    engine = serve(base, "bench_1m", pts, "int8")
+    engine, _ = serve(base, "bench_1m", pts, "int8")
     setup_s = time.perf_counter() - t0
 
     reps = 5
-    dists, ids, stats, batch_s, launches = drive(engine, q, reps)
+    dists, ids, all_stats, batch_s, launches = drive(engine, q, reps)
+    stats = all_stats[-1]
     require(launches["B1"] == reps and launches["B4"] == reps,
             f"main path did not launch B1 and B4 once per batch: {launches}")
     require(ids.shape == (MAIN_B, MAIN_K) and dists.shape == (MAIN_B, MAIN_K),
@@ -516,6 +689,7 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
     b4_ms = cuda_ms(lambda: fs.topk_lanes(vals, kk), 50)
     b4_plain = cuda_ms(lambda: fs.topk_lanes_ref(vals, kk), 20)
     b4_lib = cuda_ms(lambda: torch.topk(vals, kk, dim=1), 50)
+    b4_device = device_ms(lambda: fs.topk_lanes(vals, kk), 20)
     b1_bound, b1_by = b1_bound_ms(MAIN_B, n_valid, MAIN_D, nb)
     b4_bound, b4_by = b4_bound_ms(MAIN_B, nb, kk)
     kernels = [
@@ -530,7 +704,7 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
          "replaces": "diskrag_tpu/ops/flat_scan_pallas.py:1244",
          "launches": launches["B4"], "max_abs_err": b4_err, "match": "bit-identical",
          "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": b4_bound, "bound_by": b4_by,
-         "library_ms": b4_lib},
+         "library_ms": b4_lib, "device_ms": b4_device},
     ]
     del engine, flat, pts_d, q_d, vals
     torch.cuda.empty_cache()
@@ -597,7 +771,7 @@ def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
                                            (MAIN_N, ("hier", "B3", 512))):
         pts, q, gt = sets[n_pts]
         t0 = time.perf_counter()
-        engine = serve(base, f"packed_{n_pts}", pts, "int8_packed")
+        engine, _ = serve(base, f"packed_{n_pts}", pts, "int8_packed")
         setup_s = time.perf_counter() - t0
         flat = engine.flat
         require(flat._fused_db_scale_global is not None, "the index is not packed")
@@ -605,7 +779,8 @@ def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
                                      MAIN_B, 512, 40)
         require((plan.fold, plan.nb, plan.cut_kk) == (fold, want_nb, 40),
                 f"n={n_pts}: routed to {plan}, expected {fold} at NB={want_nb}")
-        dists, ids, stats, batch_s, launches = drive(engine, q, reps)
+        dists, ids, all_stats, batch_s, launches = drive(engine, q, reps)
+        stats = all_stats[-1]
         others = {k: v for k, v in launches.items() if k != kernel}
         require(launches[kernel] == reps and not any(others.values()),
                 f"n={n_pts}: expected {reps} launches of {kernel} and no other: {launches}")
@@ -680,6 +855,194 @@ def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], **rows[k]} for k in ("B2", "B3", "B6")]
 
+# recall@10 that the JAX package records on this dataset (200,000 x 128,
+# seed 42) for a graph of degree 48, alpha 1.2 (benchmarks/last_bench_tpu.json):
+# recall is a property of the algorithm, so a graph built by the port,
+# which draws other random numbers, is held to these within a margin
+REFERENCE_GRAPH_RECALL = {
+    ("exact", 16, 8): 0.9948, ("exact", 16, 12): 0.9904,
+    ("rpq32+rerank", 32, 4): 0.9393, ("rpq32+rerank", 64, 4): 0.9896,
+}
+
+
+# recall@10 the default-parameter index (R = 24, residual PQ m = 16) must
+# reach at l_search = 64 on the 200k set. 16 subvectors of 8 dimensions
+# order neighbours too coarsely for 0.95 at that width (measured 0.8489 on
+# an H100; the m = 32 sweep above reaches 0.991 at the same L with E = 4):
+# the gate sits 0.01 under what the defaults reach, and the engine's own
+# default width (the build's recommended L) is printed beside it
+VAMANA_RECALL_GATE = 0.838
+
+
+@contextlib.contextmanager
+def _no_gather_adc():
+    """While active, the gather formulation of the ADC lookup counts its
+    calls: the PQ-guided traversal must not reach it on the card."""
+    from diskrag_tpu_torch.pq import product_quantizer as tpq
+    from diskrag_tpu_torch.pq import residual as tres
+
+    calls = {"n": 0}
+    real = tpq.adc_lookup_gathered
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+
+    tpq.adc_lookup_gathered = tres.adc_lookup_gathered = counted
+    try:
+        yield calls
+    finally:
+        tpq.adc_lookup_gathered = tres.adc_lookup_gathered = real
+
+
+def phase_main_graph(smi: str, pts, q, gt) -> dict:
+    """The graph path: build the degree-48 graph on the card (B1 and B4 in
+    its kNN pass), train and encode a 32-subvector residual PQ, then sweep
+    exact traversal (L = 16, E = 8 and 12) and PQ-guided traversal + rerank
+    (L = 32 and 64, E = 4; B5 once per executed round). The recall limits
+    and the JAX package's recorded recalls belong to the bench's core-stage
+    size (200,000 points) and apply there only."""
+    import torch
+
+    from diskrag_tpu_torch.benchmark import sweep_exact, sweep_pq
+    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+    from diskrag_tpu_torch.pq import ResidualPQ
+
+    stages: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    index = build_vamana_knn(pts, degree_bound=48, alpha=1.2, seed=0, device="cuda",
+                             stage_seconds=stages)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = read_counts()
+    require(build_launches["B1"] > 0 and build_launches["B4"] == build_launches["B1"],
+            f"the graph build did not go through B1 and B4: {build_launches}")
+    adj = index.adjacency
+    n = adj.shape[0]
+    require(adj.shape == (n, 48) and int(adj.max()) < n and int(adj.min()) >= -1,
+            "adjacency out of range")
+    require(not bool((adj == torch.arange(n, device=adj.device)[:, None]).any()), "self edges")
+    emit({"phase": "main-graph", "step": "build", "n": n, "d": pts.shape[1], "degree_bound": 48,
+          "alpha": 1.2, "build_seconds": build_s, "stage_seconds": stages,
+          "launches": build_launches, "mean_degree": float(index.degrees().float().mean()),
+          "entry_points": int(index.entry_points.shape[0]),
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+
+    points = sweep_exact(index, q, gt, k=MAIN_K, widths=(16,), expand_widths=(8, 12),
+                         min_seconds=0.5)
+    t0 = time.perf_counter()
+    rpq = ResidualPQ(32, device="cuda").fit(pts, seed=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes, cells = rpq.encode(pts)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+
+    # the counts set to 0 just before the PQ sweep and read just after: B5
+    # must be launched once per round the sweep reports having executed
+    # (rounds of a pass x passes, warm-up included), the gather formulation never
+    reset_counts()
+    with _no_gather_adc() as gather_calls:
+        pq_points = sweep_pq(index, rpq, codes, q, gt, k=MAIN_K, widths=(32, 64),
+                             expand_widths=(4,), coarse_ids=cells, min_seconds=0.5)
+    b5_launches = read_counts()["B5"]
+    rounds = sum(p.rounds * p.passes for p in pq_points)
+    require(b5_launches == rounds > 0 and gather_calls["n"] == 0,
+            f"B5 launches {b5_launches} != rounds executed {rounds} "
+            f"(gather formulation calls: {gather_calls['n']})")
+    points += pq_points
+    at_core_size = len(pts) == CMP_N
+    rows = []
+    for p in points:
+        ref = REFERENCE_GRAPH_RECALL[p.mode, p.search_width, p.expand_width]
+        rows.append({"mode": p.mode, "L": p.search_width, "E": p.expand_width,
+                     "recall_at_10": p.recall, "jax_package_recorded": ref if at_core_size else None,
+                     "qps": p.qps, "ms_per_1000_queries": p.mean_latency_ms * len(q),
+                     "rounds_per_pass": p.rounds, "passes": p.passes})
+    got = {(r["mode"], r["L"], r["E"]): r["recall_at_10"] for r in rows}
+    if at_core_size:
+        require(got["exact", 16, 8] >= 0.985,
+                f"exact recall@10 L=16/E=8 {got['exact', 16, 8]} < 0.985")
+        require(got["rpq32+rerank", 64, 4] >= 0.975,
+                f"rpq32 recall@10 L=64/E=4 {got['rpq32+rerank', 64, 4]} < 0.975")
+    emit({"phase": "main-graph", "step": "sweeps", "queries": len(q), "k": MAIN_K,
+          "rpq_fit_seconds": fit_s, "rpq_encode_seconds": encode_s, "points": rows,
+          "b5_launches_pq_sweep": b5_launches, "rounds_executed_pq_sweep": rounds,
+          "gather_formulation_calls": gather_calls["n"], "card": smi})
+    # B5 at the sweep's real operands (L = 64, E = 4 on a chunk of 250)
+    chunk = torch.as_tensor(q[:250], device="cuda")
+    nbrs = index.adjacency[index.adjacency[:250, :4].clamp_min(0).long()].reshape(250, -1)
+    row = b5_row(rpq.inner_tables(chunk).contiguous(), codes[nbrs.clamp_min(0).long()])
+    del index, codes, cells, rpq
+    torch.cuda.empty_cache()
+    return {"sweep_shape": row, "launches_pq_sweep": b5_launches}
+
+
+def phase_main_vamana(smi: str, base, pts, q, gt) -> dict:
+    """The default configuration through the normal entry points:
+    `build_index_from_vectors(index_type="auto")` (vamana from 100k points
+    up: R = 24, residual PQ with m = 16 at 200k), `SearchEngine`,
+    `search_batch` at l_search = 64 and once at the engine's default."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+
+    t0 = time.perf_counter()
+    engine, meta = serve(base, "vamana_200k", pts, None)
+    setup_s = time.perf_counter() - t0
+    require(meta["index_type"] == "vamana" and meta["use_pq"] and meta["pq_kind"] == "residual",
+            f"defaults did not build a vamana index with a residual PQ: {meta.get('index_type')}")
+    reps = 5
+    with _no_gather_adc() as gather_calls:
+        dists, ids, all_stats, batch_s, launches = drive(engine, q, reps, l_search=64)
+    stats = all_stats[-1]
+    rounds = sum(s["rounds"] for s in all_stats)
+    require(stats["search_type"] == "pq_accelerated", f"served as {stats['search_type']}")
+    others = {k: v for k, v in launches.items() if k != "B5"}
+    require(launches["B5"] == rounds > 0 and not any(others.values()) and gather_calls["n"] == 0,
+            f"expected {rounds} launches of B5 (one per round) and no other: {launches}")
+    require(ids.shape == (MAIN_B, MAIN_K) and bool(np.isfinite(dists).all())
+            and bool((np.diff(dists, axis=1) >= 0).all()), "distances not finite and ascending")
+    recall = recall_at_k(ids, gt, MAIN_K)
+    require(recall >= VAMANA_RECALL_GATE, f"vamana recall@10 {recall} < {VAMANA_RECALL_GATE} at l_search=64")
+    pts_d = torch.as_tensor(pts, device="cuda")
+    q_d = torch.as_tensor(q, device="cuda")
+    d0 = torch.sqrt(torch.sum((pts_d[torch.as_tensor(ids[:, 0], device="cuda").long()] - q_d) ** 2, -1))
+    d0_err = float(np.max(np.abs(dists[:, 0] - d0.cpu().numpy())))
+    require(d0_err <= 1e-2, f"returned distances off their ids' exact ones by {d0_err}")
+    med = float(np.median(batch_s))
+    # once at the engine's own default width (the build's recommended L)
+    t = time.perf_counter()
+    _, ids_def, stats_def = engine.search_batch(q, k=MAIN_K)
+    default_s = time.perf_counter() - t
+    emit({
+        "phase": "main-vamana", "n": len(pts), "d": pts.shape[1], "queries": MAIN_B, "k": MAIN_K,
+        "R": meta["R"], "L_build": meta["L"], "pq_kind": meta["pq_kind"],
+        "n_subvectors": meta["n_subvectors"], "pq_n_coarse": meta["pq_n_coarse"],
+        "build_seconds_graph": meta["build_seconds"], "setup_seconds": setup_s,
+        "l_search": 64, "recall_at_10": recall, "recall_gate": VAMANA_RECALL_GATE,
+        "qps": MAIN_B / med, "ms_per_batch_median": med * 1e3,
+        "ms_per_batch": [s * 1e3 for s in batch_s], "rounds_per_batch": rounds / reps,
+        "launches": launches, "launches_per_search_batch": {k: v / reps for k, v in launches.items()},
+        "search_type": stats["search_type"], "top1_dist_max_abs_err": d0_err,
+        "default_l_search": {"l_search": stats_def["L_search"], "rounds": stats_def["rounds"],
+                             "recall_at_10": recall_at_k(ids_def, gt, MAIN_K),
+                             "ms_per_batch": default_s * 1e3},
+        "card": smi,
+    })
+    emit(profile_batch(engine, q, path="vamana-200k-rpq16", l_search=64,
+                       watch=("adc_lookup_kernel",)))
+    # B5 at the engine's real operands: one round's gathered codes
+    tables, _ = engine._pq_serving_tables(q_d)
+    nbrs = engine.index.adjacency[:MAIN_B].clamp_min(0).long()
+    row = b5_row(tables.contiguous(), engine.codes_t[nbrs])
+    del engine, pts_d, q_d
+    torch.cuda.empty_cache()
+    return {"launches": launches["B5"], "rounds_per_batch": rounds / reps, **row}
+
 
 def main() -> int:
     try:
@@ -697,8 +1060,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
     dev = phase_device()
+    if sys.argv[1:2] == ["--graph-n"]:
+        from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
+
+        pts, q = make_dataset(int(sys.argv[2]), MAIN_D, MAIN_B, seed=42)
+        phase_main_graph(dev["smi"], pts, q, ground_truth(pts, q, MAIN_K, device="cuda"))
+        emit({"phase": "done", "seconds": time.perf_counter() - t0})
+        print(dev["smi"])
+        return 0
     phase_kernels()
     phase_packed_kernels()
+    phase_b5_kernels()
 
     from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
@@ -715,6 +1087,19 @@ def main() -> int:
     try:
         out = phase_main(dev["smi"], base, *sets[MAIN_N])
         out["kernels"] += phase_main_packed(dev["smi"], base, sets)
+        del sets[MAIN_N]
+        build_shapes = phase_build_shape_kernels(sets[CMP_N][0], dev["smi"])
+        for row in out["kernels"][:2]:  # B1, B4: their shapes inside the graph build
+            row["graph_build_shape"] = build_shapes[row["name"][:2]]
+        graph = phase_main_graph(dev["smi"], *sets[CMP_N])
+        b5 = phase_main_vamana(dev["smi"], base, *sets[CMP_N])
+        out["kernels"].append({
+            "name": "B5 adc_lookup (gathered ADC lookup of the PQ-guided traversal)",
+            "route": "cuda", "source": "diskrag_tpu_torch/csrc/adc_lookup.cu",
+            "replaces": "diskrag_tpu/ops/pq_scan.py:30", **b5,
+            "sweep_shape": graph["sweep_shape"],
+            "launches_pq_sweep": graph["launches_pq_sweep"],
+        })
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

@@ -1,6 +1,7 @@
 """diskrag_tpu_torch — the PyTorch/CUDA port of diskrag_tpu.
 
-Serves the flat (exhaustive) index on an NVIDIA Hopper card through
+Serves the Vamana graph (kNN-based build, exact and PQ-guided traversal)
+and the flat (exhaustive) index on an NVIDIA Hopper card through
 hand-written CUDA kernels (`csrc/`), with the JAX package's on-disk
 formats, entry points and results. It imports torch, never jax, and
 nothing of `diskrag_tpu`.
@@ -9,9 +10,13 @@ Layer map, mirroring the JAX package:
 
     interfaces     cli.py
     orchestration  engine.py, build_index.py, convert.py
+    measurement    benchmark.py
     data           data/
     index          index/persist.py
-    ops            ops/distance.py, ops/flat.py, ops/flat_scan.py
+    graph          graph/knn_build.py, graph/prune.py, graph/search.py
+    pq             pq/kmeans.py, pq/product_quantizer.py, pq/residual.py
+    ops            ops/distance.py, ops/flat.py, ops/flat_scan.py,
+                   ops/topk.py, ops/medoid.py, ops/pq_scan.py
     kernels        csrc/*.cu, built at first use by kernels/_build.py
     device         device.py (explicit device, cuda by default)
 """

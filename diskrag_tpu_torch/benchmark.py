@@ -1,8 +1,9 @@
 """Benchmark helpers — part of `diskrag_tpu/benchmark.py`: the seeded
 dataset (numpy, byte-identical to the JAX package's), recall@k, an exact
-tiled ground-truth oracle in PyTorch, and the flat-index sweep
-(`sweep_flat`, `adaptive_flat_point`) with its timing helper. A test,
-smoke and measurement tool, not on the search path.
+tiled ground-truth oracle in PyTorch, the graph sweeps (`sweep_exact`,
+`sweep_pq`) and the flat-index sweep (`sweep_flat`,
+`adaptive_flat_point`) with their timing helper. A test, smoke and
+measurement tool, not on the search path.
 """
 
 from __future__ import annotations
@@ -68,13 +69,19 @@ class SweepPoint:
     qps: float
     mean_latency_ms: float
     mode: str
+    expand_width: int = 1
+    # graph sweeps: traversal rounds executed by one pass over the queries
+    # (summed over its chunks), and the passes run (warm-up included)
+    rounds: int = 0
+    passes: int = 0
 
 
 def _measure(run, repeats: int, device: torch.device, min_seconds: float = 1.5):
     """Warm up, then time whole passes of `run()` on the host clock, each
     window closed by a device synchronize (PyTorch returns before the
     card finishes), growing the repeat count until a window lasts
-    `min_seconds`. Returns (seconds per pass, last result)."""
+    `min_seconds`. Returns (seconds per pass, last result, calls of
+    `run()` made in all, warm-up included)."""
 
     def sync():
         if device.type == "cuda":
@@ -83,21 +90,110 @@ def _measure(run, repeats: int, device: torch.device, min_seconds: float = 1.5):
     out = run()
     sync()
     reps = max(repeats, 1)
+    calls = 1
     while True:
         t0 = time.perf_counter()
         for _ in range(reps):
             out = run()
         sync()
         total = time.perf_counter() - t0
+        calls += reps
         if total >= min_seconds or reps >= 512:
-            return total / reps, out
+            return total / reps, out, calls
         reps *= min(16, max(2, int(min_seconds / max(total, 1e-3)) + 1))
+
+
+def _chunked(q: torch.Tensor, pipeline: int) -> list[torch.Tensor]:
+    step = -(-q.shape[0] // pipeline)
+    return [q[i : i + step] for i in range(0, q.shape[0], step)]
+
+
+def _graph_sweep(search_chunk, index, queries, gt, *, k, widths, expand_widths, repeats,
+                 pipeline, mode, min_seconds) -> list[SweepPoint]:
+    """One SweepPoint per (L, E): `search_chunk(chunk, L, E)` -> a
+    SearchResult for each of the `pipeline` query chunks, timed by
+    `_measure`."""
+    q = torch.as_tensor(np.asarray(queries, np.float32), device=index.device)
+    chunks = _chunked(q, pipeline)
+    points = []
+    for w in widths:
+        for e in expand_widths:
+            dt, out, passes = _measure(lambda: [search_chunk(c, w, e) for c in chunks],
+                                       repeats, index.device, min_seconds)
+            ids = torch.cat([r.ids for r in out]).cpu().numpy()
+            points.append(SweepPoint(w, recall_at_k(ids, gt, k), len(q) / dt,
+                                     dt / len(q) * 1e3, mode, e,
+                                     rounds=sum(int(r.n_steps) for r in out), passes=passes))
+    return points
+
+
+def sweep_exact(
+    index, queries: np.ndarray, gt: np.ndarray, *, k: int,
+    widths=(32, 48, 64, 96, 128), expand_widths=(1,), repeats: int = 3,
+    pipeline: int = 4, bf16: bool = False, min_seconds: float = 1.5,
+) -> list[SweepPoint]:
+    """In-memory graph search sweep over (L, expand_width) on the index's
+    device. `pipeline` splits the batch into chunks searched one after the
+    other; `bf16` uses the compressed-traversal + f32-rerank path."""
+    from diskrag_tpu_torch.graph.search import beam_search, beam_search_reranked
+
+    tv = index.vectors.to(torch.bfloat16) if bf16 else None
+
+    def search_chunk(c, w, e):
+        kw = dict(search_width=w, k=k, metric=index.metric, expand_width=e,
+                  entry_points=index.entry_points)
+        if bf16:
+            return beam_search_reranked(tv, index.vectors, index.adjacency, index.medoid,
+                                        c, **kw)
+        return beam_search(index.vectors, index.adjacency, index.medoid, c, **kw)
+
+    return _graph_sweep(search_chunk, index, queries, gt, k=k, widths=widths,
+                        expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
+                        mode="exact-bf16" if bf16 else "exact", min_seconds=min_seconds)
+
+
+def sweep_pq(
+    index, pq, codes, queries: np.ndarray, gt: np.ndarray, *,
+    k: int, widths=(32, 48, 64, 96, 128), expand_widths=(1,),
+    repeats: int = 3, pipeline: int = 4, coarse_ids=None,
+    mode_label: str | None = None, min_seconds: float = 1.5,
+) -> list[SweepPoint]:
+    """PQ-traversal + exact-rerank sweep (the "pq_accelerated" mode). Pass
+    a ResidualPQ plus its `coarse_ids` to sweep the residual serving
+    decomposition."""
+    from diskrag_tpu_torch.graph.search import beam_search_pq
+
+    dev = index.device
+    codes_t = torch.as_tensor(codes, device=dev)
+    residual = coarse_ids is not None
+    if residual:
+        cells = torch.as_tensor(coarse_ids, device=dev).to(torch.int32)
+        bias = pq.point_bias(codes_t, cells)
+        mode = mode_label or f"rpq{int(pq.n_subvectors)}+rerank"
+    else:
+        mode = mode_label or "pq+rerank"
+
+    def search_chunk(c, w, e):
+        if residual:
+            tables = pq.inner_tables(c)
+            aux = {"point_cell": cells, "point_bias": bias, "cell_tables": pq.cell_tables(c)}
+        else:
+            tables, aux = pq.compute_distance_tables(c), {}
+        return beam_search_pq(
+            codes_t, tables, index.adjacency, index.medoid, search_width=w, k=k,
+            rerank=True, vectors=index.vectors, queries=c, metric=index.metric,
+            expand_width=e, entry_points=index.entry_points, **aux,
+        )
+
+    return _graph_sweep(search_chunk, index, queries, gt, k=k, widths=widths,
+                        expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
+                        mode=mode, min_seconds=min_seconds)
 
 
 def _point(idx, q, gt, k, mode, repeats, min_seconds, width=0) -> SweepPoint:
     """Time `idx.search(q)` and take its recall against `gt`."""
     b = q.shape[0]
-    dt, (_, ids) = _measure(lambda: idx.search(q, k=k), repeats, idx.device, min_seconds)
+    dt, (_, ids), _ = _measure(lambda: idx.search(q, k=k), repeats, idx.device, min_seconds)
     rec = recall_at_k(ids.cpu().numpy(), gt, k)
     return SweepPoint(width, rec, b / dt, dt / b * 1e3, mode)
 
@@ -112,7 +208,7 @@ def sweep_flat(
     for l2 and cosine, the packed scan at the default width
     ("flat-packed") and at 24 ("flat-packed-rr24"), and the
     recall-targeted adaptive width point. (The reference's bigger-batch
-    point and `expand_width` field come with the port's bench script.) Variants of one precision share
+    point comes with the port's bench script.) Variants of one precision share
     one index: only `rerank_width` changes."""
     from diskrag_tpu_torch.ops.flat import FlatIndex
 

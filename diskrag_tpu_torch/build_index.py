@@ -1,25 +1,80 @@
-"""Index build — the flat part of `diskrag_tpu/build_index.py`.
+"""Index build orchestration — the flat and Vamana parts of
+`diskrag_tpu/build_index.py`.
 
-`build_index_from_vectors` builds and persists a flat index for
-`index_type="flat"`, and for `"auto"` below 100k points (the JAX
-package's rule). The graph, IVF and sharded builders are later slices of
-the port (ROADMAP.md, "Modules still to port"); asking for one raises
-`NotImplementedError` rather than building something else.
+Keeps the JAX package's adaptive parameter schedules (R/L by scale and
+quality tier, the search-L formula) and its PQ validation gates; the
+graph build (`graph/knn_build.py`) and PQ training (`pq/`) run on the
+chosen device. `build_index_from_vectors` builds and persists
+
+  - a flat index for `index_type="flat"`, and for `"auto"` below 100k
+    points;
+  - a Vamana graph with adaptive PQ for `"vamana"`, and for `"auto"` from
+    100k points up, by the kNN-based build.
+
+The wave-insertion build, the int-quantized rows, IVF and sharded
+indexes are later slices of the port (ROADMAP.md, "Modules still to
+port"); asking for one raises `NotImplementedError` rather than building
+something else.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
+import time
 
 import numpy as np
+import torch
 
 from diskrag_tpu_torch.device import resolve_device
-from diskrag_tpu_torch.index.persist import IndexStore, save_flat_index
+from diskrag_tpu_torch.index.persist import IndexStore, save_flat_index, save_index
+from diskrag_tpu_torch.pq import ProductQuantizer, calculate_adaptive_pq_params
 
 logger = logging.getLogger(__name__)
 
 AUTO_FLAT_MAX_POINTS = 100_000
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, 'Modules still to port')"
+    )
+
+
+def calculate_adaptive_build_params(n_points: int, target_quality: str = "balanced") -> dict:
+    """R/L/alpha schedule by dataset scale and quality tier."""
+    if n_points <= 10_000:
+        base_r, base_l = 16, 32
+    elif n_points <= 50_000:
+        base_r, base_l = 20, 48  # avoid the 25k recall cliff
+    elif n_points <= 200_000:
+        base_r, base_l = 24, 64
+    else:
+        base_r, base_l = 28, 80
+
+    if target_quality == "fast":
+        r, l, alpha, target_recall = int(base_r * 0.8), int(base_l * 0.8), 1.0, 0.7
+    elif target_quality == "high":
+        r, l, alpha, target_recall = int(base_r * 1.2), int(base_l * 1.4), 1.2, 0.95
+    else:  # balanced
+        r, l, alpha, target_recall = base_r, base_l, 1.2, 0.85
+    return {"R": r, "L": l, "alpha": alpha, "target_recall": target_recall}
+
+
+def calculate_adaptive_search_L(n_points: int, target_recall: float = 0.85) -> int:
+    """Recommended query-time L."""
+    if n_points <= 10_000:
+        base_l = 10 * (8 + math.log10(max(n_points, 10)))
+    elif n_points <= 100_000:
+        base_l = 10 * (15 + 2 * math.log10(n_points))
+    else:
+        base_l = 10 * (20 + 3 * math.log10(n_points))
+    if target_recall >= 0.9:
+        base_l *= 2.0
+    elif target_recall >= 0.85:
+        base_l *= 1.5
+    return max(20, min(int(base_l), n_points // 3))
 
 
 def _vector_stats(vectors: np.ndarray) -> dict:
@@ -34,26 +89,182 @@ def _vector_stats(vectors: np.ndarray) -> dict:
     }
 
 
+def _validate_pq(pq, vectors: np.ndarray, codes: np.ndarray,
+                 coarse_ids: np.ndarray | None = None) -> dict:
+    """PQ acceptance checks: encode determinism, reconstruction error,
+    exact-vs-ADC correlation, for a plain ProductQuantizer and for a
+    ResidualPQ."""
+    n = len(vectors)
+    sample = np.random.default_rng(0).choice(n, size=min(256, n), replace=False)
+    residual = coarse_ids is not None
+    if residual:
+        codes2, cids2 = pq.encode(vectors[sample])
+        consistent = bool(
+            (codes2.cpu().numpy() == codes[sample]).all()
+            and (cids2.cpu().numpy() == coarse_ids[sample]).all()
+        )
+    else:
+        consistent = bool((pq.encode(vectors[sample]).cpu().numpy() == codes[sample]).all())
+
+    recon_err = pq.reconstruction_error(vectors[sample])
+    base = float(np.mean(np.sum(np.square(vectors[sample]), axis=1)))
+    rel_err = recon_err / max(base, 1e-12)
+
+    # exact vs ADC correlation on sampled query/point pairs (the engine
+    # checks it again at startup)
+    qs = vectors[sample[: min(16, len(sample))]]
+    tables = pq.compute_distance_tables(qs)
+    if residual:
+        adc = pq.asymmetric_distance_sq(tables, codes[sample], coarse_ids[sample])
+    else:
+        adc = pq.asymmetric_distance_sq(tables, codes[sample])
+    adc = adc.cpu().numpy()
+    exact = ((qs[:, None, :] - vectors[sample][None, :, :]) ** 2).sum(-1)
+    corrs = [float(np.corrcoef(adc[i], exact[i])[0, 1]) for i in range(len(qs))]
+    corr = float(np.nanmean(corrs))
+    return {
+        "encode_consistent": consistent,
+        "reconstruction_error": float(recon_err),
+        "relative_reconstruction_error": float(rel_err),
+        "exact_adc_correlation": corr,
+        "selectivity": pq.estimate_selectivity(n),
+        "passed": bool(consistent and corr >= 0.5),
+    }
+
+
+def _resolve_pq_kind(pq_kind: str, metric: str) -> str:
+    """"auto" trains a ResidualPQ on L2 indexes (plain-PQ ADC ordering
+    collapses on clustered data, `pq/residual.py`) and a plain PQ
+    otherwise (ADC traversal is L2-only anyway)."""
+    if pq_kind == "auto":
+        return "residual" if metric == "l2" else "plain"
+    if pq_kind in ("int8", "int4"):
+        raise _not_ported(f"pq_kind={pq_kind!r} (the int-quantized rows of pq/intq)")
+    if pq_kind not in ("plain", "residual"):
+        raise ValueError(f"unknown pq_kind: {pq_kind}")
+    return pq_kind
+
+
+def _train_pq(vectors: np.ndarray, n_subvectors: int, kind: str, *, seed: int = 0,
+              opq_iters: int = 0, device: str | torch.device = "cuda"):
+    """Fit the requested quantizer kind; returns (pq, codes, coarse_ids)
+    as numpy arrays, coarse_ids None for plain PQ."""
+    if kind in ("int8", "int4"):
+        raise _not_ported(f"pq_kind={kind!r} (the int-quantized rows of pq/intq)")
+    if kind == "residual":
+        from diskrag_tpu_torch.pq import ResidualPQ, default_n_coarse
+
+        if opq_iters:
+            logger.warning(
+                "opq_iters is ignored for residual PQ (rotation would "
+                "have to be applied before the coarse quantizer)"
+            )
+        rpq = ResidualPQ(
+            n_subvectors=n_subvectors, n_coarse=default_n_coarse(len(vectors)), device=device,
+        ).fit(vectors, seed=seed)
+        codes, cids = rpq.encode(vectors)
+        return rpq, codes.cpu().numpy(), cids.cpu().numpy()
+    pq = ProductQuantizer(n_subvectors=n_subvectors, device=device).fit(
+        vectors, seed=seed, opq_iters=opq_iters
+    )
+    return pq, pq.encode(vectors).cpu().numpy(), None
+
+
+def attach_pq(
+    vectors: np.ndarray,
+    *,
+    n_subvectors: int | None = None,
+    target_accuracy: str = "balanced",
+    opq_iters: int = 0,
+    seed: int = 0,
+    pq_kind: str = "plain",
+    device: str | torch.device = "cuda",
+):
+    """Train a PQ model on an index's vectors and encode every point.
+    Returns (pq, codes, validation); (None, None, None) when the adaptive
+    tuner recommends brute force (an explicit `n_subvectors` overrides the
+    tuner). pq_kind "residual" returns a ResidualPQ whose coarse_ids ride
+    in validation["coarse_ids"]."""
+    vectors = np.asarray(vectors, np.float32)
+    if n_subvectors is None:
+        rec = calculate_adaptive_pq_params(len(vectors), vectors.shape[1], target_accuracy)
+        if rec.recommendation == "brute_force":
+            return None, None, None
+        n_subvectors = rec.n_subvectors
+    pq, codes, cids = _train_pq(
+        vectors, n_subvectors, pq_kind, seed=seed, opq_iters=opq_iters, device=device,
+    )
+    validation = _validate_pq(pq, vectors, codes, coarse_ids=cids)
+    if cids is not None:
+        validation["coarse_ids"] = cids
+    return pq, codes, validation
+
+
+def _resolve_use_pq(n: int, dim: int, pq_target: str, force_pq: bool | None):
+    """The train-PQ decision: the adaptive tuner by default, with the
+    config's `index.force_pq` on top. Returns (use_pq, rec)."""
+    rec = calculate_adaptive_pq_params(n, dim, pq_target)
+    use = rec.recommendation != "brute_force"
+    if force_pq is False:
+        return False, rec
+    if force_pq is True and not use:
+        # the usual blocker is the tuner's 1000-point gate; ask again at
+        # the smallest size it accepts so a legal m is still chosen
+        rec2 = calculate_adaptive_pq_params(max(n, 1000), dim, pq_target)
+        if rec2.recommendation != "brute_force":
+            logger.info(
+                "force_pq: training PQ m=%d despite the adaptive "
+                "brute-force recommendation", rec2.n_subvectors,
+            )
+            return True, rec2
+        logger.warning(
+            "force_pq requested but no subvector count divides "
+            "dimension %d — building without PQ", dim,
+        )
+        return False, rec
+    return use, rec
+
+
+def _pq_target(target_quality: str) -> str:
+    return {"fast": "space_saving", "high": "high_accuracy"}.get(target_quality, "balanced")
+
+
 def build_index_from_vectors(
     vectors: np.ndarray,
     index_dir,
     *,
     target_quality: str = "balanced",
     metric: str = "l2",
-    index_type: str = "flat",
+    index_type: str = "vamana",
     force_rebuild: bool = False,
+    write_compat: bool = False,
+    seed: int = 0,
+    params_override: dict | None = None,
+    build_method: str = "knn",
+    opq_iters: int = 0,
+    force_pq: bool | None = None,
+    pq_kind: str = "auto",
+    checkpoint_dir=None,
     flat_precision: str = "int8",
     flat_rerank_width: int | None = None,
     device: str = "cuda",
 ) -> dict:
     """Build + persist an index; returns its meta.
 
-    An existing index is kept unless `force_rebuild` (a request for a
-    different type is logged at WARNING, as in the JAX package). A flat
-    index persists only the f32 vectors and meta: the scan table is built
-    on the device at load. `device` is resolved first, so a run meant for
-    the card fails here when none is visible."""
+    index_type: "vamana" (default: graph index + adaptive PQ), "flat"
+    (exhaustive scan, vectors only) or "auto" (flat under 100k points,
+    else vamana). An existing index is kept unless `force_rebuild` (a
+    request for a different type is logged at WARNING). `device` is
+    resolved first, so a run meant for the card fails here when none is
+    visible.
+
+    `force_pq`: None = the adaptive tuner decides; True = train PQ even
+    below the tuner's 1000-point gate (if any legal m divides the
+    dimension); False = never train PQ. `checkpoint_dir` is accepted for
+    the JAX package's signature; only its IVF kNN backend uses it."""
     resolve_device(device)
+    if flat_precision not in ("int8", "int8_packed", "bf16"):
+        raise ValueError(f"unknown flat_precision: {flat_precision!r}")
     store = IndexStore(index_dir)
     if not force_rebuild and store.exists():
         prev = json.loads(store.meta_path.read_text())
@@ -73,27 +284,80 @@ def build_index_from_vectors(
         vectors = vectors.astype(np.float32)
     if vectors.ndim == 1:
         vectors = vectors.reshape(1, -1)
-    n = vectors.shape[0]
+    n, dim = vectors.shape
     if n < 16:
         raise ValueError(f"need at least 16 vectors to build an index, got {n}")
     if index_type == "auto":
         index_type = "flat" if n < AUTO_FLAT_MAX_POINTS else "vamana"
-    if index_type != "flat":
-        raise NotImplementedError(
-            f"index_type={index_type!r} is not ported yet: the port serves "
-            "flat indexes; the Vamana graph, IVF and sharded builds are "
-            "queued in ROADMAP.md ('Modules still to port')"
+    if index_type == "flat":
+        meta = save_flat_index(
+            index_dir, vectors, metric=metric,
+            meta_extra={
+                "target_quality": target_quality,
+                "flat_precision": flat_precision,
+                "flat_rerank_width": flat_rerank_width,
+                "vector_stats": _vector_stats(vectors),
+            },
         )
-    if flat_precision not in ("int8", "int8_packed", "bf16"):
-        raise ValueError(f"unknown flat_precision: {flat_precision!r}")
-    meta = save_flat_index(
-        index_dir, vectors, metric=metric,
+        logger.info("flat index persisted -> %s", store.dir)
+        return meta
+    if index_type in ("ivf", "sharded"):
+        raise _not_ported(f"index_type={index_type!r}")
+    if index_type != "vamana":
+        raise ValueError(f"unknown index_type: {index_type}")
+    if build_method == "wave":
+        raise _not_ported("build_method='wave' (the insertion build of graph/build)")
+    if build_method != "knn":
+        raise ValueError(f"unknown build_method: {build_method}")
+    if write_compat:
+        raise _not_ported("write_compat (the packed record file of the host tier)")
+
+    params = calculate_adaptive_build_params(n, target_quality)
+    if params_override:
+        params.update(params_override)
+    r, l, alpha = params["R"], params["L"], params["alpha"]
+    logger.info("build params: N=%d R=%d L=%d alpha=%.2f", n, r, l, alpha)
+
+    use_pq, pq_rec = _resolve_use_pq(n, dim, _pq_target(target_quality), force_pq)
+    pq = codes = coarse_ids = pq_validation = None
+    if use_pq:
+        t0 = time.perf_counter()
+        kind = _resolve_pq_kind(pq_kind, metric)
+        pq, codes, coarse_ids = _train_pq(
+            vectors, pq_rec.n_subvectors, kind, seed=seed, opq_iters=opq_iters, device=device,
+        )
+        pq_validation = _validate_pq(pq, vectors, codes, coarse_ids=coarse_ids)
+        logger.info(
+            "PQ kind=%s m=%d trained in %.1fs (corr=%.3f)",
+            kind, pq_rec.n_subvectors, time.perf_counter() - t0,
+            pq_validation["exact_adc_correlation"],
+        )
+        if not pq_validation["passed"]:
+            logger.warning("PQ validation failed — keeping PQ but flagging meta")
+
+    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+
+    t0 = time.perf_counter()
+    index = build_vamana_knn(
+        vectors, degree_bound=r, alpha=alpha, metric=metric, seed=seed,
+        progress=True, checkpoint_dir=checkpoint_dir, device=device,
+    )
+    build_seconds = time.perf_counter() - t0
+
+    meta = save_index(
+        index_dir, index, pq=pq, pq_codes=codes, pq_coarse_ids=coarse_ids,
+        host_vectors=vectors,
         meta_extra={
+            "L": l,
+            "alpha": alpha,
             "target_quality": target_quality,
-            "flat_precision": flat_precision,
-            "flat_rerank_width": flat_rerank_width,
+            "target_recall": params["target_recall"],
+            "recommended_search_L": calculate_adaptive_search_L(n, params["target_recall"]),
             "vector_stats": _vector_stats(vectors),
+            "pq_validation": pq_validation,
+            "build_seconds": build_seconds,
+            "build_method": build_method,
         },
     )
-    logger.info("flat index persisted -> %s", store.dir)
+    logger.info("index built in %.1fs -> %s", build_seconds, store.dir)
     return meta

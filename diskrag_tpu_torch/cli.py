@@ -1,9 +1,10 @@
-"""CLI — the flat-index part of `diskrag_tpu/cli.py`: `process`, `index`,
-`search`, `list` and `delete`, plus `--device {cuda,cpu}` (default cuda),
-given before the subcommand.
+"""CLI — part of `diskrag_tpu/cli.py`: `process`, `index` (vamana, flat
+or auto, with the config's `index:` block), `search`, `list` and
+`delete`, plus `--device {cuda,cpu}` (default cuda), given before the
+subcommand.
 
     python -m diskrag_tpu_torch.cli --config config.yaml process faq.csv -c faq
-    python -m diskrag_tpu_torch.cli --config config.yaml index faq --index-type flat
+    python -m diskrag_tpu_torch.cli --config config.yaml index faq
     python -m diskrag_tpu_torch.cli --config config.yaml search faq "question" -k 3 --faq
 """
 
@@ -161,13 +162,25 @@ class DiskRAG:
             raise ValueError(f"collection {collection} not found")
         vectors = np.load(self.manager.get_vectors_path(collection))
         icfg = self.config.index
+        override = {
+            k: v
+            for k, v in (("R", icfg.R), ("L", icfg.L), ("alpha", icfg.alpha))
+            if v is not None
+        }
         meta = build_index_from_vectors(
             vectors,
             self.manager.get_index_dir(collection),
+            # CLI flag wins; otherwise the config.yaml index: block
             target_quality=target_quality or icfg.target_quality,
             metric=icfg.metric,
+            force_pq=icfg.force_pq,
             index_type=index_type or icfg.type,
             force_rebuild=force_rebuild,
+            build_method=icfg.build_method,
+            opq_iters=icfg.opq_iters,
+            pq_kind=icfg.pq_kind,
+            write_compat=icfg.write_compat,
+            params_override=override or None,
             flat_precision=icfg.flat_precision,
             flat_rerank_width=icfg.flat_rerank_width,
             device=self.device,
@@ -235,7 +248,7 @@ def _print_results(out: dict) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="diskrag-tpu-torch",
-        description="DiskRAG on PyTorch/CUDA — flat-index serving",
+        description="DiskRAG on PyTorch/CUDA — Vamana graph and flat-index serving",
     )
     parser.add_argument("--config", default="config.yaml", help="config file path")
     parser.add_argument("--base-dir", default="collections", help="collections dir")
@@ -255,7 +268,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target-quality", choices=["fast", "balanced", "high"],
                    default=None)
     p.add_argument("--index-type", "--type", dest="index_type",
-                   choices=["flat", "auto"], default=None,
+                   choices=["vamana", "flat", "auto"], default=None,
                    help="default: config index.type")
     p.add_argument("--force-rebuild", action="store_true")
 
@@ -288,10 +301,12 @@ def main(argv: Optional[list[str]] = None) -> int:
             args.collection, args.target_quality, args.force_rebuild,
             index_type=args.index_type,
         )
-        print(
-            f"index built: type={meta.get('index_type')} "
-            f"N={meta['num_points']} precision={meta.get('flat_precision')}"
-        )
+        if meta.get("index_type") == "flat":
+            detail = f"precision={meta.get('flat_precision')}"
+        else:
+            detail = (f"R={meta.get('R', '-')} L={meta.get('L', '-')} "
+                      f"use_pq={meta.get('use_pq')} ({meta.get('build_seconds', 0):.1f}s)")
+        print(f"index built: type={meta.get('index_type')} N={meta['num_points']} {detail}")
     elif args.command == "search":
         _print_results(rag.search(args.collection, args.query, args.top_k, faq=args.faq))
     elif args.command == "list":

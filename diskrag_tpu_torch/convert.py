@@ -1,10 +1,13 @@
-"""Carry state across from the JAX package.
+"""Carry state across from the JAX package, handed over as numpy arrays,
+so that both packages compute on the same index.
 
 `flat_state_from_jax` builds the port's `FlatIndex` from the arrays of a
-JAX `diskrag_tpu.ops.flat.FlatIndex` handed over as numpy arrays, so the
-same index computes the same results in both packages (the scan table is
-taken as it is, not rebuilt). Persisted indexes need no conversion:
-both packages read and write the same `index/` layout.
+JAX `diskrag_tpu.ops.flat.FlatIndex` (the scan table is taken as it is,
+not rebuilt); `vamana_index_from_jax` a `VamanaIndex` from a JAX graph's
+arrays; `pq_from_jax` a quantizer from a JAX quantizer's `to_arrays()`,
+with its codes and residual serving arrays moved to the device.
+Persisted indexes need no conversion: both packages read and write the
+same `index/` layout.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from diskrag_tpu_torch.device import resolve_device
+from diskrag_tpu_torch.graph.types import VamanaIndex
 from diskrag_tpu_torch.ops.flat import FlatIndex
 
 
@@ -57,3 +61,47 @@ def flat_state_from_jax(
         rerank_width=rerank_width,
         **opt,
     )
+
+
+def vamana_index_from_jax(
+    vectors: np.ndarray,
+    adjacency: np.ndarray,
+    medoid: int,
+    *,
+    metric: str = "l2",
+    entry_points: np.ndarray | None = None,
+    device: str = "cuda",
+) -> VamanaIndex:
+    """The port's graph over a JAX `VamanaIndex`'s arrays (vectors f32
+    [N, D], adjacency int32 [N, R] with -1 padding, medoid, metric,
+    entry_points int32 [S] or None)."""
+    return VamanaIndex.from_numpy(
+        np.asarray(vectors), np.asarray(adjacency), int(medoid), metric=metric,
+        entry_points=None if entry_points is None else np.asarray(entry_points),
+        device=device,
+    )
+
+
+def pq_from_jax(
+    arrays: dict[str, np.ndarray],
+    codes: np.ndarray | None = None,
+    point_cell: np.ndarray | None = None,
+    point_bias: np.ndarray | None = None,
+    *,
+    device: str = "cuda",
+):
+    """(quantizer, codes, point_cell, point_bias) on the device from a JAX
+    `ProductQuantizer` / `ResidualPQ`'s `to_arrays()` dict plus, as numpy
+    arrays, its uint8 codes [N, m] and, for a residual quantizer, the
+    coarse cell ids int32 [N] and the serving bias f32 [N]; what is not
+    given comes back as None."""
+    from diskrag_tpu_torch.pq.residual import pq_from_arrays
+
+    dev = resolve_device(device)
+    pq = pq_from_arrays({k: np.asarray(v) for k, v in arrays.items()}, device=dev)
+
+    def put(a, dtype):
+        return None if a is None else torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    return (pq, put(codes, torch.uint8), put(point_cell, torch.int32),
+            put(point_bias, torch.float32))

@@ -1,1 +1,2 @@
-"""Distances, the fused flat scan (kernels B1, B4) and the flat index."""
+"""Distances, top-k primitives, the fused flat scans (kernels B1-B4, B6), the
+flat index and the gathered ADC lookup (kernel B5)."""

@@ -21,13 +21,27 @@ import diskrag_tpu_torch.benchmark, diskrag_tpu_torch.build_index
 import diskrag_tpu_torch.cli, diskrag_tpu_torch.convert, diskrag_tpu_torch.engine
 import diskrag_tpu_torch.data, diskrag_tpu_torch.index.persist
 import diskrag_tpu_torch.kernels._build, diskrag_tpu_torch.ops.flat_scan
-import diskrag_tpu_torch.ops.flat
+import diskrag_tpu_torch.ops.flat, diskrag_tpu_torch.ops.topk, diskrag_tpu_torch.ops.medoid
+import diskrag_tpu_torch.ops.pq_scan
+import diskrag_tpu_torch.graph, diskrag_tpu_torch.graph.types, diskrag_tpu_torch.graph.search
+import diskrag_tpu_torch.graph.prune, diskrag_tpu_torch.graph.knn_build
+import diskrag_tpu_torch.pq, diskrag_tpu_torch.pq.kmeans, diskrag_tpu_torch.pq.adaptive
+import diskrag_tpu_torch.pq.product_quantizer, diskrag_tpu_torch.pq.residual
+from diskrag_tpu_torch.graph import (
+    VamanaIndex, beam_search, beam_search_pq, beam_search_reranked, build_vamana_knn,
+    robust_prune_batch,
+)
+from diskrag_tpu_torch.pq import ProductQuantizer, ResidualPQ, pq_from_arrays
+from diskrag_tpu_torch.ops.pq_scan import adc_lookup_gathered_kernel, adc_lookup_gathered_ref
+from diskrag_tpu_torch.convert import pq_from_jax, vamana_index_from_jax
 from diskrag_tpu_torch.ops.flat_scan import (
     build_packed_scan_table, epilogue_cut_ids_ref, plan_packed_search,
     quantize_int8_global, scan_bucketed_topk_hier, scan_bucketed_topk_hier_ref,
     scan_bucketed_topk_packed, scan_bucketed_topk_packed_ref,
 )
-from diskrag_tpu_torch.benchmark import SweepPoint, adaptive_flat_point, sweep_flat
+from diskrag_tpu_torch.benchmark import (
+    SweepPoint, adaptive_flat_point, sweep_exact, sweep_flat, sweep_pq,
+)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "diskrag_tpu."))
              or m == "diskrag_tpu")
@@ -94,8 +108,10 @@ def test_engine_and_cli_raise_without_a_card(monkeypatch, tmp_path):
 
 def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
     from diskrag_tpu_torch.ops import flat_scan as fs
+    from diskrag_tpu_torch.ops import pq_scan
 
     fs.reset_launch_counts()
+    pq_scan.reset_launch_counts()
     rng = np.random.default_rng(1)
     x = torch.as_tensor(rng.normal(size=(300, 16)).astype(np.float32))
     codes, block, _, n = fs.build_rowscan_table(x)
@@ -116,15 +132,29 @@ def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
     assert fs.scan_bucketed_topk_packed.launches == 0
     assert fs.scan_bucketed_topk_hier.launches == 0
     assert fs.scan_bucketed_topk_hier.launches_pipelined == 0
+    # B5: the gathered ADC lookup, alone and inside the PQ-guided search
+    tables = torch.as_tensor(rng.normal(size=(5, 4, 256)).astype(np.float32))
+    gathered = torch.as_tensor(rng.integers(0, 256, size=(5, 7, 4)).astype(np.uint8))
+    out = pq_scan.adc_lookup_gathered_kernel(tables, gathered)
+    assert out.shape == (5, 7)
+    assert torch.equal(out, pq_scan.adc_lookup_gathered_ref(tables, gathered))
+    from diskrag_tpu_torch.graph.search import beam_search_pq
+
+    adj = torch.as_tensor(rng.integers(0, 300, size=(300, 6)).astype(np.int32))
+    codes = torch.as_tensor(rng.integers(0, 256, size=(300, 4)).astype(np.uint8))
+    res = beam_search_pq(codes, tables, adj, torch.tensor(0), search_width=8, k=4, rerank=False)
+    assert res.ids.shape == (5, 4) and int(res.n_steps) > 0
+    assert pq_scan.adc_lookup_gathered_kernel.launches == 0
 
 
 def test_kernel_build_is_keyed_by_source_hash():
     from diskrag_tpu_torch.kernels import _build
 
     srcs = sorted(_build.CSRC.glob("*.cu"))
-    assert [s.stem for s in srcs] == ["flat_scan", "hier_scan", "packed_scan", "topk_lanes"]
+    assert [s.stem for s in srcs] == [
+        "adc_lookup", "flat_scan", "hier_scan", "packed_scan", "topk_lanes"]
     paths = {_build._lib_path(s) for s in srcs}
-    assert len(paths) == 4
+    assert len(paths) == 5
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     with pytest.raises(RuntimeError, match="CUDA error 7"):
@@ -143,6 +173,25 @@ def test_kernel_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     assert _build._lib_path(tmp_path / "a.cu") != before  # an edited header rebuilds
 
 
+def _tiny_collection(tmp_path, pts, meta: dict | None):
+    """A collection `c` under tmp_path holding `pts`, with `meta` written
+    as its index's meta.json (no other index file)."""
+    from diskrag_tpu_torch.data.collection import CollectionManager
+    from diskrag_tpu_torch.data.config import CollectionInfo
+
+    mgr = CollectionManager(tmp_path)
+    (tmp_path / "c").mkdir()
+    np.save(mgr.get_vectors_path("c"), pts)
+    mgr.save_collection_info(CollectionInfo(
+        name="c", config={}, dimension=pts.shape[1], num_vectors=len(pts), created_at="",
+        updated_at="", source_files=[],
+    ))
+    if meta is not None:
+        idx = mgr.get_index_dir("c")
+        idx.mkdir()
+        (idx / "meta.json").write_text(json.dumps(meta))
+
+
 @pytest.mark.parametrize("cut", ["fused_precision", "build", "engine"])
 def test_unported_options_raise_not_implemented(cut, tmp_path):
     from diskrag_tpu_torch.build_index import build_index_from_vectors
@@ -157,29 +206,82 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         with pytest.raises(ValueError, match="fused_precision"):
             FlatIndex(pts, fused_precision="int4_packed", device="cpu")
     elif cut == "build":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_index_from_vectors(pts, tmp_path, index_type="vamana", device="cpu")
-        big = np.zeros((100_000, 2), np.float32)
-        with pytest.raises(NotImplementedError, match="vamana"):
-            build_index_from_vectors(big, tmp_path, index_type="auto", device="cpu")
+        for kw in (dict(index_type="ivf"), dict(index_type="sharded"),
+                   dict(index_type="vamana", build_method="wave"),
+                   dict(index_type="vamana", write_compat=True),
+                   dict(index_type="vamana", force_pq=True, pq_kind="int8"),
+                   dict(index_type="vamana", force_pq=True, pq_kind="int4")):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                build_index_from_vectors(pts, tmp_path / "i", device="cpu", **kw)
+            assert not (tmp_path / "i").exists()
+        with pytest.raises(ValueError, match="index_type"):
+            build_index_from_vectors(pts, tmp_path / "i", index_type="hnsw", device="cpu")
     else:
-        from diskrag_tpu_torch.data.collection import CollectionManager
-        from diskrag_tpu_torch.data.config import CollectionInfo
         from diskrag_tpu_torch.engine import SearchEngine
 
-        mgr = CollectionManager(tmp_path)
-        (tmp_path / "c").mkdir()
-        np.save(mgr.get_vectors_path("c"), pts)
-        mgr.save_collection_info(CollectionInfo(
-            name="c", config={}, dimension=8, num_vectors=64, created_at="",
-            updated_at="", source_files=[],
-        ))
-        idx = mgr.get_index_dir("c")
-        idx.mkdir()
-        (idx / "meta.json").write_text(json.dumps({"index_type": "vamana"}))
+        _tiny_collection(tmp_path, pts, {"index_type": "ivf"})
         # never served by brute force in place of the requested index
-        with pytest.raises(NotImplementedError, match="vamana"):
+        with pytest.raises(NotImplementedError, match="ivf"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu")
-        with pytest.raises(NotImplementedError, match="host_tier"):
-            SearchEngine("c", base_dir=str(tmp_path), device="cpu",
-                         serving_mode="host_tier")
+        for mode in ("host_tier", "sharded_flat", "streaming"):
+            with pytest.raises(NotImplementedError, match=mode):
+                SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode=mode)
+        with pytest.raises(ValueError, match="serving_mode"):
+            SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="nope")
+
+
+@pytest.mark.parametrize("what", ["sharded_meta", "knn_backend", "int8_prune", "iq", "compat"])
+def test_unported_graph_options_raise_not_implemented(what, tmp_path):
+    """The parts of the graph slice that wait for a later one say so,
+    naming ROADMAP.md, instead of running something else."""
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(64, 8)).astype(np.float32)
+    if what == "sharded_meta":
+        from diskrag_tpu_torch.engine import SearchEngine
+
+        _tiny_collection(tmp_path, pts, {"index_type": "sharded"})
+        with pytest.raises(NotImplementedError, match="sharded"):
+            SearchEngine("c", base_dir=str(tmp_path), device="cpu")
+    elif what == "knn_backend":
+        from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_vamana_knn(pts, degree_bound=4, knn_backend="ivf", device="cpu")
+        with pytest.raises(ValueError, match="knn_backend"):
+            build_vamana_knn(pts, degree_bound=4, knn_backend="hnsw", device="cpu")
+    elif what == "int8_prune":
+        from diskrag_tpu_torch.graph import prune
+
+        ids = torch.zeros((2, 4), dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            prune.robust_prune_batch(
+                torch.arange(2), ids, torch.zeros((2, 4, 8), dtype=torch.int8),
+                torch.zeros((2, 4)), 1.2, degree_bound=2, cand_scales=torch.ones((2, 4)))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            prune.gathered_distance_int8(None, None, None, None, "l2")
+    elif what == "iq":
+        from diskrag_tpu_torch.graph.search import beam_search_iq
+        from diskrag_tpu_torch.pq import pq_from_arrays
+
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            beam_search_iq(None, None, None, None)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pq_from_arrays({"iq_meta": np.zeros(3)}, device="cpu")
+    else:
+        from diskrag_tpu_torch.graph.types import VamanaIndex
+        from diskrag_tpu_torch.index.persist import save_index
+
+        index = VamanaIndex.from_numpy(pts, np.zeros((64, 2), np.int32), 0, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            save_index(tmp_path / "i", index, write_compat=True)
+        assert not (tmp_path / "i").exists()
+
+
+def test_f32_products_stay_full_precision():
+    """Importing the port pins float32 matrix products to full f32: the
+    k-means, prune and table products are the JAX package's
+    Precision.HIGHEST ones."""
+    import diskrag_tpu_torch.pq.kmeans  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
