@@ -13,8 +13,14 @@ wrapper at the 1M shape, builds the Vamana graph at 200,000 x 128 on the
 card (B1 and B4 inside its kNN pass), sweeps exact and PQ-guided
 traversal over it (the gathered ADC lookup, kernel B5), serves the
 default vamana configuration through the same entry points, and checks
-recall@10 against an exact ground truth. Every phase prints one JSON
-line; the line before the last is the
+recall@10 against an exact ground truth. It then holds the matmul-only
+probe (kernel M1) against its plain version, runs the fused-scan
+microbenchmark (`diskrag_tpu_torch.tools.fused_scan_micro`) in process at
+200,000 rows (and its M1 and hierarchical stages at 1,000,000), checking
+that every stage launched the kernel it is named for, and serves the
+vamana collection over HTTP (`diskrag_tpu_torch.api.create_app` on a
+socket on 127.0.0.1), sending a few requests one after the other. Every
+phase prints JSON lines; the line before the last is the
 card's name and power limit as nvidia-smi gives them, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -83,24 +90,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time of one fn() call: the summed durations of every device
-    operation `torch.profiler` (CUPTI) records over `reps` calls, after a
-    warm-up. Unlike `cuda_ms` it leaves out the gaps between launches, so
-    it is the figure for a kernel shorter than the host's time to launch
-    it."""
+def device_ms_by_kernel(fn, reps: int) -> dict:
+    """Device time per fn() call by kernel name (`torch.profiler`, CUPTI):
+    one warm-up cycle inside the profiler first, since it can miss kernels
+    at its start, then `reps` recorded calls. Empty where the profiler
+    records no device activity (a machine that does not let CUPTI trace;
+    `CHIP_SMOKE_NO_PROFILER=1` gives the same without asking it): the
+    callers then time with CUDA events or report the figure as null."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    if os.environ.get("CHIP_SMOKE_NO_PROFILER"):
+        return {}
+    events: list = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        for _ in range(reps + 1):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / 1e3 / reps
+            torch.cuda.synchronize()
+            prof.step()
+    out: dict = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def device_ms(fn, reps: int) -> tuple[float, str]:
+    """Device time of one fn() call and the timer that gave it. With the
+    profiler it is the summed durations of every device operation
+    recorded: unlike `cuda_ms` that leaves out the gaps between launches,
+    so it is the figure for a kernel shorter than the host's time to
+    launch it. Where the profiler records nothing, CUDA events around
+    back-to-back calls stand in."""
+    by_kernel = device_ms_by_kernel(fn, reps)
+    if by_kernel:
+        return sum(by_kernel.values()), "profiler"
+    return cuda_ms(fn, reps), "cuda events"
 
 
 def b1_bound_ms(b: int, n: int, d: int, nb: int) -> tuple[float, str]:
@@ -163,7 +192,8 @@ def b5_row(tables, codes, reps: int = 50) -> dict:
     PyTorch call that computes the same function (`torch.gather` + `sum`)
     and its bound. B5 runs for a few microseconds, less than the host
     takes to launch it, so `ms`, `plain_ms` and `library_ms` are times on
-    the device alone (`device_ms`, profiler); the `*_launch_to_launch`
+    the device alone (`device_ms`; `timed_by` says whether the profiler
+    gave them or CUDA events had to stand in); the `*_launch_to_launch`
     keys are CUDA events around back-to-back calls, as the longer kernels
     are timed, and measure the host's launch path here."""
     import torch
@@ -181,11 +211,12 @@ def b5_row(tables, codes, reps: int = 50) -> dict:
             f"{mismatches} entries, max_abs_err {err}")
     idx = codes.long().transpose(1, 2)
     bound, by = b5_bound_ms(tables, codes)
+    ms, timed_by = device_ms(lambda: pq_scan.adc_lookup_gathered_kernel(tables, codes), 20)
+    plain_ms, _ = device_ms(lambda: pq_scan.adc_lookup_gathered_ref(tables, codes), 5)
+    library_ms, _ = device_ms(lambda: torch.gather(tables, 2, idx).sum(1), 20)
     return {"b": b, "c": c, "m": m, "max_abs_err": err, "mismatches": mismatches,
             "match": "bit-identical",
-            "ms": device_ms(lambda: pq_scan.adc_lookup_gathered_kernel(tables, codes), 20),
-            "plain_ms": device_ms(lambda: pq_scan.adc_lookup_gathered_ref(tables, codes), 5),
-            "library_ms": device_ms(lambda: torch.gather(tables, 2, idx).sum(1), 20),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "timed_by": timed_by,
             "ms_launch_to_launch": cuda_ms(
                 lambda: pq_scan.adc_lookup_gathered_kernel(tables, codes), reps),
             "plain_ms_launch_to_launch": cuda_ms(
@@ -539,6 +570,8 @@ def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8",
             if i:
                 wall_ms += (time.perf_counter() - t) * 1e3
             prof.step()
+    if os.environ.get("CHIP_SMOKE_NO_PROFILER"):
+        events = []
     by_name: dict[str, float] = {}
     for e in events:  # device-side work only; the step ranges are annotations
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
@@ -594,24 +627,15 @@ def serve(base, name: str, pts, precision: str | None):
 
 
 def reset_counts() -> None:
-    from diskrag_tpu_torch.ops import flat_scan as fs
-    from diskrag_tpu_torch.ops import pq_scan
+    from diskrag_tpu_torch.kernels.launches import reset_launch_counts
 
-    fs.reset_launch_counts()
-    pq_scan.reset_launch_counts()
+    reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from diskrag_tpu_torch.ops import flat_scan as fs
-    from diskrag_tpu_torch.ops import pq_scan
+    from diskrag_tpu_torch.kernels.launches import launch_counts
 
-    return {
-        "B1": fs.scan_bucketed_topk.launches, "B4": fs.topk_lanes.launches,
-        "B2": fs.scan_bucketed_topk_packed.launches,
-        "B3": fs.scan_bucketed_topk_hier.launches,
-        "B6": fs.scan_bucketed_topk_hier.launches_pipelined,
-        "B5": pq_scan.adc_lookup_gathered_kernel.launches,
-    }
+    return launch_counts()
 
 
 def drive(engine, q, reps: int, l_search: int | None = None):
@@ -689,7 +713,7 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
     b4_ms = cuda_ms(lambda: fs.topk_lanes(vals, kk), 50)
     b4_plain = cuda_ms(lambda: fs.topk_lanes_ref(vals, kk), 20)
     b4_lib = cuda_ms(lambda: torch.topk(vals, kk, dim=1), 50)
-    b4_device = device_ms(lambda: fs.topk_lanes(vals, kk), 20)
+    b4_device = sum(device_ms_by_kernel(lambda: fs.topk_lanes(vals, kk), 20).values()) or None
     b1_bound, b1_by = b1_bound_ms(MAIN_B, n_valid, MAIN_D, nb)
     b4_bound, b4_by = b4_bound_ms(MAIN_B, nb, kk)
     kernels = [
@@ -1044,6 +1068,307 @@ def phase_main_vamana(smi: str, base, pts, q, gt) -> dict:
     return {"launches": launches["B5"], "rounds_per_batch": rounds / reps, **row}
 
 
+def m1_bound_ms(bpad: int, npad: int, d: int, nb_out: int, b: int, n: int) -> tuple[float, str]:
+    """Least time for M1's work: the full product of the padded operands
+    (2 * Bpad * Npad * D operations: the probe's point is that every
+    product runs) at the int8 tensor-core peak, or each input byte read
+    once (row codes, query codes) and each output written once
+    ([Bpad, nb_out] + [Bpad] int32) at HBM bandwidth — the larger."""
+    t_ops = 2.0 * bpad * npad * d / PEAK_INT8_OPS
+    t_bytes = (n * d + b * d + bpad * nb_out * 4 + bpad * 4) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def named(by_kernel: dict, part: str) -> float | None:
+    """Device ms of the kernels whose name holds `part`: one must be among
+    those the profiler recorded. None where it recorded nothing at all."""
+    if not by_kernel:
+        return None
+    ms = sum(v for k, v in by_kernel.items() if part in k)
+    require(ms > 0, f"the profiler recorded no kernel named *{part}*: {sorted(by_kernel)}")
+    return ms
+
+
+M1_NB_OUT = 512
+M1_LIB_CHUNK = 65536  # rows per torch._int_mm call: a [1024, 65536] int32 result is 256 MB
+
+
+def packed_codes(pts, q):
+    """The packed scans' integer operands on the card, as the micro script
+    and the main path build them: (row codes aligned, table scale, query
+    codes, query scale, f32 rows' squared norms)."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    v = torch.as_tensor(pts, device="cuda")
+    gcodes, gscale = fs.quantize_int8_global(v)
+    gq, gqs = fs.quantize_int8_global(torch.as_tensor(q, device="cuda"))
+    return fs.align_code_rows(gcodes), gscale, gq, gqs, torch.sum(v * v, dim=-1)
+
+
+def m1_case(gq, gcodes, tile: int, reps: int) -> dict:
+    """M1's wrapper on card tensors against its plain version (both
+    outputs bit-identical), then timed beside the plain version, its bound
+    and the library path: `torch._int_mm` on the same zero-padded operands
+    in chunks of rows (timed alone as `library_ms`), and with the
+    slice-and-add that turns its [Bpad, rows] results into M1's output
+    (`library_with_slice_add_ms`)."""
+    import torch
+
+    from diskrag_tpu_torch.ops import mm_probe as mp
+
+    b, d = gq.shape
+    n = gcodes.shape[0]
+    kw = dict(tile=tile, nb_out=M1_NB_OUT)
+    got = mp.mm_probe(gq, gcodes, **kw)
+    want = mp.mm_probe_ref(gq, gcodes, **kw)
+    torch.cuda.synchronize()
+    mism = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+    err = float((got[0].double() - want[0].double()).abs().max())
+    require(mism == 0, f"M1 differs from its plain version at n={n} tile={tile}: {mism} entries")
+    bpad = mp.padded_queries(b)
+    npad = -(-n // tile) * tile
+    qp = torch.nn.functional.pad(gq, (0, 0, 0, bpad - b))
+    dbp = torch.nn.functional.pad(gcodes, (0, 0, 0, npad - n))
+    chunk = M1_LIB_CHUNK // tile * tile
+
+    def library(slice_add: bool):
+        acc = torch.zeros((bpad, M1_NB_OUT), dtype=torch.int32, device=gq.device)
+        for r0 in range(0, npad, chunk):
+            cross = torch._int_mm(qp, dbp[r0 : r0 + chunk].T)
+            if slice_add:
+                acc += cross.view(bpad, -1, tile)[:, :, :M1_NB_OUT].sum(1, dtype=torch.int32)
+        return acc
+
+    require(bool(torch.equal(library(True), got[0])), f"torch._int_mm path differs at n={n}")
+    bound, by = m1_bound_ms(bpad, npad, d, M1_NB_OUT, b, n)
+    by_kernel = device_ms_by_kernel(lambda: mp.mm_probe(gq, gcodes, **kw), 5)
+    return {"b": b, "bpad": bpad, "n": n, "npad": npad, "d": d, "tile": tile,
+            "nb_out": M1_NB_OUT, "max_abs_err": err, "mismatches": mism,
+            "match": "bit-identical (out and all-column row sum)",
+            "ms": cuda_ms(lambda: mp.mm_probe(gq, gcodes, **kw), reps),
+            "device_ms_kernel_alone": named(by_kernel, "mm_probe_kernel"),
+            "plain_ms": cuda_ms(lambda: mp.mm_probe_ref(gq, gcodes, **kw), 1),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(lambda: library(False), 3),
+            "library_with_slice_add_ms": cuda_ms(lambda: library(True), 3)}
+
+
+def phase_m1_kernels(smi: str, sets: dict) -> dict:
+    """M1 against its plain version at the micro script's shapes (B = 1000,
+    D = 128, 200k and 1M rows, tiles 2048 and 4096, nb_out 512) and at a
+    ragged one (B, n and D no multiples of anything). Returns M1's entry
+    of the kernels line, without its launches."""
+    import torch
+
+    from diskrag_tpu_torch.ops import mm_probe as mp
+
+    cases = []
+    for n_pts in (CMP_N, MAIN_N):
+        pts, q, _ = sets[n_pts]
+        gcodes, _, gq, _, _ = packed_codes(pts, q)
+        for tile in (2048, 4096):
+            case = m1_case(gq, gcodes, tile, reps=20)
+            cases.append(case)
+            emit({"phase": "kernels", "kernel": "M1", "card": smi, **case})
+        del gcodes, gq
+        torch.cuda.empty_cache()
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rq = torch.randint(-127, 128, (37, 44), generator=g, dtype=torch.int8).cuda()
+    rdb = torch.randint(-127, 128, (5003, 44), generator=g, dtype=torch.int8).cuda()
+    got = mp.mm_probe(rq, rdb, tile=272, nb_out=100)
+    want = mp.mm_probe_ref(rq, rdb, tile=272, nb_out=100)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+            "M1 differs from its plain version at the ragged shape")
+    emit({"phase": "kernels", "kernel": "M1", "case": "ragged", "b": 37, "n": 5003, "d": 44,
+          "tile": 272, "nb_out": 100, "match": "bit-identical (out and all-column row sum)"})
+    main_case = next(c for c in cases if c["n"] == MAIN_N and c["tile"] == 2048)
+    return {"name": "M1 mm_probe (the packed scans' product, fold taken out)",
+            "route": "cuda", "source": "diskrag_tpu_torch/csrc/mm_probe.cu",
+            "replaces": "benchmarks/fused_scan_micro.py:164",
+            **{k: main_case[k] for k in ("max_abs_err", "match", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "library_with_slice_add_ms",
+                                         "device_ms_kernel_alone")},
+            "shape": {k: main_case[k] for k in ("b", "bpad", "n", "npad", "d", "tile", "nb_out")},
+            "all_shapes": cases}
+
+
+def micro_expected(stage: str) -> tuple:
+    """The kernels a stage of the micro script is named for."""
+    if stage.startswith("scan_mm_only"):
+        return ("M1",)
+    if stage.startswith("scan_only_hier_pipe"):
+        return ("B6",)
+    if stage.startswith("scan_only_hier"):
+        return ("B3",)
+    if stage in ("scan_only_int8", "scan_only_bf16"):
+        return ("B1",)
+    if stage == "fused_full_int8":
+        return ("B1", "B4")
+    if stage.startswith(("scan_only_packed", "fused_full_packed", "fused_full_table")):
+        return ("B2",)  # 200k rows: the plan routes to the flat packed fold, cut fused
+    if stage.startswith(("rerank_", "tail_cut")):
+        return ("B4",)
+    return ()
+
+
+def phase_micro(smi: str, sets: dict) -> int:
+    """The port's fused-scan microbenchmark, called in process: every stage
+    at 200k rows, the M1 and hierarchical stages at 1M (where B3 serves).
+    Every stage must have launched exactly the kernels it is named for,
+    once per call. Then the split the probe exists for: a packed scan's
+    time less M1's at the same rows is what the fold (and the merge pass)
+    costs. Returns M1's launches over the phase, the counts having been
+    set to 0 before each stage and read after it."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+    from diskrag_tpu_torch.ops import mm_probe as mp
+    from diskrag_tpu_torch.tools import fused_scan_micro
+
+    m1_launches = 0
+    ms: dict = {}
+    for n_pts, only in ((CMP_N, None), (MAIN_N, ("scan_mm_only", "scan_only_hier_p"))):
+        lines = fused_scan_micro.run(
+            data=sets[n_pts], k=MAIN_K, repeats=3, min_seconds=0.2, only=only, device="cuda",
+            emit=lambda line, n=n_pts: emit({"phase": "micro", "n": n, **line}))
+        names = [ln["stage"] for ln in lines]
+        require(len(names) == (22 if only is None else 6), f"micro stages at n={n_pts}: {names}")
+        for ln in lines:
+            want = {kid: ln["calls"] for kid in micro_expected(ln["stage"])}
+            require(ln["launches"] == want,
+                    f"micro stage {ln['stage']} at n={n_pts} launched {ln['launches']}, "
+                    f"expected {want}")
+            if ln["stage"].startswith("fused_full"):  # the bench's gate for the fused paths
+                require(ln["recall"] >= 0.96, f"micro stage {ln['stage']}: recall {ln['recall']}")
+            ms[n_pts, ln["stage"]] = ln["batch_ms"]
+            m1_launches += ln["launches"].get("M1", 0)
+    require(m1_launches > 0, "the scan_mm_only stages did not launch M1")
+    # the same split on the device alone, by kernel name, at both sizes
+    split = {}
+    for n_pts, scan, part in ((CMP_N, fs.scan_bucketed_topk_packed, "packed_scan_merge"),
+                              (MAIN_N, fs.scan_bucketed_topk_hier, "hier_scan_merge")):
+        pts, q, _ = sets[n_pts]
+        gcodes, gscale, gq, gqs, norms = packed_codes(pts, q)
+        k_scan = device_ms_by_kernel(lambda: scan(gq, gqs, gcodes, norms, gscale), 5)
+        k_mm = device_ms_by_kernel(lambda: mp.mm_probe(gq, gcodes, tile=2048, nb_out=512), 5)
+        stage = "scan_only_packed" if n_pts == CMP_N else "scan_only_hier_plain_nb512_t2048"
+        split[str(n_pts)] = {
+            "scan": "B2" if n_pts == CMP_N else "B3",
+            "scan_stage_ms": ms[n_pts, stage], "mm_only_stage_ms": ms[n_pts, "scan_mm_only_t2048"],
+            "fold_ms": ms[n_pts, stage] - ms[n_pts, "scan_mm_only_t2048"],
+            "device_scan_partial_ms": named(k_scan, "scan_partial"),
+            "device_merge_ms": named(k_scan, part),
+            "device_mm_probe_kernel_ms": named(k_mm, "mm_probe_kernel"),
+            "device_fold_ms": (named(k_scan, "scan_partial") - named(k_mm, "mm_probe_kernel")
+                               if k_scan and k_mm else None),
+        }
+        del gcodes, gq, norms
+        torch.cuda.empty_cache()
+    emit({"phase": "micro", "derived": "fold ms = packed scan ms - matmul-only ms, same rows",
+          "by_rows": split, "m1_launches": m1_launches, "card": smi})
+    return m1_launches
+
+
+def phase_api(smi: str, base, name: str, n_rows: int) -> None:
+    """The HTTP API over the vamana collection that `phase_main_vamana`
+    built and served, on a socket on 127.0.0.1 (an ephemeral port). The
+    collection gets a metadata table (one FAQ row per vector) so results
+    carry texts. Requests are sent one after the other; queries are texts
+    embedded by the mock embedder (hash-seeded vectors), so this checks
+    the plumbing and the launch path, not ranking."""
+    import asyncio
+
+    import aiohttp
+    import numpy as np
+    import pandas as pd
+    from aiohttp import web
+
+    from diskrag_tpu_torch.api import AppState, create_app
+    from diskrag_tpu_torch.data import (
+        CollectionManager, EmbeddingConfig, EmbeddingGenerator, get_text_hash,
+    )
+
+    mgr = CollectionManager(base)
+    texts = [f"document {i}" for i in range(n_rows)]
+    pd.DataFrame({
+        "text": texts, "text_hash": [get_text_hash(t) for t in texts],
+        "vector_index": np.arange(n_rows, dtype=np.int64),
+        "metadata": [json.dumps({"type": "faq", "qa_id": f"q{i}", "question": t,
+                                 "answer": f"answer {i}"}) for i, t in enumerate(texts)],
+    }).to_parquet(mgr.get_metadata_path(name), index=False)
+
+    cfg = EmbeddingConfig(provider="mock", model="mock", dimension=MAIN_D)
+    state = AppState(base_dir=str(base), embedding_config=cfg,
+                     llm_fn=lambda system, prompt: "smoke answer", device="cuda")
+    state.embedder = EmbeddingGenerator(cfg, cache_dir=base / ".embeddings")
+    state.prepare()
+    engine = state.get_engine(name)  # bring-up (load, self-check) before the counted requests
+    queries = [f"how do I use feature {i}?" for i in range(64)]
+    sent: list = []
+
+    async def exchange() -> None:
+        runner = web.AppRunner(create_app(state))
+        await runner.setup()
+        try:
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            url = f"http://127.0.0.1:{runner.addresses[0][1]}"
+            for method, path, payload in (
+                ("GET", "/health", None), ("GET", "/collections", None),
+                ("POST", "/search", {"collection": name, "query": queries[0], "top_k": 5}),
+                ("POST", "/faq-search", {"collection": name, "query": queries[1], "top_k": 3}),
+                ("POST", "/search-batch", {"collection": name, "queries": queries, "top_k": 5}),
+                ("POST", "/ask", {"collection": name, "question": queries[2], "top_k": 2}),
+            ):
+                t = time.perf_counter()
+                async with aiohttp.request(method, url + path, json=payload) as resp:
+                    sent.append((path, resp.status, await resp.json(),
+                                 (time.perf_counter() - t) * 1e3))
+        finally:
+            await runner.cleanup()
+
+    reset_counts()
+    asyncio.run(exchange())
+    launches = read_counts()
+    for path, status, _, _ in sent:
+        require(status == 200, f"{path} answered {status}")
+    body = {path: data for path, _, data, _ in sent}
+    require(body["/health"]["device"]["platform"] == "gpu", f"/health: {body['/health']}")
+    entry = next(e for e in body["/collections"] if e["name"] == name)
+    require(entry["status"] == "ready", f"/collections: {entry}")
+    require(len(body["/search"]["results"]) == 5 and len(body["/faq-search"]["results"]) == 3,
+            "result counts of /search and /faq-search")
+    require(body["/ask"]["answer"] == "smoke answer", f"/ask: {body['/ask']}")
+    # ids of /search-batch against the engine called directly on the same vectors
+    qv = np.stack([state.embed(t) for t in queries]).astype(np.float32)
+    _, ids, _ = engine.search_batch(qv, k=5)
+    served = [[r["metadata"]["vector_index"] for r in row] for row in body["/search-batch"]["results"]]
+    require(served == [[int(i) for i in row if i >= 0] for row in ids],
+            "/search-batch ids differ from SearchEngine.search_batch")
+    # B5 once per round: the three search responses report their rounds;
+    # /ask's are those of the same query replayed on the engine
+    rounds = {p: body[p]["stats"]["rounds"] for p in ("/search", "/faq-search", "/search-batch")}
+    rounds["/ask"] = engine.search(queries[2], k=2, embedding_fn=state.embed)["stats"]["rounds"]
+    others = {k: v for k, v in launches.items() if k != "B5"}
+    require(launches["B5"] == sum(rounds.values()) > 0 and not any(others.values()),
+            f"the requests launched {launches}, expected B5 {sum(rounds.values())} times")
+    emit({"phase": "api", "collection": name, "n": n_rows, "d": MAIN_D,
+          "requests": [{"path": p, "status": st, "ms": ms} for p, st, _, ms in sent],
+          "search_batch_queries": len(queries), "search_batch_ids": "equal to the engine's",
+          "search_type": body["/search"]["stats"]["search_type"],
+          "l_search": body["/search"]["stats"]["L_search"], "rounds": rounds,
+          "launches": launches, "health_device": body["/health"]["device"],
+          "note": "mock-embedded text queries: plumbing and launch path, not ranking",
+          "card": smi})
+    del engine, state
+    import torch
+
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1087,6 +1412,8 @@ def main() -> int:
     try:
         out = phase_main(dev["smi"], base, *sets[MAIN_N])
         out["kernels"] += phase_main_packed(dev["smi"], base, sets)
+        m1 = phase_m1_kernels(dev["smi"], sets)
+        m1["launches"] = phase_micro(dev["smi"], sets)
         del sets[MAIN_N]
         build_shapes = phase_build_shape_kernels(sets[CMP_N][0], dev["smi"])
         for row in out["kernels"][:2]:  # B1, B4: their shapes inside the graph build
@@ -1100,6 +1427,8 @@ def main() -> int:
             "sweep_shape": graph["sweep_shape"],
             "launches_pq_sweep": graph["launches_pq_sweep"],
         })
+        out["kernels"].append(m1)
+        phase_api(dev["smi"], base, "vamana_200k", CMP_N)
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

@@ -2,22 +2,24 @@
 
 Serves the Vamana graph (kNN-based build, exact and PQ-guided traversal)
 and the flat (exhaustive) index on an NVIDIA Hopper card through
-hand-written CUDA kernels (`csrc/`), with the JAX package's on-disk
-formats, entry points and results. It imports torch, never jax, and
+hand-written CUDA kernels (`csrc/`), from the CLI or over HTTP, with the
+JAX package's on-disk formats, entry points and results. It imports torch, never jax, and
 nothing of `diskrag_tpu`.
 
 Layer map, mirroring the JAX package:
 
-    interfaces     cli.py
+    interfaces     cli.py, api.py
     orchestration  engine.py, build_index.py, convert.py
-    measurement    benchmark.py
+    measurement    benchmark.py, tools/, utils/profiling.py
     data           data/
     index          index/persist.py
     graph          graph/knn_build.py, graph/prune.py, graph/search.py
     pq             pq/kmeans.py, pq/product_quantizer.py, pq/residual.py
     ops            ops/distance.py, ops/flat.py, ops/flat_scan.py,
-                   ops/topk.py, ops/medoid.py, ops/pq_scan.py
-    kernels        csrc/*.cu, built at first use by kernels/_build.py
+                   ops/topk.py, ops/medoid.py, ops/pq_scan.py,
+                   ops/mm_probe.py
+    kernels        csrc/*.cu, built at first use by kernels/_build.py;
+                   launch counters in kernels/launches.py
     device         device.py (explicit device, cuda by default)
 """
 

@@ -1,7 +1,8 @@
-"""CLI — part of `diskrag_tpu/cli.py`: `process`, `index` (vamana, flat
-or auto, with the config's `index:` block), `search`, `list` and
-`delete`, plus `--device {cuda,cpu}` (default cuda), given before the
-subcommand.
+"""CLI — counterpart of `diskrag_tpu/cli.py`: the `DiskRAG` facade and
+its eight subcommands (`process`, `index` — vamana, flat or auto, with the
+config's `index:` block — `search`, `list`, `delete`, `process-dir`,
+`merge`, `doctor`), plus `--device {cuda,cpu}` (default cuda), given
+before the subcommand.
 
     python -m diskrag_tpu_torch.cli --config config.yaml process faq.csv -c faq
     python -m diskrag_tpu_torch.cli --config config.yaml index faq
@@ -198,11 +199,13 @@ class DiskRAG:
     # --- search ----------------------------------------------------------
     def search(
         self, collection: str, query: str, k: int = 5, faq: bool = False,
+        serving_mode: str = "auto",
     ) -> dict:
         from diskrag_tpu_torch.data import EmbeddingGenerator
         from diskrag_tpu_torch.engine import SearchEngine
 
-        engine = SearchEngine(collection, base_dir=self.base_dir, device=self.device)
+        engine = SearchEngine(collection, base_dir=self.base_dir,
+                              serving_mode=serving_mode, device=self.device)
         fn = EmbeddingGenerator(self.config.embedding).generate
         if faq:
             return engine.faq_search(query, k=k, embedding_fn=fn)
@@ -214,6 +217,129 @@ class DiskRAG:
 
     def delete_collection(self, name: str) -> bool:
         return self.manager.delete_collection(name)
+
+    def process_directory(
+        self, directory: str, prefix: Optional[str] = None,
+        recursive: bool = False, pattern: str = "*",
+    ) -> list[str]:
+        """Batch process + index every .csv / .md file of a directory,
+        one collection per file; returns the collections made. A file that
+        fails is logged and the batch goes on."""
+        from diskrag_tpu_torch.device import resolve_device
+
+        resolve_device(self.device)  # no card: raise here, not once per file into the log
+        root = pathlib.Path(directory)
+        files = sorted(root.rglob(pattern) if recursive else root.glob(pattern))
+        processed = []
+        for f in files:
+            if f.suffix.lower() not in (".csv", ".md", ".markdown"):
+                continue
+            name = f"{prefix}_{f.stem}" if prefix else f.stem
+            try:
+                self.process(str(f), name)
+                self.build_index(name)
+                processed.append(name)
+            except Exception as e:  # noqa: BLE001 — batch keeps going
+                logger.error("failed to process %s: %s", f, e)
+        return processed
+
+    def merge_collections(self, sources: list[str], target: str):
+        return self.manager.merge_collections(sources, target)
+
+    def doctor(self, collection: str) -> dict:
+        """Repair a collection's index artifacts: retrain PQ from
+        vectors.npy; if vectors.npy is missing but index artifacts exist,
+        reconstruct it from the persisted index. The quantizer kind that
+        `meta.json` records is the one retrained; a kind the port cannot
+        train yet (int8 / int4) raises `NotImplementedError` rather than
+        being repaired as another kind."""
+        import json
+
+        from diskrag_tpu_torch.build_index import _resolve_pq_kind, attach_pq
+        from diskrag_tpu_torch.device import resolve_device
+        from diskrag_tpu_torch.index.persist import IndexStore, load_index, save_index
+
+        resolve_device(self.device)
+        report: dict = {"collection": collection, "actions": []}
+        vec_path = self.manager.get_vectors_path(collection)
+        index_dir = self.manager.get_index_dir(collection)
+        store = IndexStore(index_dir)
+
+        if not vec_path.exists() and store.vectors_path.exists():
+            vectors = np.load(store.vectors_path)
+            with open(vec_path, "wb") as f:
+                np.save(f, vectors)
+            report["actions"].append("recovered vectors.npy from index")
+        if not vec_path.exists():
+            report["status"] = "cannot repair: no vectors anywhere"
+            return report
+
+        vectors = np.load(vec_path)
+        peek: dict = {}
+        if store.meta_path.exists():
+            try:
+                peek = json.loads(store.meta_path.read_text())
+            except ValueError:
+                pass
+        index_type = peek.get("index_type", "vamana")
+        if peek.get("pq_kind") in ("int8", "int4"):
+            raise NotImplementedError(
+                f"doctor: this index was built with pq_kind={peek['pq_kind']!r} (the "
+                "int-quantized rows of pq/intq), which the port cannot retrain yet "
+                "(ROADMAP.md, 'Modules still to port': int-quantized traversal); "
+                "it is not repaired as another kind"
+            )
+        if index_type in ("flat", "ivf", "sharded"):
+            # these types have no detached PQ artifact set to repair
+            report["actions"].append(
+                f"{index_type} index present — nothing to repair "
+                f"(use --force-rebuild to rebuild)"
+            )
+            report["status"] = "ok"
+            return report
+        if not store.exists():
+            report["actions"].append("no index yet — run `index`")
+            report["status"] = "ok"
+            return report
+
+        # the index stays on the host: doctor never searches
+        index, pq, codes, meta = load_index(index_dir, to_device=False, device=self.device)
+        n_index = int(index.vectors.shape[0])
+        if len(vectors) != n_index:
+            # the collection grew since the build: PQ must be trained on
+            # the INDEX's own N rows, or the repaired pq_codes length
+            # would mismatch the graph and make the index unloadable
+            report["actions"].append(
+                f"collection has {len(vectors)} vectors but the index "
+                f"was built on {n_index} — repair covers the indexed "
+                f"rows; run `index --force-rebuild` to pick up the rest"
+            )
+        pq_src = index.vectors.cpu().numpy()
+        if pq is None or codes is None or len(codes) != n_index:
+            # retrain the SAME quantizer kind the index was built with
+            # (meta records it); `_resolve_pq_kind` refuses int8 / int4
+            kind = _resolve_pq_kind(
+                meta.get("pq_kind") or "auto", meta.get("distance_metric", "l2"))
+            pq, codes, validation = attach_pq(pq_src, pq_kind=kind, device=self.device)
+            if pq is not None:
+                coarse = (validation or {}).get("coarse_ids")
+                # the fresh PQ's own meta keys must win over the stale ones
+                # riding in meta_extra (save_index applies extra last); a
+                # non-residual retrain also invalidates pq_aux
+                pq_meta_keys = (
+                    "use_pq", "n_subvectors", "pq_centroids", "pq_kind",
+                    "pq_n_coarse", "iq_row_width", "iq_n_cells",
+                )
+                if coarse is None:
+                    store.pq_aux_path.unlink(missing_ok=True)
+                save_index(
+                    index_dir, index, pq=pq, pq_codes=codes, pq_coarse_ids=coarse,
+                    host_vectors=pq_src,
+                    meta_extra={k: v for k, v in meta.items() if k not in pq_meta_keys},
+                )
+                report["actions"].append(f"retrained PQ (kind={kind})")
+        report["status"] = "ok"
+        return report
 
 
 def _print_results(out: dict) -> None:
@@ -278,6 +404,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", "-k", type=int, default=5)
     p.add_argument("--faq", action="store_true",
                    help="FAQ mode: dedup by qa_id, keep type=='faq' entries")
+    p.add_argument("--serving-mode", default="auto", choices=["auto"],
+                   help="the port serves mode 'auto' (host_tier, sharded_flat "
+                        "and streaming are later slices: ROADMAP.md)")
+
+    p = sub.add_parser("process-dir", help="process a whole directory")
+    p.add_argument("directory")
+    p.add_argument("--prefix", "-p")
+    p.add_argument("--recursive", "-r", action="store_true")
+    p.add_argument("--pattern", default="*")
+
+    p = sub.add_parser("merge", help="merge collections")
+    p.add_argument("collections", nargs="+")
+    p.add_argument("--target", "-t", required=True)
+
+    p = sub.add_parser("doctor", help="repair a collection's index artifacts")
+    p.add_argument("collection")
 
     sub.add_parser("list", help="list collections")
 
@@ -308,7 +450,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                       f"use_pq={meta.get('use_pq')} ({meta.get('build_seconds', 0):.1f}s)")
         print(f"index built: type={meta.get('index_type')} N={meta['num_points']} {detail}")
     elif args.command == "search":
-        _print_results(rag.search(args.collection, args.query, args.top_k, faq=args.faq))
+        _print_results(rag.search(args.collection, args.query, args.top_k, faq=args.faq,
+                                  serving_mode=args.serving_mode))
     elif args.command == "list":
         infos = rag.list_collections()
         if not infos:
@@ -320,8 +463,23 @@ def main(argv: Optional[list[str]] = None) -> int:
             )
     elif args.command == "delete":
         print("deleted" if rag.delete_collection(args.collection) else "not found")
+    elif args.command == "process-dir":
+        names = rag.process_directory(args.directory, args.prefix, args.recursive, args.pattern)
+        print(f"processed {len(names)} collections: {', '.join(names)}")
+    elif args.command == "merge":
+        info = rag.merge_collections(args.collections, args.target)
+        print(f"merged into {info.name}: {info.num_vectors} vectors")
+    elif args.command == "doctor":
+        print(rag.doctor(args.collection))
     return 0
 
 
 if __name__ == "__main__":
+    # die quietly when the reader closes the pipe (e.g. `... | head`)
+    try:
+        import signal
+
+        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+    except (ImportError, AttributeError, ValueError):
+        pass  # no SIGPIPE on this platform
     sys.exit(main())

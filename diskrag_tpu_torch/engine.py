@@ -40,6 +40,14 @@ from diskrag_tpu_torch.device import resolve_device
 logger = logging.getLogger(__name__)
 
 
+class ServingConfigError(RuntimeError):
+    """A request the engine's serving configuration cannot take (a live
+    insert or delete on an engine that is not in streaming mode).
+    Deliberately not a ValueError: the artifact-loading path degrades
+    ValueError / FileNotFoundError to brute-force serving, and a
+    configuration error must reach the operator instead."""
+
+
 class SearchEngine:
     """Per-collection search engine on one device."""
 
@@ -83,6 +91,7 @@ class SearchEngine:
         self.pq_cells_t = None  # residual-PQ aux (pq/residual.py)
         self.pq_bias_t = None
         self.flat = None
+        self.streaming = None   # the mutable tier: a later slice (ROADMAP.md)
         self.meta: dict = {}
         self.use_pq = False
         self.brute_force_mode = False
@@ -505,6 +514,19 @@ class SearchEngine:
         out["stats"]["faq_dedup"] = True
         out["stats"]["k"] = k
         return out
+
+    # --- live mutation (streaming mode only) ------------------------------
+    def insert_texts(self, texts, metadata_list=None, embedding_fn=None, vectors=None):
+        """Live-append texts: streaming mode only, as in the JAX package.
+        The port's engines are never in it (`serving_mode="streaming"` is a
+        later slice, ROADMAP.md), so this answers as a non-streaming engine
+        does."""
+        raise ServingConfigError("insert_texts requires serving_mode='streaming'")
+
+    def delete_ids(self, external_ids) -> int:
+        """Tombstone rows by vector id: streaming mode only (see
+        `insert_texts`)."""
+        raise ServingConfigError("delete_ids requires serving_mode='streaming'")
 
     def _attach_texts_batch(
         self, ids: np.ndarray, dists: np.ndarray

@@ -15,7 +15,9 @@ package loads in the other:
 
 Writes are atomic (`.tmp` then rename); the PQ model is reloaded before
 it replaces the old one. The packed record file (`index.dat`,
-`write_compat`) belongs to the host tier, which is not ported yet.
+`write_compat`) belongs to the host tier, which is not ported yet: the
+port does not write it, and reads it back only to verify a directory the
+JAX package wrote (`read_compat_records`, `tools/verify_index.py`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from diskrag_tpu_torch.graph.types import VamanaIndex
 logger = logging.getLogger(__name__)
 
 FORMAT_VERSION = "tpu-1"
+COMPAT_PAD = np.uint32(0xFFFFFFFF)  # an empty neighbour slot of a packed record
 
 
 def _atomic_write_bytes(path: pathlib.Path, data: bytes) -> None:
@@ -260,6 +263,20 @@ def load_index(
         if codes.shape != (meta["num_points"], pq.n_subvectors):
             raise ValueError(f"pq_codes shape {codes.shape} mismatch")
     return index, pq, codes, meta
+
+
+def read_compat_records(
+    path: str | os.PathLike, n: int, dim: int, r: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Read back the packed record file (one record per node: `dim` f32
+    values, then `r` uint32 neighbour ids) -> (vectors [N, D], adjacency
+    [N, R] int32 with -1 padding). Memory-maps; no full copy until sliced."""
+    record_size = 4 * (dim + r)
+    raw = np.memmap(path, dtype=np.uint8, mode="r", shape=(n, record_size))
+    vectors = raw[:, : 4 * dim].copy().view(np.float32).reshape(n, dim)
+    nbrs_u = raw[:, 4 * dim:].copy().view(np.uint32).reshape(n, r)
+    adjacency = np.where(nbrs_u == COMPAT_PAD, -1, nbrs_u.astype(np.int64)).astype(np.int32)
+    return vectors, adjacency
 
 
 def save_flat_index(

@@ -22,7 +22,11 @@ import diskrag_tpu_torch.cli, diskrag_tpu_torch.convert, diskrag_tpu_torch.engin
 import diskrag_tpu_torch.data, diskrag_tpu_torch.index.persist
 import diskrag_tpu_torch.kernels._build, diskrag_tpu_torch.ops.flat_scan
 import diskrag_tpu_torch.ops.flat, diskrag_tpu_torch.ops.topk, diskrag_tpu_torch.ops.medoid
-import diskrag_tpu_torch.ops.pq_scan
+import diskrag_tpu_torch.ops.pq_scan, diskrag_tpu_torch.ops.mm_probe
+import diskrag_tpu_torch.api, diskrag_tpu_torch.utils.profiling, diskrag_tpu_torch.kernels.launches
+import diskrag_tpu_torch.tools.fused_scan_micro, diskrag_tpu_torch.tools.verify_installation
+import diskrag_tpu_torch.tools.verify_index, diskrag_tpu_torch.tools.perf_test
+import diskrag_tpu_torch.tools.dataset_benchmark
 import diskrag_tpu_torch.graph, diskrag_tpu_torch.graph.types, diskrag_tpu_torch.graph.search
 import diskrag_tpu_torch.graph.prune, diskrag_tpu_torch.graph.knn_build
 import diskrag_tpu_torch.pq, diskrag_tpu_torch.pq.kmeans, diskrag_tpu_torch.pq.adaptive
@@ -42,10 +46,16 @@ from diskrag_tpu_torch.ops.flat_scan import (
 from diskrag_tpu_torch.benchmark import (
     SweepPoint, adaptive_flat_point, sweep_exact, sweep_flat, sweep_pq,
 )
+from diskrag_tpu_torch.api import AppState, create_app
+from diskrag_tpu_torch.ops.mm_probe import mm_probe, mm_probe_ref
+from diskrag_tpu_torch.utils.profiling import PhaseTimer, block_and_time, device_trace
+from diskrag_tpu_torch.kernels.launches import launch_counts
+assert set(launch_counts()) == {"B1", "B4", "B2", "B3", "B6", "B5", "M1"}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "diskrag_tpu."))
              or m == "diskrag_tpu")
-lazy = sorted(m for m in ("pandas", "yaml", "pyarrow", "httpx") if m in sys.modules)
+lazy = sorted(m for m in ("pandas", "yaml", "pyarrow", "httpx", "aiohttp", "pydantic")
+              if m in sys.modules)
 print(json.dumps({"bad": bad, "lazy": lazy}))
 """
 
@@ -106,6 +116,53 @@ def test_engine_and_cli_raise_without_a_card(monkeypatch, tmp_path):
         main(["--base-dir", str(tmp_path), "search", "missing", "q"])
 
 
+def test_api_tools_and_profiling_raise_without_a_card(monkeypatch, tmp_path):
+    """Every new entry point runs on the card unless asked for the CPU:
+    with no card visible it raises, and leaves nothing behind."""
+    from diskrag_tpu_torch import api
+    from diskrag_tpu_torch.cli import main
+    from diskrag_tpu_torch.tools import (
+        dataset_benchmark, fused_scan_micro, verify_index, verify_installation,
+    )
+    from diskrag_tpu_torch.utils.profiling import block_and_time, device_trace
+
+    _no_card(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+
+    def no_card():
+        return pytest.raises(RuntimeError, match="no CUDA device")
+
+    with no_card():
+        api.AppState(base_dir=str(tmp_path / "collections"))
+    with no_card():
+        api.main(port=0)
+    with no_card():
+        api.create_app()
+    with no_card():
+        fused_scan_micro.main(["--n", "100", "--queries", "4"])
+    with no_card():
+        fused_scan_micro.run(n=100, queries=4)
+    with no_card():
+        verify_installation.main([])
+    with no_card():
+        verify_index.main([str(tmp_path / "idx")])
+    with no_card():
+        dataset_benchmark.main(["--n", "100"])
+    with no_card():
+        block_and_time(lambda: torch.ones(2))
+    with no_card():
+        with device_trace(str(tmp_path / "trace")):
+            pass
+    with no_card():
+        main(["--base-dir", str(tmp_path / "c"), "doctor", "missing"])
+    with no_card():
+        main(["--base-dir", str(tmp_path / "c"), "process-dir", str(tmp_path)])
+    assert not (tmp_path / "app.log").exists() and not (tmp_path / "trace").exists()
+    # asked for the CPU, the same entry points run
+    assert api.AppState(base_dir=str(tmp_path / "collections"), device="cpu").device.type == "cpu"
+    assert verify_installation.main(["--device", "cpu"]) == 0
+
+
 def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
     from diskrag_tpu_torch.ops import flat_scan as fs
     from diskrag_tpu_torch.ops import pq_scan
@@ -145,6 +202,15 @@ def test_cpu_tensors_take_the_plain_versions_without_counting_launches():
     res = beam_search_pq(codes, tables, adj, torch.tensor(0), search_width=8, k=4, rerank=False)
     assert res.ids.shape == (5, 4) and int(res.n_steps) > 0
     assert pq_scan.adc_lookup_gathered_kernel.launches == 0
+    # M1: the matmul-only probe
+    from diskrag_tpu_torch.kernels.launches import launch_counts
+    from diskrag_tpu_torch.ops import mm_probe as mp
+
+    mp.reset_launch_counts()
+    rows, _ = fs.quantize_int8_global(x)
+    out, rowsum = mp.mm_probe(qc, rows, tile=64, nb_out=32)
+    assert out.shape == (128, 32) and rowsum.shape == (128,)
+    assert not any(launch_counts().values())
 
 
 def test_kernel_build_is_keyed_by_source_hash():
@@ -152,9 +218,9 @@ def test_kernel_build_is_keyed_by_source_hash():
 
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert [s.stem for s in srcs] == [
-        "adc_lookup", "flat_scan", "hier_scan", "packed_scan", "topk_lanes"]
+        "adc_lookup", "flat_scan", "hier_scan", "mm_probe", "packed_scan", "topk_lanes"]
     paths = {_build._lib_path(s) for s in srcs}
-    assert len(paths) == 5
+    assert len(paths) == 6
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     with pytest.raises(RuntimeError, match="CUDA error 7"):
