@@ -3,9 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `diskrag_tpu_torch/csrc/` (into
-`build/diskrag_tpu_torch/`), holds each against its plain PyTorch version
-on the card, then serves the flat index end to end at the benchmark's
-sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000 queries, k = 10)
+`build/diskrag_tpu_torch/`), checks in its SASS that B1's int8 kernel runs
+its products on wgmma, holds each kernel against its plain PyTorch version
+on the card (B1 int8 at row widths 36 to 1536, 1 to 4096 queries and NB 128
+to 32768; B4 on those blocks, on ties with signed zeros and -inf rows, at
+NB = 32768 and with kk > NB), then serves the flat index end to end at
+the benchmark's sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000
+queries, k = 10)
 through `build_index_from_vectors` and `SearchEngine.search_batch` — with
 the per-row int8 scan (kernels B1, B4) and with `flat_precision:
 int8_packed` (kernels B2, B3) — runs the pipelined fold (B6) through its
@@ -119,6 +123,12 @@ def device_ms_by_kernel(fn, reps: int) -> dict:
     return out
 
 
+def kernel_device_ms(fn, reps: int) -> float | None:
+    """Device time of one fn() call summed over its kernels (the profiler's
+    figure; None where it records no device activity)."""
+    return sum(device_ms_by_kernel(fn, reps).values()) or None
+
+
 def device_ms(fn, reps: int) -> tuple[float, str]:
     """Device time of one fn() call and the timer that gave it. With the
     profiler it is the summed durations of every device operation
@@ -183,6 +193,12 @@ def b5_bound_ms(tables, codes) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
+# B1 int8 beyond the comparison set: (rows, D, B, NBs). D = 36 is zero-padded
+# to 48-byte rows; 960 and 1536 loop over 128-byte K boxes
+ROWSCAN_CASES = ((3001, 36, 37, (128, 512)), (50_017, 128, 1, (512,)),
+                 (50_017, 128, 4096, (4096,)), (5003, 960, 70, (512,)),
+                 (4001, 1536, 130, (512,)))
+
 B5_SHAPES = ((250, 192, 32), (1000, 48, 32), (1000, 24, 16), (1, 48, 64), (37, 5, 8))
 
 
@@ -240,6 +256,27 @@ def phase_b5_kernels() -> None:
         emit({"phase": "kernels", "kernel": "B5", **b5_row(tables, codes)})
 
 
+def b4_timed(vals, kk: int) -> dict:
+    """B4, its plain version and `torch.topk` on one block. At the serving
+    shape B4 runs for about 10 us, less than the host takes to launch it, so
+    `ms`, `plain_ms` and `library_ms` are device times (`device_ms`, as for
+    B5; `timed_by` says which timer gave them); the `*_launch_to_launch`
+    keys are CUDA events around back-to-back calls."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    calls = {"ms": lambda: fs.topk_lanes(vals, kk),
+             "plain_ms": lambda: fs.topk_lanes_ref(vals, kk),
+             "library_ms": lambda: torch.topk(vals, kk, dim=1)}
+    out = {}
+    for key, fn in calls.items():
+        out[key], out["timed_by"] = device_ms(fn, 20)
+        out[f"{key}_launch_to_launch"] = cuda_ms(fn, 50)
+    out["device_ms"] = out["ms"] if out["timed_by"] == "profiler" else None
+    return out
+
+
 def phase_build_shape_kernels(pts, smi: str) -> dict:
     """B1 and B4 at the shapes the graph build's kNN pass hands them: a
     block of 4096 database rows as queries over the 200k table at
@@ -265,15 +302,15 @@ def phase_build_shape_kernels(pts, smi: str) -> dict:
     b4_bound, b4_by = b4_bound_ms(b, nb, kk)
     out = {
         "B1": {"b": b, "n": n, "nb": nb, "match": row["match"], "max_abs_err": row["max_abs_err"],
-               "ms": cuda_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 5),
+               "ms": cuda_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 10),
+               "device_ms": kernel_device_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 5),
                "plain_ms": cuda_ms(lambda: fs.scan_bucketed_topk_ref(*ops), 1),
-               "bound_ms": b1_bound, "bound_by": b1_by},
+               "library_ms": None, "bound_ms": b1_bound, "bound_by": b1_by,
+               "plan": str(fs.plan_rowscan(b, nb, codes.shape[0], codes.shape[1],
+                                           torch.cuda.get_device_properties(0).multi_processor_count))},
         "B4": {"b": b, "nb": nb, "kk": kk, "match": "bit-identical",
-               "max_abs_err": float((lk - lr).abs().max()),
-               "ms": cuda_ms(lambda: fs.topk_lanes(vals, kk), 10),
-               "plain_ms": cuda_ms(lambda: fs.topk_lanes_ref(vals, kk), 5),
-               "library_ms": cuda_ms(lambda: torch.topk(vals, kk, dim=1), 10),
-               "bound_ms": b4_bound, "bound_by": b4_by},
+               "max_abs_err": float((lk - lr).abs().max()), **b4_timed(vals, kk),
+               "bound_ms": b4_bound, "bound_by": b4_by, "plan": str(fs.plan_cut(nb, kk))},
     }
     emit({"phase": "kernels", "case": "graph-build shapes", "card": smi, **out})
     del pts_d, codes, vals
@@ -305,8 +342,29 @@ def phase_device() -> dict:
         "python": sys.version.split()[0],
         "build_seconds": round(build_s, 3),
         "kernels_built": sorted(paths), "ptxas": ptxas,
+        "sass_b1_int8": b1_int8_sass(paths["flat_scan"], _build._nvcc()),
     })
     return {"smi": smi}
+
+
+def b1_int8_sass(lib: pathlib.Path, nvcc: str) -> dict:
+    """IGMMA and IDP4A instructions in each instantiation of B1's int8
+    kernel (`cuobjdump -sass` of the built library, beside nvcc): the
+    products must run on the tensor cores through wgmma, none on __dp4a."""
+    tool = pathlib.Path(nvcc).with_name("cuobjdump")
+    if not tool.exists():
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts: dict = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0].strip()
+        if "scan_i8_wgmma" in name:
+            key = name[name.index("scan_i8_wgmma"):][:30]  # the template arguments
+            counts[key] = {op: section.count(op) for op in ("IGMMA", "IDP4A")}
+    require(bool(counts) and all(c["IGMMA"] > 0 and c["IDP4A"] == 0 for c in counts.values()),
+            f"B1's int8 kernel is not on wgmma alone: {counts}")
+    return counts
 
 
 def _scan_inputs(pts_dev, q_dev, metric: str):
@@ -372,9 +430,11 @@ def compare_b1(queries, db, db_norms, *, n_buckets, use_norms, q_scales=None,
 def phase_kernels() -> dict:
     """Each kernel's public wrapper against its plain version on the card,
     at the shapes of the comparison set (200k x 128, B = 1000, NB = 512
-    and 8192, both int8 table forms and bf16, all three metrics) and at a
+    and 8192, both int8 table forms and bf16, all three metrics), at a
     tiny one (300 x 36: NB shrinks to 256, rows are zero-padded to 16
-    bytes)."""
+    bytes), at `ROWSCAN_CASES` (int8, all three metrics) and at NB = 32768;
+    B4 on the l2 blocks, on NB = 32768 with kk = 1316 and kk > NB, and on a
+    block of ties, signed zeros and -inf rows."""
     import torch
 
     from diskrag_tpu_torch.benchmark import make_dataset
@@ -406,9 +466,34 @@ def phase_kernels() -> dict:
                                     torch.sum(src * src, -1), n_buckets=nb, use_norms=l2)
                 rows.append({"metric": metric, **row})
         del pts_d, q_d
-    # B4 on real scan blocks plus a block built for ties and exhaustion
+    # B1 int8 at the other row widths, batch sizes and NB the wrappers pass
+    # (ragged n; the wide rows at a modest n); B4 cut from each block
     g = torch.Generator(device="cpu").manual_seed(3)
-    ties = torch.randint(0, 4, (64, 512), generator=g).to(torch.float32)
+    for n_pts, d, b, nbs in ROWSCAN_CASES:
+        pts = torch.randn((n_pts, d), generator=g).to(dev)
+        q_d = pts[:b] + 0.05 * torch.randn((b, d), generator=g).to(dev)
+        for metric in ("l2", "cosine", "dot"):
+            qc, qs, codes, block, n, _, _ = _scan_inputs(pts, q_d, metric)
+            for nb in nbs:
+                vals, row = compare_b1(qc, codes, block, n_buckets=nb, use_norms=metric == "l2",
+                                       q_scales=qs, n_valid=n)
+                rows.append({"metric": metric, "b": b, **row})
+                if metric == "l2":
+                    b4_cases.append((vals, min(nb, 260 if nb >= 4096 else 40)))
+        del pts, q_d
+    # NB = 32768 (the widening rule's ceiling) from a real scan: kk = 1316
+    # (k = 329) and kk > NB (the 16-bit sort)
+    pts, q = make_dataset(CMP_N, MAIN_D, 64, seed=7)
+    qc, qs, codes, block, n, _, _ = _scan_inputs(torch.as_tensor(pts, device=dev),
+                                                 torch.as_tensor(q, device=dev), "l2")
+    wide, row = compare_b1(qc, codes, block, n_buckets=32768, use_norms=True, q_scales=qs,
+                           n_valid=n)
+    rows.append({"metric": "l2", "b": 64, **row})
+    b4_cases += [(wide, 1316), (wide[:8], 40000)]
+    # a block built for ties, signed zeros and exhaustion
+    ties = torch.randint(-2, 3, (64, 512), generator=g).to(torch.float32)
+    ties[ties == 0] = -0.0
+    ties[:, ::7] = 0.0
     ties[::3, 100:] = float("-inf")
     ties[5] = float("-inf")
     b4_cases.append((ties.to(dev), 40))
@@ -418,7 +503,7 @@ def phase_kernels() -> dict:
         torch.cuda.synchronize()
         require(bool(torch.equal(lk, lr)), f"B4 differs at NB={vals.shape[1]} kk={kk}")
         rows.append({"kernel": "B4", "b": vals.shape[0], "nb": vals.shape[1], "kk": kk,
-                     "match": "bit-identical",
+                     "match": "bit-identical", "plan": str(fs.plan_cut(vals.shape[1], kk)),
                      "sentinels": int((lr == vals.shape[1]).sum())})
     for r in rows:
         emit({"phase": "kernels", **r})
@@ -703,17 +788,15 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
     vals, row = compare_b1(*args, **kw)
     err = row["max_abs_err"]
     ops = fs._scan_operands(*args, db_scales=None, **kw)
-    b1_ms = cuda_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 10)
+    b1_ms = cuda_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 20)
+    b1_device = kernel_device_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 10)
     b1_plain = cuda_ms(lambda: fs.scan_bucketed_topk_ref(*ops), 3)
     kk = 40
     lk, lr = fs.topk_lanes(vals, kk), fs.topk_lanes_ref(vals, kk)
     # B4 returns lanes: its error is the largest difference between lanes
     b4_err = float((lk - lr).abs().max())
     require(bool(torch.equal(lk, lr)), f"B4 differs at the main-path shape by {b4_err} lanes")
-    b4_ms = cuda_ms(lambda: fs.topk_lanes(vals, kk), 50)
-    b4_plain = cuda_ms(lambda: fs.topk_lanes_ref(vals, kk), 20)
-    b4_lib = cuda_ms(lambda: torch.topk(vals, kk, dim=1), 50)
-    b4_device = sum(device_ms_by_kernel(lambda: fs.topk_lanes(vals, kk), 20).values()) or None
+    b4_times = b4_timed(vals, kk)
     b1_bound, b1_by = b1_bound_ms(MAIN_B, n_valid, MAIN_D, nb)
     b4_bound, b4_by = b4_bound_ms(MAIN_B, nb, kk)
     kernels = [
@@ -722,13 +805,15 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
          "replaces": "diskrag_tpu/ops/flat_scan_pallas.py:42",
          "launches": launches["B1"], "max_abs_err": err, "match": "bit-identical",
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound, "bound_by": b1_by,
-         "library_ms": None},
+         "library_ms": None, "device_ms": b1_device,
+         "plan": str(fs.plan_rowscan(MAIN_B, nb, flat._fused_db.shape[0], flat._fused_db.shape[1],
+                                     torch.cuda.get_device_properties(0).multi_processor_count))},
         {"name": "B4 topk_lanes (candidate cut)", "route": "cuda",
          "source": "diskrag_tpu_torch/csrc/topk_lanes.cu",
          "replaces": "diskrag_tpu/ops/flat_scan_pallas.py:1244",
          "launches": launches["B4"], "max_abs_err": b4_err, "match": "bit-identical",
-         "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": b4_bound, "bound_by": b4_by,
-         "library_ms": b4_lib, "device_ms": b4_device},
+         **b4_times, "bound_ms": b4_bound, "bound_by": b4_by,
+         "plan": str(fs.plan_cut(nb, kk))},
     ]
     del engine, flat, pts_d, q_d, vals
     torch.cuda.empty_cache()

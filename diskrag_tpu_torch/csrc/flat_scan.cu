@@ -12,40 +12,290 @@
 // scaled cross product, set to -inf where row0 is +inf.
 //
 // What bounds it on the H100: the products. At 1M x 128 and B = 1000 the
-// scan is 1.28e11 multiply-adds on 128 MB of int8 rows; the int8 tensor
-// cores would finish in ~0.13 ms, far above the 0.04 ms that the bytes
-// need. This first version does not use the tensor cores: it runs the
-// products on __dp4a (4 int8 multiply-adds per instruction) and the bf16
-// path on fmaf, so it is bound by the integer/FP32 pipes: 3.6 ms at that
-// shape, 28x the 0.13 ms bound, on an H100 80GB HBM3 at 700 W (PR 1,
-// chip_smoke.py). wgmma is later work.
+// scan is 1.28e11 multiply-adds on 128 MB of int8 rows: 0.13 ms at the int8
+// tensor-core peak, against 0.04 ms for the bytes. Next come the fold's
+// f32 operations, about six per score (1e9 scores there: ~0.2 ms of the
+// FP32 pipe), and the L2 traffic of the row tiles, which every query tile
+// of the batch reads again (0.9 GB at that shape). A first version on
+// __dp4a ran the products on the integer pipe, 28x the bound (3.6 ms).
+// This one takes 0.74 ms there and 0.63 ms at 4096 queries x 200k rows,
+// NB 4096 (H100 80GB HBM3, 700 W): a 64 x 64 tile of 128-byte rows costs an
+// SM about 0.34 us against the ~0.07 us its products need. What holds it
+// now is the chain inside a warpgroup, wait for the tile, multiply, wait for
+// the product, fold, with three warpgroups to overlap one another's chains.
+// Overlapping one segment's fold with the next one's product inside a
+// warpgroup (a second set of accumulators), or half a tile's fold with the
+// other half's product (two m64n32 groups), measured slower; a ring of 8
+// stages instead of 4 measured the same: the copies keep up.
 //
-// Design. The TPU walks the database tiles in order on one core and
-// carries the [B, NB] state in VMEM between grid steps. Here blocks run in
-// parallel and in no order, so the sequential axis becomes a loop inside
-// the block: a block owns kBQ queries (held in shared memory) and kLanes
-// bucket lanes, one per thread, and each thread walks its lane's segments
-// s = s0, s0+1, ... in increasing order, keeping kBQ (best, segment) pairs
-// in registers. Nothing is shared between threads after the query tile is
-// loaded, so no atomics and no ordering questions arise. Each thread
-// reuses one 16-byte load of its database row for all kBQ queries (the
-// wrapper zero-pads rows to a multiple of 16 bytes).
-// To fill 132 SMs when B/kBQ x NB/kLanes is small, the segment range is
-// cut into n_split contiguous parts that run in parallel; a second kernel
-// merges the parts in order with the same strict '>', which gives exactly
-// the sequential result (earliest segment on ties).
+// int8 design (scan_i8_wgmma): the products on the tensor cores through
+// wgmma m64n64k32 s8, fed by TMA (wgmma_common.cuh).
+//  - A block owns 64, 128 or 192 queries (one to three consumer warpgroups
+//    of 64, chosen by the wrapper), a lane tile of 64 bucket lanes and a
+//    contiguous range of segments. For segment s its database tile is rows
+//    [s*NB + l0, +64): contiguous rows, one 2-D TMA box per 128 bytes of K.
+//    Walking the segments in increasing order keeps each (query, lane) pair
+//    on the same thread's accumulator register every time, so the best
+//    score and its segment stay in registers with a strict '>'.
+//  - The queries are loaded once into shared memory (A); the database tiles
+//    (B) and their row0 / row1 pass through a ring of 4 stages that one
+//    producer thread fills with TMA (mbarrier completion). Rows wider than
+//    128 bytes loop over K boxes; K past a row's end and rows past the
+//    table's end are TMA's zero fill, and their norms its NaN fill, which
+//    no score can beat. Where all K boxes of the queries would not fit the
+//    block's shared memory (rows above ~2.9 KB), the query boxes pass
+//    through the ring beside the database tile instead ("streamed").
+//  - The fold converts each s32 accumulator exactly: for D <= 256 bytes,
+//    |acc| <= 2^22 and int -> float is an integer add and an fsub
+//    (__int_as_float(acc + 0x4B400000) - 12582912), not the quarter-rate
+//    I2F; wider rows keep __int2float_rn.
+//  - The grid runs the query tiles fastest, so the blocks that share a
+//    database tile run together and read it from L2.
+// To fill 132 SMs when the query x lane tiles are few, the segment range is
+// cut into n_split contiguous parts that run in parallel; scan_merge then
+// merges the parts in segment order with the same strict '>', which gives
+// exactly the sequential result (earliest segment on ties). With one part
+// the kernel writes the scores and ids itself. The wrapper plans the tiles
+// and the parts (ops/flat_scan.py::plan_rowscan).
+//
+// bf16 (scan_partial, not a default precision): the products on fmaf. A
+// block owns kBQ queries (in shared memory) and kLanes lanes, one per
+// thread; each thread walks its lane's segments in order, reusing each
+// 16-byte load of its row for all kBQ queries. bf16 wgmma is open work.
 //
 // Bit-exactness. nvcc contracts a*b*c - d into FMAs by default, which
 // would change the last bit of int8 scores and flip ids on near-ties.
-// The score is therefore computed with __int2float_rn / __fmul_rn /
-// __fsub_rn in the reference order ((cross * q_scale) * row1) - row0, so
-// int8 scores and ids are bit-identical to the plain PyTorch version.
+// The score is therefore computed with __fmul_rn / __fsub_rn in the
+// reference order ((cross * q_scale) * row1) - row0, so int8 scores and ids
+// are bit-identical to the plain PyTorch version.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 namespace {
+
+// --- int8: wgmma + TMA -------------------------------------------------------
+
+constexpr int kStages = 4;
+constexpr int kI8Lanes = wg::kTileRows;    // bucket lanes per block
+constexpr int kWgQueries = wg::kTileRows;  // queries per consumer warpgroup
+constexpr int kMaxConsumers = 3;
+constexpr int kNormFloats = 2 * kI8Lanes;  // a tile's row0, then its row1
+
+// Bytes of dynamic shared memory, with 1024 of slack for the alignment the
+// swizzled tiles need.
+__host__ __device__ inline int i8_stage_tiles(int n_cons, bool streamed) {
+  return 1 + (streamed ? n_cons : 0);
+}
+__host__ __device__ inline int i8_a_bytes(int n_cons, int n_kb, bool streamed) {
+  return streamed ? 0 : n_cons * n_kb * wg::kTileBytes;
+}
+inline int i8_smem_bytes(int n_cons, int n_kb, bool streamed) {
+  return 1024 + i8_a_bytes(n_cons, n_kb, streamed) +
+         kStages * i8_stage_tiles(n_cons, streamed) * wg::kTileBytes +
+         kStages * kNormFloats * 4 + (2 * kStages + 1) * 8;
+}
+
+// A consumer warpgroup's view of the ring: the stage and parity of the next
+// tile to multiply, and the stage of the next tile to hand back.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  int release = 0;
+  __device__ void next() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Multiplies the next stage's K box: acc (+)= the warpgroup's query box
+// (resident at a_res, or streamed beside the database tile) x the tile.
+__device__ __forceinline__ void issue_box(int (&acc)[32], Ring& r, uint64_t* full,
+                                          const unsigned char* stages, int stage_bytes,
+                                          const unsigned char* a_res, int w, bool streamed,
+                                          bool accumulate) {
+  wg::mbar_wait(&full[r.stage], r.phase);
+  const unsigned char* st = stages + r.stage * stage_bytes;
+  wg::wgmma_fence();
+  wg::wgmma_tile(acc, streamed ? st + (1 + w) * wg::kTileBytes : a_res, st, accumulate);
+  wg::wgmma_commit();
+  r.next();
+}
+
+// Hands the oldest stage still held back to the producer.
+__device__ __forceinline__ void release(Ring& r, uint64_t* empty) {
+  wg::mbar_arrive(&empty[r.release]);
+  r.release = (r.release + 1) % kStages;
+}
+
+// Folds segment s's finished product into (best_v, best_s) with the norms
+// staged beside its last K box, then hands that stage back.
+template <bool kL2, bool kSmallD>
+__device__ __forceinline__ void fold_segment(const int (&acc)[32], Ring& r, uint64_t* empty,
+                                             const float* snorm, int s,
+                                             const float (&qs)[2], int t4,
+                                             float (&best_v)[32], int (&best_s)[32]) {
+  const float* sn = snorm + r.release * kNormFloats;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float2 r0 = *reinterpret_cast<const float2*>(sn + 8 * c + 2 * t4);
+    const float2 r1 = *reinterpret_cast<const float2*>(sn + kI8Lanes + 8 * c + 2 * t4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = 4 * c + 2 * h + j;
+        const float nrm = j ? r0.y : r0.x;
+        const float sc = j ? r1.y : r1.x;
+        const float f = kSmallD ? __fsub_rn(__int_as_float(acc[i] + 0x4B400000), 12582912.f)
+                                : __int2float_rn(acc[i]);
+        const float cr = __fmul_rn(__fmul_rn(f, qs[h]), sc);
+        const float score = kL2 ? __fsub_rn(cr, nrm) : (nrm < INFINITY ? cr : -INFINITY);
+        if (score > best_v[i]) {
+          best_v[i] = score;
+          best_s[i] = s;
+        }
+      }
+    }
+  }
+  release(r, empty);
+}
+
+template <bool kL2, bool kSmallD>
+__global__ void __launch_bounds__(kMaxConsumers * 128 + 32, 1) scan_i8_wgmma(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap db_map,
+    const __grid_constant__ CUtensorMap norm_map, const float* __restrict__ q_scales,
+    int b, int n_kb, int nb, int n_rows, int n_valid, int seg_per_split, int streamed,
+    float* __restrict__ part_v, int* __restrict__ part_s, float* __restrict__ vals,
+    int* __restrict__ ids) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int n_cons = (blockDim.x - 32) / 128;
+  const int stage_tiles = i8_stage_tiles(n_cons, streamed);
+  unsigned char* stages = base + i8_a_bytes(n_cons, n_kb, streamed);
+  const int stage_bytes = stage_tiles * wg::kTileBytes;
+  float* snorm = reinterpret_cast<float*>(stages + kStages * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(snorm + kStages * kNormFloats);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int q0 = blockIdx.x * n_cons * kWgQueries;
+  const int l0 = blockIdx.y * kI8Lanes;
+  const int split = blockIdx.z;
+  const int n_seg = (n_rows + nb - 1) / nb;
+  const int s_begin = split * seg_per_split;
+  const int s_end = min(n_seg, s_begin + seg_per_split);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(&full[i], 1);  // the producer's expect_tx
+      wg::mbar_init(&empty[i], n_cons * 128);
+    }
+    wg::mbar_init(qbar, 1);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == n_cons * 4) {
+    // producer (one thread): the query boxes once, then for every (segment,
+    // K box) in order the database tile and the tile's norms
+    if (lane != 0) return;
+    if (!streamed) {
+      wg::mbar_arrive_expect_tx(qbar, n_cons * n_kb * wg::kTileBytes);
+      for (int w = 0; w < n_cons; ++w)
+        for (int kb = 0; kb < n_kb; ++kb)
+          wg::tma_load_2d(base + (w * n_kb + kb) * wg::kTileBytes, &q_map, qbar,
+                          kb * wg::kBoxK, q0 + w * kWgQueries);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int s = s_begin; s < s_end; ++s) {
+      for (int kb = 0; kb < n_kb; ++kb) {
+        wg::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = stages + stage * stage_bytes;
+        wg::mbar_arrive_expect_tx(&full[stage], stage_bytes + kNormFloats * 4);
+        wg::tma_load_2d(st, &db_map, &full[stage], kb * wg::kBoxK, s * nb + l0);
+        if (streamed)
+          for (int w = 0; w < n_cons; ++w)
+            wg::tma_load_2d(st + (1 + w) * wg::kTileBytes, &q_map, &full[stage],
+                            kb * wg::kBoxK, q0 + w * kWgQueries);
+        wg::tma_load_2d(snorm + stage * kNormFloats, &norm_map, &full[stage], s * nb + l0, 0);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w multiplies queries [q0 + 64w, +64) by each tile
+  const int w = warp >> 2;
+  const int wt = threadIdx.x & 127;
+  const int g = (wt & 31) >> 2;
+  const int t4 = wt & 3;
+  const int row_lo = q0 + w * kWgQueries + 16 * (wt >> 5) + g;  // and row_lo + 8
+  float qs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qs[h] = row_lo + 8 * h < b ? q_scales[row_lo + 8 * h] : 0.f;
+  float best_v[32];
+  int best_s[32];
+  int acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    best_v[i] = -INFINITY;
+    best_s[i] = -1;
+    acc[i] = 0;
+  }
+  if (!streamed) wg::mbar_wait(qbar, 0);
+  const unsigned char* a_res = base + w * n_kb * wg::kTileBytes;
+  Ring r;
+  // one K box at a time; each stage is handed back as soon as its product
+  // is done, the segment's last after the fold, which reads its norms
+  for (int s = s_begin; s < s_end; ++s) {
+    for (int kb = 0; kb < n_kb; ++kb) {
+      issue_box(acc, r, full, stages, stage_bytes, a_res + kb * wg::kTileBytes, w, streamed,
+                kb > 0);
+      wg::wgmma_wait<0>();
+      if (kb + 1 < n_kb) release(r, empty);
+    }
+    fold_segment<kL2, kSmallD>(acc, r, empty, snorm, s, qs, t4, best_v, best_s);
+  }
+
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = 4 * c + 2 * h + j;
+        const int query = row_lo + 8 * h;
+        const int ln = l0 + 8 * c + 2 * t4 + j;
+        if (query < b && ln < nb) {
+          if (gridDim.z == 1) {  // one part: the final output, no merge
+            const size_t o = (size_t)query * nb + ln;
+            const long long id = (long long)best_s[i] * nb + ln;
+            vals[o] = best_v[i];
+            ids[o] = (best_s[i] < 0 || id >= n_valid) ? -1 : (int)id;
+          } else {
+            const size_t o = ((size_t)split * b + query) * nb + ln;
+            part_v[o] = best_v[i];
+            part_s[o] = best_s[i];
+          }
+        }
+      }
+    }
+  }
+}
+
+// --- bf16: fmaf --------------------------------------------------------------
 
 constexpr int kBQ = 32;      // queries per block
 constexpr int kLanes = 128;  // bucket lanes per block, one per thread
@@ -57,32 +307,6 @@ __device__ __forceinline__ float bf16_hi(unsigned w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-template <bool kInt8>
-struct Dot;
-
-template <>
-struct Dot<true> {
-  using Acc = int;
-  static __device__ __forceinline__ void step(unsigned a, unsigned b, int& acc) {
-    acc = __dp4a(static_cast<int>(a), static_cast<int>(b), acc);
-  }
-  static __device__ __forceinline__ float cross(int acc, float qs, float sc) {
-    return __fmul_rn(__fmul_rn(__int2float_rn(acc), qs), sc);
-  }
-};
-
-template <>
-struct Dot<false> {
-  using Acc = float;
-  static __device__ __forceinline__ void step(unsigned a, unsigned b, float& acc) {
-    acc = fmaf(bf16_lo(a), bf16_lo(b), acc);
-    acc = fmaf(bf16_hi(a), bf16_hi(b), acc);
-  }
-  static __device__ __forceinline__ float cross(float acc, float, float) {
-    return acc;
-  }
-};
-
 __device__ __forceinline__ unsigned word_of(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
@@ -90,33 +314,22 @@ __device__ __forceinline__ unsigned word_of(const uint4& v, int i) {
 // One block: queries [qb*kBQ, +kBQ), lanes [lb*kLanes, +kLanes), segments
 // [split*seg_per_split, +seg_per_split). Row length is `row_words` 32-bit
 // words, a multiple of 4: rows are read 16 bytes at a time.
-template <bool kInt8, bool kL2>
+template <bool kL2>
 __global__ void __launch_bounds__(kLanes) scan_partial(
-    const unsigned* __restrict__ q, const float* __restrict__ q_scales,
-    const unsigned* __restrict__ db, const float* __restrict__ norms,
-    int b, int row_words, int n_rows, int nb, int seg_per_split,
-    float* __restrict__ part_v, int* __restrict__ part_s) {
-  using D = Dot<kInt8>;
+    const unsigned* __restrict__ q, const unsigned* __restrict__ db,
+    const float* __restrict__ norms, int b, int row_words, int n_rows, int nb,
+    int seg_per_split, float* __restrict__ part_v, int* __restrict__ part_s) {
   extern __shared__ uint4 smem[];
   const int qstride = row_words / 4;  // row length in uint4
   uint4* sq = smem;
-  float* sqs = reinterpret_cast<float*>(smem + kBQ * qstride);
 
   const int q0 = blockIdx.x * kBQ;
   unsigned* sqw = reinterpret_cast<unsigned*>(sq);
-  // `w < row_words` always holds (qstride * 4 == row_words). Written this
-  // way, ptxas schedules the main loop so that the int8 L2 scan at 1M x 128,
-  // B = 1000 takes 3.55 ms; without the test it takes 4.15 ms (H100 80GB
-  // HBM3 at 700 W, PR 1, chip_smoke.py). Keep it until the wgmma rewrite.
   for (int i = threadIdx.x; i < kBQ * qstride * 4; i += kLanes) {
     const int qi = i / (qstride * 4);
     const int w = i % (qstride * 4);
     const int row = q0 + qi;
-    sqw[i] = (row < b && w < row_words) ? q[(size_t)row * row_words + w] : 0u;
-  }
-  if (threadIdx.x < kBQ) {
-    const int row = q0 + threadIdx.x;
-    sqs[threadIdx.x] = (kInt8 && row < b) ? q_scales[row] : 0.f;
+    sqw[i] = row < b ? q[(size_t)row * row_words + w] : 0u;
   }
   __syncthreads();
 
@@ -138,9 +351,9 @@ __global__ void __launch_bounds__(kLanes) scan_partial(
   for (int s = s_begin; s < s_end; ++s) {
     const long long row = (long long)s * nb + lane;
     if (row >= n_rows) break;  // later segments lie past the table too
-    typename D::Acc acc[kBQ];
+    float acc[kBQ];
 #pragma unroll
-    for (int qi = 0; qi < kBQ; ++qi) acc[qi] = 0;
+    for (int qi = 0; qi < kBQ; ++qi) acc[qi] = 0.f;
     const uint4* rv = reinterpret_cast<const uint4*>(db + row * row_words);
     for (int c = 0; c < qstride; ++c) {
       const uint4 v = __ldg(rv + c);
@@ -148,16 +361,17 @@ __global__ void __launch_bounds__(kLanes) scan_partial(
       for (int qi = 0; qi < kBQ; ++qi) {
         const uint4 qv = sq[qi * qstride + c];
 #pragma unroll
-        for (int w = 0; w < 4; ++w) D::step(word_of(v, w), word_of(qv, w), acc[qi]);
+        for (int w = 0; w < 4; ++w) {
+          acc[qi] = fmaf(bf16_lo(word_of(v, w)), bf16_lo(word_of(qv, w)), acc[qi]);
+          acc[qi] = fmaf(bf16_hi(word_of(v, w)), bf16_hi(word_of(qv, w)), acc[qi]);
+        }
       }
     }
     const float nrm = norms[row];
-    const float sc = kInt8 ? norms[(long long)n_rows + row] : 0.f;
     const bool pad = isinf(nrm);
 #pragma unroll
     for (int qi = 0; qi < kBQ; ++qi) {
-      const float cr = D::cross(acc[qi], sqs[qi], sc);
-      const float score = kL2 ? __fsub_rn(cr, nrm) : (pad ? -INFINITY : cr);
+      const float score = kL2 ? __fsub_rn(acc[qi], nrm) : (pad ? -INFINITY : acc[qi]);
       if (score > best_v[qi]) {
         best_v[qi] = score;
         best_s[qi] = s;
@@ -175,6 +389,8 @@ __global__ void __launch_bounds__(kLanes) scan_partial(
     }
   }
 }
+
+// --- the merge of the parts ------------------------------------------------
 
 // Merge the n_split partial states in segment order and emit element ids:
 // id = seg*NB + lane, or -1 for an empty bucket or an id >= n_valid.
@@ -199,20 +415,13 @@ __global__ void scan_merge(const float* __restrict__ part_v,
   ids[i] = (bs < 0 || id >= n_valid) ? -1 : (int)id;
 }
 
-template <bool kInt8, bool kL2>
-cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t st,
-                           const unsigned* q, const float* qs,
-                           const unsigned* db, const float* norms, int b,
-                           int row_words, int n_rows, int nb,
-                           int seg_per_split, float* pv, int* ps) {
-  auto k = scan_partial<kInt8, kL2>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  k<<<grid, kLanes, smem, st>>>(q, qs, db, norms, b, row_words, n_rows, nb,
-                                 seg_per_split, pv, ps);
+cudaError_t launch_merge(cudaStream_t st, const void* pv, const void* ps, int n_split,
+                         int b, int nb, int n_valid, void* vals, void* ids) {
+  const size_t total = (size_t)b * nb;
+  const int threads = 256;
+  scan_merge<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      static_cast<const float*>(pv), static_cast<const int*>(ps), n_split, b, nb,
+      n_valid, static_cast<float*>(vals), static_cast<int*>(ids));
   return cudaGetLastError();
 }
 
@@ -220,47 +429,79 @@ cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t st,
 
 extern "C" {
 
-int flat_scan_block_queries() { return kBQ; }
-int flat_scan_block_lanes() { return kLanes; }
+// Tile sizes of the int8 kernel: queries per consumer warpgroup, consumer
+// warpgroups per block at most, lanes per block.
+int flat_scan_i8_wg_queries() { return kWgQueries; }
+int flat_scan_i8_lanes() { return kI8Lanes; }
+int flat_scan_i8_max_consumers() { return kMaxConsumers; }
 
-// q [b, row_words] words of int8 (4 per word) or bf16 (2 per word), with
-// row_words % 4 == 0 and q, db 16-byte aligned;
-// q_scales [b] f32 (int8 only); db [n_rows, row_words]; norms [R, n_rows]
-// f32 (row 1 = scales, int8 only); part_v/part_s [n_split, b, nb];
-// vals/ids [b, nb]. Returns cudaGetLastError() after both launches.
-int flat_scan_launch(const void* q, const void* q_scales, const void* db,
-                     const void* norms, int b, int row_words, int n_rows,
-                     int nb, int n_valid, int int8, int l2,
-                     int seg_per_split, int n_split, void* part_v,
-                     void* part_s, void* vals, void* ids, int device,
-                     void* stream) {
+// int8: q [b, row_bytes] and db [n_rows, row_bytes] int8 (row_bytes % 16
+// == 0, both 16-byte aligned); q_scales [b] f32; norms [2, n_rows] f32 rows
+// `norm_stride` floats apart (a multiple of 4, base 16-byte aligned; row 1 =
+// scales); part_v/part_s [n_split, b, nb] (unused when n_split == 1);
+// vals/ids [b, nb]. n_cons consumer warpgroups (1 to 3) per block;
+// `streamed` passes the query boxes through the ring. Returns -1 if the
+// CUDA driver refuses a TMA descriptor, else cudaGetLastError() after the
+// launches.
+int flat_scan_i8_launch(const void* q, const void* q_scales, const void* db,
+                        const void* norms, int b, int row_bytes, int n_rows,
+                        int norm_stride, int nb, int n_valid, int l2, int n_cons,
+                        int streamed, int seg_per_split, int n_split, void* part_v,
+                        void* part_s, void* vals, void* ids, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)kBQ * row_words * 4 + kBQ * sizeof(float);
-  dim3 grid((b + kBQ - 1) / kBQ, (nb + kLanes - 1) / kLanes, n_split);
-  auto* qq = static_cast<const unsigned*>(q);
-  auto* qs = static_cast<const float*>(q_scales);
-  auto* dd = static_cast<const unsigned*>(db);
-  auto* nn = static_cast<const float*>(norms);
-  auto* pv = static_cast<float*>(part_v);
-  auto* ps = static_cast<int*>(part_s);
-#define DISPATCH(I8, L2)                                                      \
-  if (!!int8 == I8 && !!l2 == L2)                                              \
-    e = launch_partial<I8, L2>(grid, smem, st, qq, qs, dd, nn, b, row_words,   \
-                               n_rows, nb, seg_per_split, pv, ps);
-  DISPATCH(true, true)
-  DISPATCH(true, false)
-  DISPATCH(false, true)
-  DISPATCH(false, false)
-#undef DISPATCH
+  CUtensorMap q_map, db_map, norm_map;
+  if (!wg::make_row_map(&q_map, q, b, row_bytes) ||
+      !wg::make_row_map(&db_map, db, n_rows, row_bytes) ||
+      !wg::make_norm_map(&norm_map, norms, n_rows, norm_stride))
+    return -1;
+  const int n_kb = (row_bytes + wg::kBoxK - 1) / wg::kBoxK;
+  const int smem = i8_smem_bytes(n_cons, n_kb, streamed != 0);
+  const bool small_d = row_bytes <= 256;  // |acc| <= 128 * 128 * 256 = 2^22
+  auto k = l2 ? (small_d ? scan_i8_wgmma<true, true> : scan_i8_wgmma<true, false>)
+              : (small_d ? scan_i8_wgmma<false, true> : scan_i8_wgmma<false, false>);
+  e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const size_t total = (size_t)b * nb;
-  const int threads = 256;
-  scan_merge<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
-      pv, ps, n_split, b, nb, n_valid, static_cast<float*>(vals),
-      static_cast<int*>(ids));
-  return cudaGetLastError();
+  const int q_tile = n_cons * kWgQueries;
+  dim3 grid((b + q_tile - 1) / q_tile, (nb + kI8Lanes - 1) / kI8Lanes, n_split);
+  k<<<grid, n_cons * 128 + 32, smem, st>>>(
+      q_map, db_map, norm_map, static_cast<const float*>(q_scales), b, n_kb, nb, n_rows,
+      n_valid, seg_per_split, streamed, static_cast<float*>(part_v),
+      static_cast<int*>(part_s), static_cast<float*>(vals), static_cast<int*>(ids));
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return e;
+  return launch_merge(st, part_v, part_s, n_split, b, nb, n_valid, vals, ids);
+}
+
+int flat_scan_block_queries() { return kBQ; }
+int flat_scan_block_lanes() { return kLanes; }
+
+// bf16: q [b, row_words] words (2 bf16 each, row_words % 4 == 0, 16-byte
+// aligned), already doubled for L2; db [n_rows, row_words]; norms [1+,
+// n_rows] f32; parts and outputs as for int8.
+int flat_scan_bf16_launch(const void* q, const void* db, const void* norms, int b,
+                          int row_words, int n_rows, int nb, int n_valid, int l2,
+                          int seg_per_split, int n_split, void* part_v, void* part_s,
+                          void* vals, void* ids, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = (size_t)kBQ * row_words * 4;
+  dim3 grid((b + kBQ - 1) / kBQ, (nb + kLanes - 1) / kLanes, n_split);
+  auto k = l2 ? scan_partial<true> : scan_partial<false>;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  k<<<grid, kLanes, smem, st>>>(static_cast<const unsigned*>(q),
+                                static_cast<const unsigned*>(db),
+                                static_cast<const float*>(norms), b, row_words, n_rows,
+                                nb, seg_per_split, static_cast<float*>(part_v),
+                                static_cast<int*>(part_s));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_merge(st, part_v, part_s, n_split, b, nb, n_valid, vals, ids);
 }
 
 }  // extern "C"

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -115,6 +116,21 @@ def _match_width(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(q, (0, extra)) if extra else q
 
 
+def _c_function(stem: str, name: str, argtypes: list):
+    """`name` of the library built from `csrc/<stem>.cu`, its argument types
+    set once (the short kernels' host path is part of their time)."""
+    fn = _c_functions.get(name)
+    if fn is None:
+        fn = getattr(_build.load(stem), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _c_functions[name] = fn
+    return fn
+
+
+_c_functions: dict[str, ctypes._CFuncPtr] = {}
+
+
 # --- B1: the bucketed scan ---------------------------------------------------
 
 
@@ -176,7 +192,114 @@ def scan_bucketed_topk_ref(
     return best_v, ids.to(torch.int32)
 
 
-_SCAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4 + [
+# The int8 kernel's tiles (`csrc/flat_scan.cu`; the wrapper checks them
+# against the library's exported values): 64 queries per consumer
+# warpgroup, one to three warpgroups per block, 64 bucket lanes per block,
+# rows in K boxes of 128 bytes, a ring of 4 stages.
+_I8_WG_QUERIES = 64
+_I8_MAX_CONSUMERS = 3
+_I8_LANES = 64
+_I8_BOX = 128
+_I8_STAGES = 4
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt into
+
+
+def _i8_smem_bytes(n_cons: int, n_kb: int, streamed: bool) -> int:
+    """The int8 kernel's dynamic shared memory (`i8_smem_bytes` in
+    `csrc/flat_scan.cu`): alignment slack, the resident query boxes, the
+    ring's stages (a database tile, plus the query tiles when streamed),
+    the staged norms and the mbarriers."""
+    tile = _I8_BOX * _I8_LANES
+    a = 0 if streamed else n_cons * n_kb * tile
+    stage = (1 + (n_cons if streamed else 0)) * tile
+    return 1024 + a + _I8_STAGES * stage + _I8_STAGES * 2 * _I8_LANES * 4 + (2 * _I8_STAGES + 1) * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class RowScanPlan:
+    """How the int8 scan (B1) cuts one call into blocks: `n_cons` consumer
+    warpgroups of 64 queries per block, query boxes resident in shared
+    memory or `streamed` through the ring, a grid of (query tiles, lane
+    tiles, parts), each part `seg_per_split` contiguous segments. The plan
+    changes the grid, never the result."""
+
+    n_cons: int
+    streamed: bool
+    q_tiles: int
+    lane_tiles: int
+    n_seg: int
+    seg_per_split: int
+    n_split: int
+
+    @property
+    def block_queries(self) -> int:
+        return self.n_cons * _I8_WG_QUERIES
+
+
+@functools.lru_cache(maxsize=256)
+def plan_rowscan(b: int, nb: int, rows: int, row_bytes: int, sms: int) -> RowScanPlan:
+    """B1's int8 grid for `b` queries over `rows` rows of `row_bytes`
+    bytes in buckets of `nb` lanes on a card of `sms` SMs (one block an
+    SM). Up to three consumer warpgroups (192 queries) per block, as many
+    as the batch fills and as fit their query boxes in shared memory beside
+    the ring; the query boxes stream through the ring only where even one
+    warpgroup's do not fit. The segments are cut into parts when
+    the query x lane tiles are fewer than two blocks an SM: between two
+    and eight waves, the count that leaves the last wave fullest (the
+    smaller on ties)."""
+    n_kb = -(-row_bytes // _I8_BOX)
+    want = min(_I8_MAX_CONSUMERS, -(-b // _I8_WG_QUERIES))
+    n_cons, streamed = next(
+        (c, st) for st in (False, True) for c in range(want, 0, -1)
+        if _i8_smem_bytes(c, n_kb, st) <= _SMEM_LIMIT)
+    q_tiles = -(-b // (n_cons * _I8_WG_QUERIES))
+    lane_tiles = -(-nb // _I8_LANES)
+    n_seg = -(-rows // nb)
+    base = q_tiles * lane_tiles
+    n_split = 1
+    if base < 2 * sms:
+        best = -1.0
+        for n in range(-(-2 * sms // base), -(-8 * sms // base) + 1):
+            n = min(n, n_seg)
+            blocks = base * n
+            eff = blocks / (-(-blocks // sms) * sms)
+            if eff > best:
+                best, n_split = eff, n
+    seg_per_split = -(-n_seg // n_split)
+    n_split = -(-n_seg // seg_per_split)
+    return RowScanPlan(n_cons, streamed, q_tiles, lane_tiles, n_seg, seg_per_split, n_split)
+
+
+@functools.cache
+def _check_i8_tiles() -> None:
+    """Once per process: the built kernel's tiles are the planner's."""
+    lib = _build.load("flat_scan")
+    if (lib.flat_scan_i8_wg_queries(), lib.flat_scan_i8_max_consumers(),
+            lib.flat_scan_i8_lanes()) != (_I8_WG_QUERIES, _I8_MAX_CONSUMERS, _I8_LANES):
+        raise RuntimeError("B1: the library's tile sizes differ from the wrapper's")
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _tma_norm_rows(block: torch.Tensor) -> torch.Tensor:
+    """The norm block's rows 0 and 1 as TMA reads them: rows a multiple of
+    16 bytes apart from a 16-byte-aligned base. The pre-padded tables
+    already are (4096-row granule); an unpadded [2, N] block is copied into
+    one whose rows are widened to a multiple of 4 floats."""
+    if block.stride(0) % 4 == 0 and block.stride(1) == 1 and block.data_ptr() % 16 == 0:
+        return block
+    wide = torch.empty((2, -(-block.shape[1] // 4) * 4), dtype=torch.float32, device=block.device)
+    wide[:, : block.shape[1]] = block[:2]
+    return wide
+
+
+_I8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_void_p,
+]
+_BF16_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_void_p,
 ]
 
@@ -210,28 +333,39 @@ def _scan_cuda(q, db, norm_block, nb, use_norms, q_scales, n):
         db = db.clone()
     row_bytes = d * esize
     lib = _build.load("flat_scan")
-    fn = lib.flat_scan_launch
-    fn.argtypes = _SCAN_ARGTYPES
-    fn.restype = ctypes.c_int
-    bq, lanes = lib.flat_scan_block_queries(), lib.flat_scan_block_lanes()
-    n_seg = -(-rows // nb)
-    base = -(-b // bq) * -(-nb // lanes)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = max(1, min(n_seg, -(-sms * 8 // base)))
-    seg_per_split = -(-n_seg // n_split)
-    n_split = -(-n_seg // seg_per_split)
-    part_v = torch.empty((n_split, b, nb), dtype=torch.float32, device=dev)
-    part_s = torch.empty((n_split, b, nb), dtype=torch.int32, device=dev)
-    qs = q_scales.to(torch.float32).contiguous() if int8 else vals
-    err = fn(
-        q.data_ptr(), qs.data_ptr(), db.data_ptr(), norm_block.data_ptr(),
-        b, row_bytes // 4, rows, nb, n, int(int8), int(use_norms),
-        seg_per_split, n_split,
-        part_v.data_ptr(), part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if int8:
+        _check_i8_tiles()
+        plan = plan_rowscan(b, nb, rows, row_bytes, _sm_count(dev))
+        n_split, spp = plan.n_split, plan.seg_per_split
+    else:
+        bq, lanes = lib.flat_scan_block_queries(), lib.flat_scan_block_lanes()
+        n_seg = -(-rows // nb)
+        base = -(-b // bq) * -(-nb // lanes)
+        n_split = max(1, min(n_seg, -(-_sm_count(dev) * 8 // base)))
+        spp = -(-n_seg // n_split)
+        n_split = -(-n_seg // spp)
+    parts = 0 if int8 and n_split == 1 else n_split  # one int8 part writes vals / ids
+    part_v = torch.empty((parts, b, nb), dtype=torch.float32, device=dev)
+    part_s = torch.empty((parts, b, nb), dtype=torch.int32, device=dev)
+    tail = (part_v.data_ptr(), part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(), dev.index, stream)
+    if int8:
+        fn = _c_function("flat_scan", "flat_scan_i8_launch", _I8_ARGTYPES)
+        qs = q_scales.to(torch.float32).contiguous()
+        norm_block = _tma_norm_rows(norm_block)
+        err = fn(q.data_ptr(), qs.data_ptr(), db.data_ptr(), norm_block.data_ptr(),
+                 b, row_bytes, rows, norm_block.stride(0), nb, n, int(use_norms),
+                 plan.n_cons, int(plan.streamed), spp, n_split, *tail)
+        what = "flat_scan_i8_launch"
+        if err == -1:
+            raise RuntimeError(f"{what}: the CUDA driver refused a TMA descriptor")
+    else:
+        fn = _c_function("flat_scan", "flat_scan_bf16_launch", _BF16_ARGTYPES)
+        err = fn(q.data_ptr(), db.data_ptr(), norm_block.data_ptr(),
+                 b, row_bytes // 4, rows, nb, n, int(use_norms), spp, n_split, *tail)
+        what = "flat_scan_bf16_launch"
     scan_bucketed_topk.launches += 1
-    _build.check(err, "flat_scan_launch")
+    _build.check(err, what)
     return vals, ids
 
 
@@ -305,8 +439,36 @@ def topk_lanes_ref(scores: torch.Tensor, kk: int) -> torch.Tensor:
     return lanes.to(torch.int32)
 
 
-_CUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+@dataclasses.dataclass(frozen=True)
+class CutPlan:
+    """How B4 runs one call: threads per block (one block per row), the
+    sort's variant (`indirect`: 16-bit lanes read through the keys, where
+    64-bit (key, lane) words do not fit beside the row) and the dynamic
+    shared memory in bytes."""
+
+    threads: int
+    indirect: bool
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def plan_cut(nb: int, kk: int) -> CutPlan:
+    """B4's launch for [B, nb] scores cut to kk lanes (`csrc/topk_lanes.cu`):
+    128 threads a row up to nb = 1024, 256 up to 8192, 512 above; shared
+    memory for two 256-bin histograms, the row's keys and the sort's
+    places (the next power of two >= min(kk, nb)). Raises where even the
+    16-bit sort does not fit."""
+    threads = 128 if nb <= 1024 else 256 if nb <= 8192 else 512
+    places = 1 << max(0, min(kk, nb) - 1).bit_length()
+    base = 2 * 256 * 4 + 4 * (nb + (nb & 1))
+    if base + 8 * places <= _SMEM_LIMIT - 1024:
+        return CutPlan(threads, False, base + 8 * places)
+    if nb < 0xFFFF and base + 2 * places <= _SMEM_LIMIT - 1024:
+        return CutPlan(threads, True, base + 2 * places)
+    raise ValueError(f"B4: a row of {nb} lanes does not fit a block's shared memory")
+
+
+_CUT_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def topk_lanes(scores: torch.Tensor, kk: int) -> torch.Tensor:
@@ -318,13 +480,12 @@ def topk_lanes(scores: torch.Tensor, kk: int) -> torch.Tensor:
         raise ValueError("B4 takes a [B, NB] f32 block")
     scores = scores.contiguous()
     b, nb = scores.shape
+    plan = plan_cut(nb, kk)
     dev = scores.device
     out = torch.empty((b, kk), dtype=torch.int32, device=dev)
-    fn = _build.load("topk_lanes").topk_lanes_launch
-    fn.argtypes = _CUT_ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(scores.data_ptr(), b, nb, kk, out.data_ptr(), dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
+    fn = _c_function("topk_lanes", "topk_lanes_launch", _CUT_ARGTYPES)
+    err = fn(scores.data_ptr(), b, nb, kk, plan.threads, int(plan.indirect), plan.smem,
+             out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     topk_lanes.launches += 1
     _build.check(err, "topk_lanes_launch")
     return out

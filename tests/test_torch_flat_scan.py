@@ -190,21 +190,176 @@ def test_flat_search_fused_brute_force_fallbacks(case, monkeypatch):
     np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-3)
 
 
+def _lexsort_cut(s, kk):
+    """An independent cut: per row, lanes by (value desc, lane asc) through
+    np.lexsort, the -inf lanes replaced by the sentinel NB, padded with NB
+    to kk places. -0.0 and +0.0 compare equal here as in the kernels."""
+    b, nb = s.shape
+    out = np.full((b, kk), nb, dtype=np.int32)
+    for r in range(b):
+        v = s[r].astype(np.float64) + 0.0  # -0.0 + 0.0 == +0.0
+        order = np.lexsort((np.arange(nb), -v))[: min(kk, nb)]
+        order = np.where(np.isneginf(v[order]), nb, order)
+        out[r, : order.shape[0]] = order
+    return out
+
+
+def _cut_block(case, rng):
+    if case == "build_shape":  # the graph build's NB and kk, fewer rows
+        return rng.normal(size=(6, 4096)).astype(np.float32), 260
+    if case == "kk_over_nb":
+        s = rng.normal(size=(5, 512)).astype(np.float32)
+        s[1, 100:] = -np.inf
+        return s, 700
+    if case == "ties":
+        return rng.integers(0, 3, size=(6, 1024)).astype(np.float32), 300
+    if case == "signed_zeros":
+        s = rng.integers(-1, 2, size=(6, 512)).astype(np.float32) * 0.0  # +-0.0
+        s[:, ::5] = -0.0
+        s[2, 50:] = -np.inf
+        return s, 40
+    s = rng.normal(size=(4, 512)).astype(np.float32)  # "all_neg_inf"
+    s[[0, 2]] = -np.inf
+    return s, 64
+
+
+@pytest.mark.parametrize("case", ["build_shape", "kk_over_nb", "ties", "signed_zeros", "all_neg_inf"])
+def test_topk_lanes_ref_matches_lexsort(case):
+    s, kk = _cut_block(case, np.random.default_rng(11))
+    got = tfs.topk_lanes_ref(_t(s), kk).numpy()
+    assert got.shape == (s.shape[0], kk)
+    assert np.array_equal(got, _lexsort_cut(s, kk))
+    if case == "all_neg_inf":
+        assert (got[0] == 512).all() and (got[2] == 512).all()
+
+
+@pytest.mark.parametrize(
+    "b,nb,rows,row_bytes",
+    [(1000, 512, 1_003_520, 128), (4096, 4096, 200_704, 128), (1, 512, 1_003_520, 128),
+     (37, 128, 3000, 48), (130, 512, 4000, 1536), (100, 128, 2000, 3072), (64, 200, 4097, 16)],
+)
+def test_plan_rowscan_covers_every_query_lane_segment_once(b, nb, rows, row_bytes):
+    plan = tfs.plan_rowscan(b, nb, rows, row_bytes, sms=132)
+    n_kb = -(-row_bytes // 128)
+    fits = [c for c in range(1, min(3, -(-b // 64)) + 1)
+            if tfs._i8_smem_bytes(c, n_kb, False) <= 227 * 1024]
+    # the most warpgroups the batch fills whose query boxes stay resident;
+    # streamed only where not even one warpgroup's fit
+    assert (plan.n_cons, plan.streamed) == ((max(fits), False) if fits else (plan.n_cons, True))
+    assert tfs._i8_smem_bytes(plan.n_cons, n_kb, plan.streamed) <= 227 * 1024
+    n_seg = -(-rows // nb)
+    assert plan.n_seg == n_seg
+    # the splits: contiguous, in segment order, non-empty, covering all
+    splits = [(z * plan.seg_per_split, min(n_seg, (z + 1) * plan.seg_per_split))
+              for z in range(plan.n_split)]
+    assert splits[0][0] == 0 and splits[-1][1] == n_seg
+    assert all(lo < hi for lo, hi in splits)
+    assert all(a[1] == b_[0] for a, b_ in zip(splits, splits[1:]))
+    # every (query, lane) pair is owned by exactly one (query tile, lane tile)
+    bq = plan.block_queries
+    qcount = np.zeros(b, dtype=np.int64)
+    for x in range(plan.q_tiles):
+        qcount[x * bq: min(b, (x + 1) * bq)] += 1
+    lcount = np.zeros(nb, dtype=np.int64)
+    for y in range(plan.lane_tiles):
+        lcount[y * 64: min(nb, (y + 1) * 64)] += 1
+    scount = np.zeros(n_seg, dtype=np.int64)
+    for lo, hi in splits:
+        scount[lo:hi] += 1
+    assert (qcount == 1).all() and (lcount == 1).all() and (scount == 1).all()
+    assert plan.q_tiles * bq - b < bq and plan.lane_tiles * 64 - nb < 64
+
+
+@pytest.mark.parametrize(
+    "nb,kk,threads,indirect",
+    [(512, 40, 128, False), (1024, 40, 128, False), (4096, 260, 256, False),
+     (32768, 1316, 512, False), (32768, 40_000, 512, True), (20000, 9000, 512, False)],
+)
+def test_plan_cut_variant(nb, kk, threads, indirect):
+    plan = tfs.plan_cut(nb, kk)
+    assert (plan.threads, plan.indirect) == (threads, indirect)
+    places = 1 << max(0, min(kk, nb) - 1).bit_length()
+    assert plan.smem == 2048 + 4 * (nb + nb % 2) + (2 if indirect else 8) * places
+    assert plan.smem <= 226 * 1024
+
+
+def test_plan_cut_refuses_rows_past_shared_memory():
+    with pytest.raises(ValueError):
+        tfs.plan_cut(60000, 40000)
+
+
+def test_tma_norm_rows_widen_unaligned_blocks():
+    blk = torch.arange(2 * 4097, dtype=torch.float32).reshape(2, 4097)
+    wide = tfs._tma_norm_rows(blk)
+    assert wide.shape == (2, 4100) and wide.stride(0) % 4 == 0
+    assert torch.equal(wide[:, :4097], blk)
+    padded = torch.zeros((2, 4096))
+    assert tfs._tma_norm_rows(padded) is padded
+
+
+def _card_b1_case(d, n, b, nb, metric, seed):
+    dev = torch.device("cuda", 0)
+    pts, q = _data(n, d, b, seed=seed)
+    pts[7] = 0.0  # a zero row: scale 0, so -0.0 cross products
+    if metric == "cosine":
+        pts = pts / np.maximum(np.linalg.norm(pts, axis=1, keepdims=True), 1e-12)
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    codes, block, _, nv = tfs.build_rowscan_table(_t(pts).to(dev), metric=metric)
+    qc, qs = tfs.quantize_int8(_t(q).to(dev))
+    kw = dict(n_buckets=nb, use_norms=metric == "l2", q_scales=qs, n_valid=nv)
+    vk, ik = tfs.scan_bucketed_topk(qc, codes, block, **kw)
+    vr, ir = tfs.scan_bucketed_topk_ref(
+        *tfs._scan_operands(qc, codes, block, db_scales=None, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vr) and torch.equal(ik, ir), (d, n, b, nb, metric)
+    return vk
+
+
+def _card_b4_block(case):
+    rng = np.random.default_rng(12)
+    if case == "ties_zeros_neginf":
+        s = rng.integers(-2, 3, size=(64, 512)).astype(np.float32)
+        s[s == 0] = -0.0
+        s[:, ::7] = 0.0
+        s[::3, 100:] = -np.inf
+        s[5] = -np.inf
+        return s, 40
+    if case == "nb32768_kk1316":
+        return rng.normal(size=(8, 32768)).astype(np.float32), 1316
+    if case == "kk_over_nb":
+        s = rng.normal(size=(16, 512)).astype(np.float32)
+        s[3, 200:] = -np.inf
+        return s, 700
+    return rng.normal(size=(4, 32768)).astype(np.float32), 40_000  # "indirect_sort"
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_versions_on_card():
+@pytest.mark.parametrize(
+    "case",
+    ["b1:36:3000:37:128", "b1:128:20000:1:512", "b1:128:20000:37:4096",
+     "b1:128:30011:1000:512", "b1:128:9000:4096:4096", "b1:128:30000:200:8192",
+     "b1:960:5000:70:512", "b1:1536:4000:130:512", "b1:3072:1500:100:128",
+     "b4:ties_zeros_neginf", "b4:nb32768_kk1316", "b4:kk_over_nb", "b4:indirect_sort"],
+)
+def test_kernels_match_plain_versions_on_card(case):
     """Run with `pytest -m cuda` on a machine with a card: B1's wrapper
-    (int8) and B4 are bit-identical to their plain versions on the
-    operands the wrapper builds."""
+    (int8, all three metrics) bit-identical to its plain version at row
+    widths 36 (zero-padded to 48 bytes), 128, 960, 1536 and 3072 (query
+    boxes streamed), ragged batches, tables and NB, with B4 cut from its
+    blocks; B4 alone on blocks of ties, signed zeros and -inf rows, at
+    NB = 32768 with kk = 1316, with kk > NB, and on its 16-bit sort."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; kernels have no CPU mode")
-    dev = torch.device("cuda", 0)
-    pts, q = _data(20_000, 128, 200, seed=8)
-    for metric in ("l2", "cosine", "dot"):
-        codes, block, _, n = tfs.build_rowscan_table(_t(pts).to(dev), metric=metric)
-        qc, qs = tfs.quantize_int8(_t(q).to(dev))
-        kw = dict(n_buckets=512, use_norms=metric == "l2", q_scales=qs, n_valid=n)
-        vk, ik = tfs.scan_bucketed_topk(qc, codes, block, **kw)
-        vr, ir = tfs.scan_bucketed_topk_ref(
-            *tfs._scan_operands(qc, codes, block, db_scales=None, **kw))
-        assert torch.equal(vk, vr) and torch.equal(ik, ir)
-        assert torch.equal(tfs.topk_lanes(vk, 40), tfs.topk_lanes_ref(vr, 40))
+    kind, *spec = case.split(":")
+    if kind == "b1":
+        d, n, b, nb = map(int, spec)
+        for i, metric in enumerate(("l2", "cosine", "dot")):
+            vals = _card_b1_case(d, n, b, nb, metric, seed=20 + i)
+            kk = min(260 if nb >= 4096 else 40, nb)
+            assert torch.equal(tfs.topk_lanes(vals, kk), tfs.topk_lanes_ref(vals, kk))
+        return
+    s, kk = _card_b4_block(spec[0])
+    sd = _t(s).to("cuda")
+    got = tfs.topk_lanes(sd, kk)
+    assert torch.equal(got, tfs.topk_lanes_ref(sd, kk))
+    assert np.array_equal(got.cpu().numpy(), _lexsort_cut(s, kk))

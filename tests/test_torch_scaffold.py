@@ -230,7 +230,8 @@ def test_kernel_build_is_keyed_by_source_hash():
 def test_kernel_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     from diskrag_tpu_torch.kernels import _build
 
-    assert [h.name for h in _build.CSRC.glob("*.cuh")] == ["packed_common.cuh"]
+    headers = sorted(h.name for h in _build.CSRC.glob("*.cuh"))
+    assert headers == ["packed_common.cuh", "wgmma_common.cuh"]
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
