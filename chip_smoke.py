@@ -3,11 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `diskrag_tpu_torch/csrc/` (into
-`build/diskrag_tpu_torch/`), checks in its SASS that B1's int8 kernel runs
-its products on wgmma, holds each kernel against its plain PyTorch version
-on the card (B1 int8 at row widths 36 to 1536, 1 to 4096 queries and NB 128
-to 32768; B4 on those blocks, on ties with signed zeros and -inf rows, at
-NB = 32768 and with kk > NB), then serves the flat index end to end at
+`build/diskrag_tpu_torch/`), checks in their SASS that B1's int8 kernel and
+the partial kernel of B2 / B3 run their products on wgmma, holds each kernel
+against its plain PyTorch version on the card (B1 int8 at row widths 36 to
+1536, 1 to 4096 queries and NB 128 to 32768; B4 on those blocks, on ties
+with signed zeros and -inf rows, at NB = 32768 and with kk > NB; B2 / B3 at
+row widths 16 to 192 bytes, 1 to 4096 queries and more than 256 segments),
+then serves the flat index end to end at
 the benchmark's sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000
 queries, k = 10)
 through `build_index_from_vectors` and `SearchEngine.search_batch` — with
@@ -331,7 +333,8 @@ def phase_device() -> dict:
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {
-        stem: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        stem: [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln or "wgmma" in ln]
         for stem, log in _build.build_logs.items()
     }
     emit({
@@ -342,16 +345,21 @@ def phase_device() -> dict:
         "python": sys.version.split()[0],
         "build_seconds": round(build_s, 3),
         "kernels_built": sorted(paths), "ptxas": ptxas,
-        "sass_b1_int8": b1_int8_sass(paths["flat_scan"], _build._nvcc()),
+        "sass_b1_int8": wgmma_sass(paths["flat_scan"], "scan_i8_wgmma", "IDP4A"),
+        "sass_packed_wgmma": {stem: wgmma_sass(paths[stem], "packed_wgmma_partial", "IMMA")
+                              for stem in ("packed_scan", "hier_scan")},
     })
     return {"smi": smi}
 
 
-def b1_int8_sass(lib: pathlib.Path, nvcc: str) -> dict:
-    """IGMMA and IDP4A instructions in each instantiation of B1's int8
-    kernel (`cuobjdump -sass` of the built library, beside nvcc): the
-    products must run on the tensor cores through wgmma, none on __dp4a."""
-    tool = pathlib.Path(nvcc).with_name("cuobjdump")
+def wgmma_sass(lib: pathlib.Path, kernel: str, other: str) -> dict:
+    """IGMMA and `other` instructions in each instantiation of `kernel` in
+    a built library (`cuobjdump -sass`, beside nvcc): its products must run
+    on the tensor cores through wgmma alone — B1's int8 kernel none on
+    __dp4a (IDP4A), the partial kernel of B2 / B3 none on mma.sync (IMMA)."""
+    from diskrag_tpu_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {"cuobjdump": "not found"}
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
@@ -359,11 +367,11 @@ def b1_int8_sass(lib: pathlib.Path, nvcc: str) -> dict:
     counts: dict = {}
     for section in sass.split("Function : ")[1:]:
         name = section.split("\n", 1)[0].strip()
-        if "scan_i8_wgmma" in name:
-            key = name[name.index("scan_i8_wgmma"):][:30]  # the template arguments
-            counts[key] = {op: section.count(op) for op in ("IGMMA", "IDP4A")}
-    require(bool(counts) and all(c["IGMMA"] > 0 and c["IDP4A"] == 0 for c in counts.values()),
-            f"B1's int8 kernel is not on wgmma alone: {counts}")
+        if kernel in name:
+            key = name[name.index(kernel):][:len(kernel) + 17]  # the template arguments
+            counts[key] = {op: section.count(op) for op in ("IGMMA", other)}
+    require(bool(counts) and all(c["IGMMA"] > 0 and c[other] == 0 for c in counts.values()),
+            f"{kernel} in {lib.name} is not on wgmma alone: {counts}")
     return counts
 
 
@@ -576,12 +584,25 @@ def packed_inputs(pts_d, q_d, metric: str):
     return qc, qs, table, unpadded
 
 
+# B2 / B3 at every row width class the partial kernel takes (2, 4 or 6
+# k-steps: one 128-byte K box at 16 to 64 bytes, two at 144 and 192) and at
+# batches whose last 64-query block is nearly empty (1, 37, 65, 193) or full,
+# over 70,000 rows: at NB 128 B3 walks 547 segments, two whole super-tiles
+# and a ragged third; B2 widens NB to 512 (137 or 144 segments)
+PACKED_WIDTHS = (16, 48, 64, 144, 192)
+PACKED_BATCHES = (1, 37, 64, 65, 193, 1000, 4096)
+PACKED_ROWS = 70_000
+
+
 def phase_packed_kernels() -> None:
     """B2, B3 and B6 (and both fused cuts) against their plain versions on
     the card: 200k x 128 and a ragged 5000 x 44 (rows zero-padded to 16
     bytes, real pad rows), l2 and cosine, both contracts, NB 512 and 8192,
-    no cut and cuts of 20 and 40; B6 also against B3; plus a block built
-    for ties and exhaustion (every row twice; fewer valid rows than kk)."""
+    no cut and cuts of 20 and 40; B6 also against B3; a block built for
+    ties and exhaustion (every row twice; fewer valid rows than kk); then
+    B2 and B3 at `PACKED_WIDTHS` x `PACKED_BATCHES` over `PACKED_ROWS` rows
+    (a seventh of them repeated: exact ties), both contracts, with and
+    without a cut of 40."""
     import torch
 
     from diskrag_tpu_torch.benchmark import make_dataset
@@ -632,6 +653,25 @@ def phase_packed_kernels() -> None:
         cases += sum(all_kinds(qc, qs, c, (128, 512), (None, 40)) for c in (table, unpadded))
     emit({"phase": "kernels", "kernel": "B2+B3+B6", "case": "duplicate rows; 30 valid rows, kk 40",
           "comparisons": cases, "match": "bit-identical"})
+    g = torch.Generator(device="cpu").manual_seed(17)
+    for d in PACKED_WIDTHS:
+        pts = torch.randn((PACKED_ROWS, d), generator=g).to(dev)
+        pts[40_000:50_000] = pts[:10_000]
+        cases = 0
+        for b in PACKED_BATCHES:
+            pick = torch.randint(0, PACKED_ROWS, (b,), generator=g).to(dev)
+            q_d = pts[pick] + 0.05 * torch.randn((b, d), generator=g).to(dev)
+            qc, qs, table, unpadded = packed_inputs(pts, q_d, "l2")
+            for db, norms, scale, n_valid in (table, unpadded):
+                for cut in (None, 40):
+                    for kind in ("B2", "B3"):
+                        compare_packed(kind, qc, qs, db, norms, scale, n_buckets=128,
+                                       n_valid=n_valid, cut_kk=cut)
+                        cases += 1
+        emit({"phase": "kernels", "kernel": "B2+B3", "n": PACKED_ROWS, "row_bytes": d,
+              "b": list(PACKED_BATCHES), "contracts": ["table", "unpadded"], "nb": 128,
+              "cut_kk": [None, 40], "comparisons": cases, "match": "bit-identical"})
+        del pts
     torch.cuda.empty_cache()
 
 
@@ -831,10 +871,13 @@ REFERENCE_RECALL = {
 
 def packed_kernel_row(kind: str, flat, q_d, plan, *, cut_kk, reps: int) -> dict:
     """One packed fold at the shapes the main path hands it: held against
-    its plain version, then timed (kernel, plain version) and bounded.
-    `max_abs_err` is measured on the scores of the fold's state output
-    (a fused cut returns ids only, so the same fold is also run without
-    the cut); `id_mismatches` on the ids of the form the main path uses."""
+    its plain version, then timed (kernel launch to launch, its kernels on
+    the device by name, plain version) and bounded. `max_abs_err` is
+    measured on the scores of the fold's state output (a fused cut returns
+    ids only, so the same fold is also run without the cut);
+    `id_mismatches` on the ids of the form the main path uses."""
+    import torch
+
     from diskrag_tpu_torch.ops import flat_scan as fs
 
     qc, qs = fs.quantize_int8_global(q_d)
@@ -848,19 +891,32 @@ def packed_kernel_row(kind: str, flat, q_d, plan, *, cut_kk, reps: int) -> dict:
         measured["id_mismatches"] += state["id_mismatches"]
     if kind == "B2":
         ops = fs._packed_fold_operands(*args, **kw)
-        ms = cuda_ms(lambda: fs.scan_bucketed_topk_packed(*args, **kw), reps)
+        call = lambda: fs.scan_bucketed_topk_packed(*args, **kw)  # noqa: E731
         plain = cuda_ms(lambda: fs.scan_bucketed_topk_packed_ref(*ops), 2)
     else:
         pipe = kind == "B6"
         ops = fs._hier_fold_operands(*args, pipelined=pipe, **kw)
-        ms = cuda_ms(lambda: fs.scan_bucketed_topk_hier(*args, pipelined=pipe, **kw), reps)
+        call = lambda: fs.scan_bucketed_topk_hier(*args, pipelined=pipe, **kw)  # noqa: E731
         plain = cuda_ms(lambda: fs.scan_bucketed_topk_hier_ref(*ops), 2)
     nb, n_valid = ops[4], ops[6]
     bound, by = packed_bound_ms(q_d.shape[0], n_valid, q_d.shape[1],
                                 cut_kk if cut_kk else 2 * nb)
+    # device time by kernel name: the partial kernel (B2 / B3: after the
+    # pass that turns nf into each row's nc), then the merge (with the fused
+    # cut where there is one)
+    by_kernel = device_ms_by_kernel(call, 10)
+    partial = "hier_scan_partial_pipelined" if kind == "B6" else "packed_wgmma_partial"
+    merge = "packed_scan_merge" if kind == "B2" else "hier_scan_merge"
     return {"nb": nb, "n_scan": ops[5], "n_valid": n_valid, "cut_kk": cut_kk,
-            **measured, "match": "bit-identical", "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            **measured, "match": "bit-identical", "ms": cuda_ms(call, reps),
+            "device_ms": sum(by_kernel.values()) or None,
+            "device_ms_nc_pass": None if kind == "B6" else named(by_kernel, "packed_nc_rows"),
+            "device_ms_partial": named(by_kernel, partial),
+            "device_ms_merge_cut": named(by_kernel, merge),
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "plan": str(fs.plan_packed_scan(q_d.shape[0], nb, ops[5] // nb, qc.shape[1],
+                                            torch.cuda.get_device_properties(0).multi_processor_count))
+            if kind != "B6" else None}
 
 
 def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
@@ -1303,10 +1359,13 @@ def phase_micro(smi: str, sets: dict) -> int:
     """The port's fused-scan microbenchmark, called in process: every stage
     at 200k rows, the M1 and hierarchical stages at 1M (where B3 serves).
     Every stage must have launched exactly the kernels it is named for,
-    once per call. Then the split the probe exists for: a packed scan's
-    time less M1's at the same rows is what the fold (and the merge pass)
-    costs. Returns M1's launches over the phase, the counts having been
-    set to 0 before each stage and read after it."""
+    once per call. Then a packed scan's time beside M1's at the same rows,
+    on the host clock (stages) and on the device by kernel name: while B2 /
+    B3 ran M1's mma.sync product, the difference was what their fold and
+    merge cost; their partial kernel now runs wgmma, so it measures the two
+    designs against each other. Returns M1's launches over
+    the phase, the counts having been set to 0 before each stage and read
+    after it."""
     import torch
 
     from diskrag_tpu_torch.ops import flat_scan as fs
@@ -1344,15 +1403,18 @@ def phase_micro(smi: str, sets: dict) -> int:
             "scan": "B2" if n_pts == CMP_N else "B3",
             "scan_stage_ms": ms[n_pts, stage], "mm_only_stage_ms": ms[n_pts, "scan_mm_only_t2048"],
             "fold_ms": ms[n_pts, stage] - ms[n_pts, "scan_mm_only_t2048"],
-            "device_scan_partial_ms": named(k_scan, "scan_partial"),
+            "device_scan_partial_ms": named(k_scan, "packed_wgmma_partial"),
             "device_merge_ms": named(k_scan, part),
             "device_mm_probe_kernel_ms": named(k_mm, "mm_probe_kernel"),
-            "device_fold_ms": (named(k_scan, "scan_partial") - named(k_mm, "mm_probe_kernel")
-                               if k_scan and k_mm else None),
+            "device_partial_less_probe_ms": (
+                named(k_scan, "packed_wgmma_partial") - named(k_mm, "mm_probe_kernel")
+                if k_scan and k_mm else None),
         }
         del gcodes, gq, norms
         torch.cuda.empty_cache()
-    emit({"phase": "micro", "derived": "fold ms = packed scan ms - matmul-only ms, same rows",
+    emit({"phase": "micro", "derived": "packed scan ms - matmul-only ms, same rows",
+          "note": "M1 probes the mma.sync product B2 / B3 ran before their wgmma redesign (B6 still does); "
+                  "their partial kernel now runs wgmma, so the difference is not the fold",
           "by_rows": split, "m1_launches": m1_launches, "card": smi})
     return m1_launches
 

@@ -97,19 +97,7 @@ inline int i8_smem_bytes(int n_cons, int n_kb, bool streamed) {
          kStages * kNormFloats * 4 + (2 * kStages + 1) * 8;
 }
 
-// A consumer warpgroup's view of the ring: the stage and parity of the next
-// tile to multiply, and the stage of the next tile to hand back.
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  int release = 0;
-  __device__ void next() {
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
+using Ring = wg::Ring<kStages>;
 
 // Multiplies the next stage's K box: acc (+)= the warpgroup's query box
 // (resident at a_res, or streamed beside the database tile) x the tile.

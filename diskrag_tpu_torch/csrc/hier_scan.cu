@@ -18,25 +18,32 @@
 //
 // What bounds it on the H100: the products. At 1M x 128 and B = 1000 the scan
 // is 2.56e11 int8 operations on 128 MB of rows: 0.129 ms at the int8
-// tensor-core peak against 0.04 ms for the bytes. B3 shares B2's design
-// (packed_common.cuh): mma.sync m16n8k32 with the queries' fragments resident
-// in registers, rows read 16 bytes a thread straight into fragments, the fold
-// in registers. The parts that run in parallel (grid z) never cross a
-// super-tile, so the merge kernel, one block per query, first takes the max
-// over the parts of each super-tile and then applies the strict '>' across
-// super-tiles in order: exactly the sequential result. The fused cut runs in
-// that merge kernel from shared memory.
+// tensor-core peak against 0.04 ms for the bytes. B3's partial kernel is
+// B2's (packed_wgmma.cuh): wgmma m64n64k32 s8, the queries in registers and
+// the rows fed by a TMA ring, the fold in registers. At that shape with the
+// fused cut (NB 512, kk 40) a call takes 0.446 ms launch to launch, 0.427 ms
+// on the device (the partial kernel 0.349, the merge with the cut 0.071),
+// 3.3x the bound, against 0.651-0.660 ms for the earlier mma.sync design
+// (H100 80GB HBM3, 700 W; PERF.md). What holds the partial kernel is the
+// chain inside each warpgroup (wait for the tile, product, fold), about
+// 0.4 us a segment with three blocks an SM. The parts that run in
+// parallel (grid z) never cross a super-tile, so the merge kernel, one block
+// per query, first takes the max over the parts of each super-tile and then
+// applies the strict '>' across super-tiles in order: exactly the sequential
+// result. The fused cut runs in that merge kernel from shared memory.
 //
-// B6 computes the same parts from a software pipeline inside the block: the
-// 16 rows of segment j+1 are on their way into a shared-memory stage
-// (cp.async, three stages) and the product of segment j is started into one
-// accumulator set while segment j-1 is folded out of the other; one
-// epilogue step folds the last segment, as in the TPU kernel. Its four warps
-// share one staged copy of the rows instead of each reading them from L1/L2.
-// Its parts feed the same merge kernel, so its output equals B3's bit for
-// bit. It is not a default; PERF.md holds both times.
+// B6 keeps the earlier mma.sync design (packed_common.cuh) and computes
+// the same parts from a software pipeline inside the block: the 16 rows of
+// segment j+1 are on their way into a shared-memory stage (cp.async, three
+// stages) and the product of segment j is started into one accumulator set
+// while segment j-1 is folded out of the other; one epilogue step folds the
+// last segment, as in the TPU kernel. Its four warps share one staged copy of
+// the rows instead of each reading them from L1/L2. Its parts feed the same
+// merge kernel, so its output equals B3's bit for bit: two independent
+// designs held against each other. It is not a default; PERF.md holds both
+// times.
 
-#include "packed_common.cuh"
+#include "packed_wgmma.cuh"
 
 namespace {
 
@@ -51,7 +58,7 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
 
 constexpr int kStages = 3;
 
-// B6: the same part as scan_partial, pipelined through shared memory.
+// B6: B3's part on mma.sync, pipelined through shared memory.
 template <int KH>
 __global__ void __launch_bounds__(kThreads) hier_scan_partial_pipelined(
     const int8_t* __restrict__ q, const float* __restrict__ inv_qs_ptr,
@@ -188,40 +195,51 @@ __global__ void __launch_bounds__(kMergeThreads) hier_scan_merge(
 
 extern "C" {
 
-int hier_scan_block_queries(int row_bytes) {
-  return block_queries(row_bytes);
-}
-int hier_scan_block_lanes() { return kLanes; }
+// The partial kernel's tiles: queries and lanes per block and the blocks
+// an SM holds (the wrapper's plan).
+int hier_scan_queries() { return packed_wg::kQueries; }
+int hier_scan_lanes() { return packed_wg::kLanes; }
+int hier_scan_blocks_per_sm() { return packed_wg::kBlocksPerSm; }
+int hier_scan_pipelined_block_queries(int row_bytes) { return block_queries(row_bytes); }
+int hier_scan_pipelined_block_lanes() { return kLanes; }
 
 // Arguments as packed_scan_launch, except: any n_scan / nb; segs_per_part
 // must divide 256 so that no part crosses a super-tile; `pipelined` selects
-// B6 (cut_kk must then be 0). Returns cudaGetLastError().
+// B6 (nc is then unused and cut_kk must be 0). Returns -1 if the CUDA
+// driver refuses a TMA descriptor, else cudaGetLastError().
 int hier_scan_launch(const void* q, const void* inv_qs, const void* db,
                      const void* nf, int b, int row_bytes, int n_phys,
                      int n_scan, int nb, int n_valid, int segs_per_part,
-                     int n_parts, void* parts, int cut_kk, int pipelined,
+                     int n_parts, void* parts, void* nc, int cut_kk, int pipelined,
                      void* scores, void* ids, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (b <= 0) return cudaSuccess;
-  if (row_bytes % 16 || row_bytes > 192 || n_scan % nb || nb % kLanes ||
-      segs_per_part <= 0 || kPack % segs_per_part || (pipelined && cut_kk > 0))
+  const int n_seg = n_scan / nb;
+  if (row_bytes % 16 || row_bytes > 192 || n_scan % nb ||
+      nb % (pipelined ? kLanes : packed_wg::kLanes) || segs_per_part <= 0 ||
+      kPack % segs_per_part || n_parts <= 0 || (long long)segs_per_part * n_parts < n_seg ||
+      (pipelined && cut_kk > 0))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* qq = static_cast<const int8_t*>(q);
-  auto* iq = static_cast<const float*>(inv_qs);
-  auto* dd = static_cast<const int8_t*>(db);
-  auto* nn = static_cast<const float*>(nf);
   auto* pp = static_cast<int*>(parts);
-  const int bq = block_queries(row_bytes);
-  dim3 grid((b + bq - 1) / bq, nb / kLanes, n_parts);
-  const PartKernel part =
-      pipelined ? PACKED_PART_KERNEL_FOR(hier_scan_partial_pipelined, row_bytes)
-                : PACKED_PART_KERNEL_FOR(scan_partial, row_bytes);
-  part<<<grid, kThreads, 0, st>>>(qq, iq, dd, nn, b, row_bytes, n_phys, n_scan,
-                                  nb, segs_per_part, pp);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (pipelined) {
+    const int bq = block_queries(row_bytes);
+    dim3 grid((b + bq - 1) / bq, nb / kLanes, n_parts);
+    const PartKernel part = PACKED_PART_KERNEL_FOR(hier_scan_partial_pipelined, row_bytes);
+    part<<<grid, kThreads, 0, st>>>(static_cast<const int8_t*>(q),
+                                    static_cast<const float*>(inv_qs),
+                                    static_cast<const int8_t*>(db),
+                                    static_cast<const float*>(nf), b, row_bytes, n_phys,
+                                    n_scan, nb, segs_per_part, pp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  } else {
+    const int err = packed_wg::launch_partial(q, inv_qs, db, nf, b, row_bytes, n_phys, n_scan,
+                                              nb, segs_per_part, n_parts, pp,
+                                              static_cast<int*>(nc), st);
+    if (err != 0) return err;
+  }
   auto* sc = static_cast<float*>(scores);
   auto* ii = static_cast<int*>(ids);
   const int pps = kPack / segs_per_part;

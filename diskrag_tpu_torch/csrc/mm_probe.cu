@@ -17,15 +17,18 @@
 //
 // What bounds it on the H100: the products, 2 * B * n * D int8 operations,
 // the same count as B2 / B3 at the same shapes (0.13 ms at 1M x 128, B = 1000
-// at the int8 tensor-core peak against 0.04 ms for the bytes). Its purpose is
-// to be subtracted from their times, so it runs the product exactly as they
-// do (packed_common.cuh): mma.sync m16n8k32 s8, a warp owning 16 rows of
-// every tile and 8 * NQ queries whose fragments stay in registers, rows read
-// 16 bytes a thread straight from global memory with the next tile's rows
-// fetched while this one is multiplied, the same launch bounds. Where the
-// scans clear the accumulators and fold after every segment, the probe lets
-// the mma accumulate through all tiles of its part: no norm row, no packed
-// score, no max. mma.sync without .satfinite wraps, like the int32 adds.
+// at the int8 tensor-core peak against 0.04 ms for the bytes). It probes the
+// product as B2 and B3 ran it before their wgmma redesign, and as B6 runs it
+// (packed_common.cuh): mma.sync m16n8k32 s8, a warp owning 16 rows of every
+// tile and 8 * NQ queries whose fragments stay in registers, rows read 16
+// bytes a thread straight from global memory with the next tile's rows
+// fetched while this one is multiplied, three blocks an SM. Its time
+// subtracted from theirs said that the product, not the fold, held them
+// (PERF.md), which is why B2 and B3 moved onto wgmma (packed_wgmma.cuh).
+// Where the scans clear the accumulators and fold after every segment, the
+// probe lets the mma accumulate through all tiles of its part: no norm row,
+// no packed score, no max. mma.sync without .satfinite wraps, like the int32
+// adds.
 //
 // The TPU kernel walks the tiles in order on one core. Here a block owns 16
 // columns of the tile (grid y), a block of queries (grid x) and a range of
@@ -38,6 +41,11 @@
 namespace {
 
 using namespace packed;
+
+// Blocks per SM asked of the compiler, as the mma.sync B2 / B3 did:
+// 3 caps a thread at 168 registers, where two blocks would fit uncapped; the
+// third resident block hid more of the mma and load latency there.
+constexpr int kMinBlocks = 3;
 
 template <int KH>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) mm_probe_kernel(

@@ -1,5 +1,5 @@
-// Device code shared by the packed-int32 scans: B2 (packed_scan.cu) and
-// B3 / B6 (hier_scan.cu).
+// Device code shared by the packed-int32 scans: B2 (packed_scan.cu), B3 /
+// B6 (hier_scan.cu) and the matmul-only probe M1 (mm_probe.cu).
 //
 // The packed score. With one dequant scale for the whole database and one
 // for the query batch, L2 order survives in integers:
@@ -12,20 +12,27 @@
 // the larger segment. Everything after the one f32 product is integer
 // arithmetic, so any split of the rows over blocks and any order of the
 // max gives the same bits; nf * inv_qs uses __fmul_rn so the compiler cannot
-// contract it.
+// contract it. The fused candidate cut (epilogue_cut_ids) and norm_int serve
+// all three scans.
 //
-// The product runs on the tensor cores through mma.sync m16n8k32 (s8 x s8 ->
-// s32). Database rows are the M side, queries the N side: a warp owns 16
-// bucket lanes (rows lane0 .. lane0+15 of every segment) and 8*NQ queries,
-// keeps the queries' B fragments in registers for its whole life, and walks
-// the segments, so each thread's four accumulators of an n-tile always belong
-// to the same (lane, query) pairs and the running max lives in registers.
-// A dot product does not care in which order k is summed, so fragments are
-// filled with one 16-byte load per thread and 64-byte half row instead of the
-// canonical 4-byte pieces: thread (g, t) of a warp reads bytes
-// [64h + 16t, 64h + 16t + 16) of row g (and g + 8), and of query g of each
-// n-tile, and words x, y feed k-step 2h, words z, w k-step 2h + 1. Both
-// operands use the same permutation of k, so the sums are unchanged.
+// What bounds the scans on the H100 is the product: 2 * B * n * D int8
+// operations, 0.129 ms at 1000 x 1M x 128 at the tensor-core peak. B2 and B3
+// run it on wgmma with the queries in registers and the rows fed by TMA
+// (packed_wgmma.cuh; B3 0.43 ms on the device at that shape). The helpers
+// below run it on mma.sync m16n8k32 (s8 x s8 -> s32), the design B2 and B3
+// used before (B3 0.65 ms there): B6 (1.05 ms) and M1 (0.53 ms) still do
+// (H100 80GB HBM3, 700 W; PERF.md). Database rows are the M side, queries
+// the N side: a warp owns 16 bucket lanes (rows lane0 .. lane0+15 of every
+// segment) and 8*NQ queries, keeps the queries' B fragments in registers for
+// its whole life, and walks the segments, so each thread's four accumulators
+// of an n-tile always belong to the same (lane, query) pairs and the running
+// max lives in registers. A dot product does not care in which order k is
+// summed, so fragments are filled with one 16-byte load per thread and
+// 64-byte half row instead of the canonical 4-byte pieces: thread (g, t) of a
+// warp reads bytes [64h + 16t, 64h + 16t + 16) of row g (and g + 8), and of
+// query g of each n-tile, and words x, y feed k-step 2h, words z, w k-step
+// 2h + 1. Both operands use the same permutation of k, so the sums are
+// unchanged.
 
 #pragma once
 
@@ -41,15 +48,6 @@ constexpr int kPackBits = 8;
 constexpr int kLanes = 16;        // bucket lanes per block: one mma M tile
 constexpr int kWarps = 4;         // warps per block; they split the queries
 constexpr int kThreads = kWarps * 32;
-// Blocks per SM asked of the compiler for the scan kernels. 3 caps them at
-// 168 registers (16 bytes spilled for 128-byte rows) where they would take
-// 178 and fit two blocks; the third resident block hides more of the mma and
-// load latency: chip_smoke.py timed B3 at 1M x 128, B = 1000 at 0.89 ms
-// without the cap and B2 at 200k at 0.22 ms (H100 80GB HBM3 at 700 W);
-// PERF.md has the times with it. Asking for 4 blocks spills far more and
-// ran slower than 2. The pipelined kernel keeps two accumulator sets and is
-// left uncapped.
-constexpr int kMinBlocks = 3;
 constexpr int kMergeThreads = 256;
 constexpr int kMergeWarps = kMergeThreads / 32;
 constexpr int kEmptyHier = INT_MIN >> kPackBits;  // below any reachable score
@@ -182,79 +180,17 @@ __device__ __forceinline__ void store_part(const int (&state)[Tile<KH>::NQ][4],
   }
 }
 
-// One part of the packed fold: the max of the packed scores over segments
-// [part * segs_per_part, +segs_per_part) for this block's 16 lanes and
-// kBlockQ queries. Segment ids are taken modulo 256 (the hierarchical
-// fold's local ids; the flat packed fold never has more than 256). The next
-// segment's rows are fetched into registers while this one is multiplied.
-// B2 and B3 both launch it and differ only in how their parts are merged.
-// Grid (query blocks, nb / kLanes, parts), kThreads threads.
-template <int KH>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) scan_partial(
-    const int8_t* __restrict__ q, const float* __restrict__ inv_qs_ptr,
-    const int8_t* __restrict__ db, const float* __restrict__ nf, int b,
-    int row_bytes, int n_phys, int n_scan, int nb, int segs_per_part,
-    int* __restrict__ parts) {
-  using T = Tile<KH>;
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  const int q_base = blockIdx.x * T::kBlockQ + warp * T::kWarpQ;
-  if (q_base >= b) return;
-  const int lane0 = blockIdx.y * kLanes;
-  const int part = blockIdx.z;
-  const int n_seg = n_scan / nb;
-  const int s_begin = part * segs_per_part;
-  const int s_end = min(n_seg, s_begin + segs_per_part);
-  const float inv_qs = *inv_qs_ptr;
-
-  uint4 bq[T::NQ][KH];
-  load_queries<KH>(bq, q, b, row_bytes, q_base, g, t);
-  int state[T::NQ][4];
-  clear<KH>(state, INT_MIN);
-
-  uint4 a[2][KH], an[2][KH];
-  float nf0 = INFINITY, nf1 = INFINITY, nfn0 = INFINITY, nfn1 = INFINITY;
-  if (s_begin < s_end) {
-    const long long row = (long long)s_begin * nb + lane0 + g;
-    load_rows<KH>(a, db, row_bytes, row, n_phys, t);
-    if (row < n_phys) nf0 = __ldg(nf + row);
-    if (row + 8 < n_phys) nf1 = __ldg(nf + row + 8);
-  }
-  for (int s = s_begin; s < s_end; ++s) {
-    if (s + 1 < s_end) {
-      const long long row = (long long)(s + 1) * nb + lane0 + g;
-      load_rows<KH>(an, db, row_bytes, row, n_phys, t);
-      nfn0 = row < n_phys ? __ldg(nf + row) : INFINITY;
-      nfn1 = row + 8 < n_phys ? __ldg(nf + row + 8) : INFINITY;
-    }
-    int acc[T::NQ][4];
-    clear<KH>(acc, 0);
-    product<KH>(acc, a, bq);
-    const int seg = s & (kPack - 1);
-    fold<KH>(state, acc, seg - norm_int(nf0, inv_qs) * kPack,
-             seg - norm_int(nf1, inv_qs) * kPack);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int h = 0; h < KH; ++h) a[r][h] = an[r][h];
-    nf0 = nfn0;
-    nf1 = nfn1;
-  }
-  store_part<KH>(state, parts, part, b, nb, q_base, lane0, g, t);
-}
-
 using PartKernel = void (*)(const int8_t*, const float*, const int8_t*,
                             const float*, int, int, int, int, int, int, int*);
 
-// The instantiation for rows of `row_bytes` bytes (a multiple of 16, <= 192).
+// B6's part kernel for rows of `row_bytes` bytes (a multiple of 16, <= 192).
 #define PACKED_PART_KERNEL_FOR(kernel, row_bytes)            \
   ((row_bytes) <= 64 ? static_cast<PartKernel>(kernel<1>)    \
    : (row_bytes) <= 128 ? static_cast<PartKernel>(kernel<2>) \
                         : static_cast<PartKernel>(kernel<3>))
 
-// Queries per block for rows of `row_bytes` bytes: with kLanes, what the
-// wrapper sizes the grid's parts from.
+// Queries per block of the mma.sync kernels (B6, M1) for rows of
+// `row_bytes` bytes: with kLanes, what their wrappers size the grid from.
 inline int block_queries(int row_bytes) {
   return row_bytes <= 128 ? Tile<2>::kBlockQ : Tile<3>::kBlockQ;
 }

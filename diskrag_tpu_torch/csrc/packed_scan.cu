@@ -18,22 +18,26 @@
 //
 // What bounds it on the H100: the products. At 200k x 128 and B = 1000 the
 // scan is 5.1e10 int8 operations on 26 MB of rows: 0.026 ms at the int8
-// tensor-core peak against 0.010 ms for the bytes. The design therefore puts
-// the product on the tensor cores (mma.sync m16n8k32 s8) with the queries'
-// fragments resident in registers, reads each row 16 bytes a thread straight
-// into fragments (no shared-memory staging), and keeps the fold at one
-// multiply-add and one max per score in registers. It does not use wgmma or
-// TMA; that is later work, and PERF.md holds the measured distance from the
-// bound.
+// tensor-core peak against 0.010 ms for the bytes. The partial kernel
+// (packed_wgmma.cuh, shared with B3) therefore runs the products on wgmma
+// m64n64k32 s8, the queries in registers and the rows fed by a TMA ring, and
+// keeps the fold at one shift-add and one max a score in registers. At that
+// shape with the fused cut (NB 1024, kk 40) a call takes 0.154-0.171 ms
+// launch to launch and 0.131-0.139 ms on the device (the partial kernel
+// 0.074-0.078, the merge with the cut 0.053-0.057), 5.1-5.4x the bound,
+// against 0.171-0.180 ms for the earlier mma.sync design (H100 80GB HBM3,
+// 700 W; PERF.md). A host enqueued a call in 0.05-0.08 ms, so most of the
+// rest of the launch-to-launch time lies between the call's four kernels.
 //
 // The TPU walks the database tiles in order on one core and carries the
 // [B, NB] state in VMEM. Here the max is associative, so the segments are cut
-// into parts that run in parallel (grid z) and a second kernel, one block per
+// into parts that run in parallel (grid z; planned by the wrapper,
+// ops/flat_scan.py::plan_packed_scan) and a second kernel, one block per
 // query, takes the max over the parts. That second kernel is where the merged
 // row is last held, so the fused cut runs there from shared memory and no
 // [B, NB] state reaches the caller.
 
-#include "packed_common.cuh"
+#include "packed_wgmma.cuh"
 
 namespace {
 
@@ -72,42 +76,38 @@ __global__ void __launch_bounds__(kMergeThreads) packed_scan_merge(
 
 extern "C" {
 
-// Queries per block for rows of `row_bytes` bytes, and lanes per block: the
-// wrapper sizes the grid's parts from them.
-int packed_scan_block_queries(int row_bytes) {
-  return block_queries(row_bytes);
-}
-int packed_scan_block_lanes() { return kLanes; }
+// The partial kernel's tiles: queries and lanes per block and the blocks
+// an SM holds (the wrapper's plan).
+int packed_scan_queries() { return packed_wg::kQueries; }
+int packed_scan_lanes() { return packed_wg::kLanes; }
+int packed_scan_blocks_per_sm() { return packed_wg::kBlocksPerSm; }
 
 // q [b, row_bytes] int8, db [n_phys, row_bytes] int8 (row_bytes % 16 == 0,
 // <= 192, both 16-byte aligned), inv_qs [1] f32, nf [n_phys] f32,
-// parts [n_parts, b, nb] int32 scratch. n_scan % nb == 0, n_scan / nb <= 256.
-// cut_kk == 0: scores [b, nb] f32 and ids [b, nb] int32; cut_kk > 0:
-// ids [b, cut_kk] int32 (scores unused). Returns cudaGetLastError().
+// parts [n_parts, b, nb] int32 scratch. n_scan % nb == 0,
+// n_scan / nb <= 256 segments in parts of segs_per_part, nc [n_scan] int32
+// scratch (16-byte aligned). cut_kk == 0: scores [b, nb] f32 and ids
+// [b, nb] int32; cut_kk > 0: ids [b, cut_kk] int32 (scores unused). Returns
+// -1 if the CUDA driver refuses a TMA descriptor, else cudaGetLastError().
 int packed_scan_launch(const void* q, const void* inv_qs, const void* db,
                        const void* nf, int b, int row_bytes, int n_phys,
                        int n_scan, int nb, int n_valid, int segs_per_part,
-                       int n_parts, void* parts, int cut_kk, void* scores,
+                       int n_parts, void* parts, void* nc, int cut_kk, void* scores,
                        void* ids, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (b <= 0) return cudaSuccess;
-  if (row_bytes % 16 || row_bytes > 192 || n_scan % nb || nb % kLanes ||
-      n_scan / nb > kPack)
+  const int n_seg = n_scan / nb;
+  if (row_bytes % 16 || row_bytes > 192 || n_scan % nb || nb % packed_wg::kLanes ||
+      n_seg > kPack ||
+      segs_per_part <= 0 || n_parts <= 0 || (long long)segs_per_part * n_parts < n_seg)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* qq = static_cast<const int8_t*>(q);
-  auto* iq = static_cast<const float*>(inv_qs);
-  auto* dd = static_cast<const int8_t*>(db);
-  auto* nn = static_cast<const float*>(nf);
   auto* pp = static_cast<int*>(parts);
-  const int bq = block_queries(row_bytes);
-  dim3 grid((b + bq - 1) / bq, nb / kLanes, n_parts);
-  const PartKernel part = PACKED_PART_KERNEL_FOR(scan_partial, row_bytes);
-  part<<<grid, kThreads, 0, st>>>(qq, iq, dd, nn, b, row_bytes, n_phys, n_scan,
-                                  nb, segs_per_part, pp);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  const int err = packed_wg::launch_partial(q, inv_qs, db, nf, b, row_bytes, n_phys, n_scan,
+                                            nb, segs_per_part, n_parts, pp,
+                                            static_cast<int*>(nc), st);
+  if (err != 0) return err;
   auto* sc = static_cast<float*>(scores);
   auto* ii = static_cast<int*>(ids);
   if (cut_kk > 0) {

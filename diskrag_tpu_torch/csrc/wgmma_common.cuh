@@ -1,8 +1,9 @@
 // Hopper building blocks for int8 scans on the tensor cores through wgmma:
 // mbarriers, TMA tile loads, the shared-memory matrix descriptor of a
 // 128-byte-swizzled K-major tile, the m64n64k32 s8 product and its
-// accumulator layout, and the host-side TMA descriptor. Used by B1
-// (flat_scan.cu); written so that the packed scans can move onto it.
+// accumulator layout, a consumer's view of a ring of stages, and the
+// host-side TMA descriptors. Used by B1 (flat_scan.cu) and by the partial
+// kernel of B2 / B3 (packed_wgmma.cuh).
 //
 // Tiles. An operand tile is R rows (64 queries or 64 database rows) of 128
 // bytes of K, loaded by one 2-D TMA box {128 bytes, R rows} with
@@ -56,6 +57,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
+// Orders this thread's earlier generic-proxy accesses to shared memory
+// before later async-proxy ones (TMA): needed before handing back a stage
+// whose contents were read with plain loads, or a refill can land first.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Returns once the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -70,6 +78,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   } while (!ok);
 }
+
+// A consumer's view of a ring of kStages stages: the stage and parity of
+// the next tile to multiply, and the stage of the next tile to hand back.
+template <int kStages>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  int release = 0;
+  __device__ void next() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
 
 // --- TMA ------------------------------------------------------------------
 
@@ -130,6 +153,30 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da,
         "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
         "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 32] . B[64 x 32]^T with A in registers: each warp of the
+// warpgroup holds rows [16w, 16w + 16), thread (g, t4) = (lane / 4, lane % 4)
+// a[0] = A[g][4t4, +4), a[1] = A[g + 8][4t4, +4), a[2] = A[g][16 + 4t4, +4),
+// a[3] = A[g + 8][16 + 4t4, +4) (four s8 a register, low byte first); B
+// K-major in shared memory. s8 x s8 -> s32 (wrapping); scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // One 64 x 64 output tile over one 128-byte K box: four k-steps.
@@ -198,6 +245,20 @@ inline bool make_norm_map(CUtensorMap* map, const void* base, long long n_rows,
             strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_NONE,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA) == CUDA_SUCCESS;
+}
+
+// The map of a vector of n int32 values (base 16-byte aligned) as a [1, n]
+// matrix in boxes of {kTileRows, 1}. Columns at or past n read as zero.
+inline bool make_vec_map(CUtensorMap* map, const void* base, long long n) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, 1};
+  const cuuint64_t strides[1] = {(cuuint64_t)((n * 4 + 15) / 16 * 16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kTileRows, 1};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wg

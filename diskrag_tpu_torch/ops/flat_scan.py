@@ -17,7 +17,9 @@ Hand-written CUDA kernels carry this module on the card:
   B3 `csrc/hier_scan.cu` behind `scan_bucketed_topk_hier`: the B2 fold per
      super-tile of 256 segments with local segment ids, merged across
      super-tiles into (score_int, global segment) with a strict '>' (the
-     earlier super-tile wins ties), so NB does not grow with N;
+     earlier super-tile wins ties), so NB does not grow with N. B2 and B3
+     share one partial kernel (`csrc/packed_wgmma.cuh`: wgmma fed by TMA),
+     whose grid `plan_packed_scan` plans;
   B6 the same source, behind `scan_bucketed_topk_hier(pipelined=True)`:
      B3's output from a kernel that stages the rows through three
      shared-memory buffers (cp.async) and overlaps one tile's product
@@ -545,6 +547,7 @@ def _cut_scratch_row_bytes(cut_kk: int | None) -> int:
     return 0 if cut_kk is None else max(128, -(-cut_kk // 128) * 128) * 4
 
 
+@functools.lru_cache(maxsize=256)
 def _packed_layout(
     n: int, d: int, n_buckets: int, query_block: int, db_tile: int,
     batch: int | None = None, scratch_row_bytes: int = 0,
@@ -574,6 +577,7 @@ def _packed_layout(
     return nb, db_tile, query_block, pad_n
 
 
+@functools.lru_cache(maxsize=256)
 def _hier_layout(
     n_phys: int, n: int, d: int, n_buckets: int, query_block: int, db_tile: int,
     batch: int | None = None, cut_kk: int | None = None, pipelined: bool = False,
@@ -826,17 +830,112 @@ def _packed_operands(queries_i8, q_scale, db_i8, db_norms, db_scale, n_valid):
     return _match_width(queries_i8, db_i8), inv_qs.reshape(()), db_i8, nf.to(torch.float32), n
 
 
-_PACKED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int]
+# The partial kernel of B2 and B3 (`csrc/packed_wgmma.cuh`; the wrapper
+# checks these against the library's exported values): a block is one
+# warpgroup of 64 queries over 64 bucket lanes, and an SM holds
+# `_PACKED_BLOCKS_PER_SM` of them (its launch bound). A part is a power of
+# two of segments that divides 256.
+_PACKED_QUERIES = 64
+_PACKED_LANES = 64
+_PACKED_BLOCKS_PER_SM = 3
+# The planner's costs, in steps of a block (folding one segment while the
+# SM holds its other blocks: about 0.4 us on an H100 at 1000 x 1M, PERF.md):
+# a block's fixed cost (the queries into registers, the ring's first fill
+# from L2 or memory, its stores: about 4 us), and a part's scratch at the
+# card's memory rate: 4 bytes a (query, lane) written, 4 read by the merge,
+# and as much again for the merge's loop over the parts. Both fit to the
+# part sizes timed in PERF.md.
+_BLOCK_STEPS = 10.0
+_STEP_SECONDS = 0.4e-6
+_PART_BYTES = 16
+_PEAK_BYTES_PER_S = 3.35e12
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedScanPlan:
+    """How the partial kernel of B2 and B3 cuts one call into blocks: a
+    grid of (query tiles of 64, lane tiles of 64, parts), each part
+    `segs_per_part` contiguous segments (a power of two that divides 256,
+    so no part crosses a super-tile). The plan changes the grid, never the
+    result."""
+
+    q_tiles: int
+    lane_tiles: int
+    n_seg: int
+    segs_per_part: int
+    n_parts: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_packed_scan(b: int, nb: int, n_seg: int, row_bytes: int, sms: int) -> PackedScanPlan:
+    """The grid of B2's and B3's partial kernel for `b` queries over
+    `n_seg` segments of `nb` lanes, rows of `row_bytes` bytes (a multiple
+    of 16, at most 192), on a card of `sms` SMs holding
+    `_PACKED_BLOCKS_PER_SM` blocks each. The segments per part are the
+    power of two (256 down to 1) that minimises the estimated time: the
+    blocks' work (each a part plus a block's fixed cost) spread over the
+    SMs' slots, plus one block's length for the last to finish, plus what
+    the parts' scratch costs to write and merge (`_BLOCK_STEPS`,
+    `_STEP_SECONDS`, `_PART_BYTES`); the larger part on ties."""
+    if row_bytes % 16 or not 0 < row_bytes <= _PACKED_MAX_DIM:
+        raise ValueError(f"packed scan: rows of {row_bytes} bytes (a multiple of 16, <= 192)")
+    if nb % _PACKED_LANES or b <= 0 or sms <= 0:
+        raise ValueError(f"packed scan: nb={nb} (a multiple of {_PACKED_LANES}), b={b}, sms={sms}")
+    q_tiles = -(-b // _PACKED_QUERIES)
+    lane_tiles = nb // _PACKED_LANES
+    slots = sms * _PACKED_BLOCKS_PER_SM
+    part_steps = b * nb * _PART_BYTES / _PEAK_BYTES_PER_S / _STEP_SECONDS
+    best = None
+    spp = min(_PACK, 1 << (max(1, n_seg) - 1).bit_length())
+    while spp >= 1:
+        n_parts = max(1, -(-n_seg // spp))
+        blocks = q_tiles * lane_tiles * n_parts
+        length = min(spp, n_seg) + _BLOCK_STEPS
+        est = blocks * length / slots + length + part_steps * n_parts
+        if best is None or est < best[0]:
+            best = (est, spp, n_parts)
+        spp //= 2
+    return PackedScanPlan(q_tiles, lane_tiles, n_seg, best[1], best[2])
+
+
+@functools.cache
+def _check_packed_tiles(stem: str) -> None:
+    """Once per process and library: the built partial kernel's tiles are
+    the planner's."""
+    lib = _build.load(stem)
+    got = (getattr(lib, f"{stem}_queries")(), getattr(lib, f"{stem}_lanes")(),
+           getattr(lib, f"{stem}_blocks_per_sm")())
+    want = (_PACKED_QUERIES, _PACKED_LANES, _PACKED_BLOCKS_PER_SM)
+    if got != want:
+        raise RuntimeError(f"{stem}: the library's tiles {got} differ from the wrapper's {want}")
+
+
+# B6 (on mma.sync): segments are cut into parts until
+# its grid has about this many blocks of 256 (or 128) queries x 16 lanes
+_B6_TARGET_BLOCKS = 1024
+
+
+def _b6_parts(lib, b: int, nb: int, n_seg: int, row_bytes: int) -> tuple[int, int]:
+    """(segments per part, parts) of B6's grid: a power of two that divides
+    256, halved from 256 down to 16 while the grid is short of
+    `_B6_TARGET_BLOCKS`."""
+    bq = lib.hier_scan_pipelined_block_queries(row_bytes)
+    base = -(-b // bq) * (nb // lib.hier_scan_pipelined_block_lanes())
+    spp = _PACK
+    while spp > 16 and base * -(-n_seg // spp) < _B6_TARGET_BLOCKS:
+        spp //= 2
+    return spp, max(1, -(-n_seg // spp))
+
+
+_PACKED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
 _PACKED_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-_TARGET_BLOCKS = 1024  # parts are cut until the grid has about this many blocks
 
 
 def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined=False):
     """Launch B2 (`stem` "packed_scan") or B3 / B6 ("hier_scan") on the
-    kernels' contract. Allocates the outputs and the parts scratch; the
-    segments are cut into parts of a power-of-two size that divides 256
-    (so no part crosses a super-tile), which changes the grid, never the
-    result."""
+    kernels' contract. Allocates the outputs and the parts scratch; B2's
+    and B3's grid comes from `plan_packed_scan`, B6's from `_b6_parts`:
+    either changes the grid, never the result."""
     tensors = (q, inv_qs, db, nf)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("packed scan: queries, rows, nf and scale must be on one CUDA device")
@@ -862,26 +961,27 @@ def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined
     q, db, nf = q.contiguous(), db.contiguous(), nf.contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
-    if db.data_ptr() % 16:
+    if db.data_ptr() % 16:  # TMA reads the rows from a 16-byte-aligned base
         db = db.clone()
     row_bytes = q.shape[1]
-    lib = _build.load(stem)
-    fn = getattr(lib, f"{stem}_launch")
-    hier = stem == "hier_scan"
-    fn.argtypes = _PACKED_ARGTYPES + ([ctypes.c_int] if hier else []) + _PACKED_TAIL
-    fn.restype = ctypes.c_int
-    bq = getattr(lib, f"{stem}_block_queries")(row_bytes)
-    lanes = getattr(lib, f"{stem}_block_lanes")()
-    base = -(-b // bq) * (nb // lanes)
     n_seg = n_scan // nb
-    spp = _PACK
-    while spp > 16 and base * -(-n_seg // spp) < _TARGET_BLOCKS:
-        spp //= 2
-    n_parts = -(-n_seg // spp)
-    parts = torch.empty((n_parts, b, nb), dtype=torch.int32, device=dev)
+    hier = stem == "hier_scan"
+    if pipelined:
+        spp, n_parts = _b6_parts(_build.load(stem), b, nb, n_seg, row_bytes)
+    else:
+        _check_packed_tiles(stem)
+        plan = plan_packed_scan(b, nb, n_seg, row_bytes, _sm_count(dev))
+        spp, n_parts = plan.segs_per_part, plan.n_parts
+    # one scratch for the parts [n_parts, b, nb] and, 16-byte aligned after
+    # them, the partial kernel's per-row term nc [n_scan] (B6 takes nf)
+    n_part_ints = -(-n_parts * b * nb // 4) * 4
+    scratch = torch.empty(n_part_ints + (0 if pipelined else n_scan), dtype=torch.int32,
+                          device=dev)
+    argtypes = _PACKED_ARGTYPES + ([ctypes.c_int] if hier else []) + _PACKED_TAIL
+    fn = _c_function(stem, f"{stem}_launch", argtypes)
     args = [q.data_ptr(), inv_qs.data_ptr(), db.data_ptr(), nf.data_ptr(),
             b, row_bytes, db.shape[0], n_scan, nb, n_valid, spp, n_parts,
-            parts.data_ptr(), cut_kk or 0]
+            scratch.data_ptr(), scratch.data_ptr() + 4 * n_part_ints, cut_kk or 0]
     if hier:
         args.append(int(pipelined))
     err = fn(*args, 0 if scores is None else scores.data_ptr(), ids.data_ptr(),
@@ -892,6 +992,8 @@ def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined
         scan_bucketed_topk_hier.launches_pipelined += 1
     else:
         scan_bucketed_topk_hier.launches += 1
+    if err == -1:
+        raise RuntimeError(f"{stem}_launch: the CUDA driver refused a TMA descriptor")
     _build.check(err, f"{stem}_launch")
     return scores, ids
 

@@ -411,11 +411,15 @@ def test_rows_aligned_ahead_give_the_same_scan(scan):
 @pytest.mark.cuda
 def test_packed_kernels_match_plain_versions_on_card():
     """Run with `pytest -m cuda` on a machine with a card: B2, B3, B6 and
-    both fused cuts are bit-identical to their plain versions."""
+    both fused cuts are bit-identical to their plain versions, at row widths
+    of one and two K boxes (16 to 192 bytes), at batches that leave a
+    warpgroup partly empty, and over 70,000 rows, which B3 at NB 128 walks
+    in 547 segments (a ragged third super-tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; kernels have no CPU mode")
     dev = torch.device("cuda", 0)
-    for n, d, b in ((20_000, 128, 200), (5000, 44, 33)):
+    for n, d, b in ((20_000, 128, 200), (5000, 44, 33), (70_000, 16, 1), (70_000, 48, 37),
+                    (70_000, 64, 65), (70_000, 144, 193), (70_000, 192, 64)):
         pts, q = _data(n, d, b, seed=13)
         pts[n // 2 :] = pts[: n - n // 2]
         codes, nf, scale, nv = tfs.build_packed_scan_table(_t(pts).to(dev))

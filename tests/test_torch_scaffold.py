@@ -231,7 +231,7 @@ def test_kernel_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     from diskrag_tpu_torch.kernels import _build
 
     headers = sorted(h.name for h in _build.CSRC.glob("*.cuh"))
-    assert headers == ["packed_common.cuh", "wgmma_common.cuh"]
+    assert headers == ["packed_common.cuh", "packed_wgmma.cuh", "wgmma_common.cuh"]
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
