@@ -4,11 +4,13 @@
 
 Builds the port's CUDA kernels from `diskrag_tpu_torch/csrc/` (into
 `build/diskrag_tpu_torch/`), checks in their SASS that B1's int8 kernel and
-the partial kernel of B2 / B3 run their products on wgmma, holds each kernel
-against its plain PyTorch version on the card (B1 int8 at row widths 36 to
-1536, 1 to 4096 queries and NB 128 to 32768; B4 on those blocks, on ties
-with signed zeros and -inf rows, at NB = 32768 and with kk > NB; B2 / B3 at
-row widths 16 to 192 bytes, 1 to 4096 queries and more than 256 segments),
+the partial kernels of B2 / B3 and of B6 run their products on wgmma, holds
+each kernel against its plain PyTorch version on the card (B1 int8 at row
+widths 36 to 1536, 1 to 4096 queries and NB 128 to 32768; B4 on those
+blocks, on ties with signed zeros and -inf rows, at NB = 32768 and with kk >
+NB; B2 / B3 / B6 at row widths 16 to 192 bytes, 1 to 4096 queries and more
+than 256 segments, B6 also against B3; B5 in both its forms, gathered and by
+id with and without the residual terms, both ways of reading the tables),
 then serves the flat index end to end at
 the benchmark's sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000
 queries, k = 10)
@@ -17,9 +19,10 @@ the per-row int8 scan (kernels B1, B4) and with `flat_precision:
 int8_packed` (kernels B2, B3) — runs the pipelined fold (B6) through its
 wrapper at the 1M shape, builds the Vamana graph at 200,000 x 128 on the
 card (B1 and B4 inside its kNN pass), sweeps exact and PQ-guided
-traversal over it (the gathered ADC lookup, kernel B5), serves the
-default vamana configuration through the same entry points, and checks
-recall@10 against an exact ground truth. It then holds the matmul-only
+traversal over it (the ADC lookup by id, kernel B5, once a round), serves
+the default vamana configuration through the same entry points (with the
+device launches a traversal round costs), and checks recall@10 against an
+exact ground truth. It then holds the matmul-only
 probe (kernel M1) against its plain version, runs the fused-scan
 microbenchmark (`diskrag_tpu_torch.tools.fused_scan_micro`) in process at
 200,000 rows (and its M1 and hierarchical stages at 1,000,000), checking
@@ -195,13 +198,86 @@ def b5_bound_ms(tables, codes) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
+def b5_ids_bound_ms(tables, code_table, ids, aux: dict) -> tuple[float, str]:
+    """Least time for B5's by-id work on these inputs: bytes only (m + 2
+    adds per candidate, no products). Each id read once (8 bytes), each
+    distinct code row its ids address (m bytes), each table entry those
+    codes address (the distinct (query, subspace, code) triples) and, with
+    the residual operands, each distinct id's cell and bias and each
+    distinct (query, cell) term, all read once; each output written once."""
+    import torch
+
+    b, c = ids.shape
+    m = code_table.shape[1]
+    safe = ids.clamp(0, code_table.shape[0] - 1)
+    distinct = torch.unique(safe)
+    codes = code_table[safe]
+    used = torch.zeros((b, m, 256), dtype=torch.bool, device=ids.device)
+    used.scatter_(2, codes.transpose(1, 2).long(), True)
+    nbytes = 8 * b * c + m * distinct.numel() + 4 * int(used.sum()) + 4 * b * c
+    if aux:
+        cells = aux["point_cell"][safe].long()
+        pairs = torch.unique(cells + aux["cell_tables"].shape[1] *
+                             torch.arange(b, device=ids.device)[:, None])
+        nbytes += 8 * distinct.numel() + 4 * pairs.numel()
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = b * c * (m + (2 if aux else 0)) / PEAK_F32_OPS
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+def b5_ids_row(tables, code_table, ids, aux: dict, reps: int = 50) -> dict:
+    """B5's by-id form on card tensors against its plain version (the same
+    adds in the same order: bit-identical); then timed on the device
+    beside its plain version and the composition of PyTorch operations it
+    replaces in a traversal round (`torch` gathers of the codes, the cells
+    and the biases, B5's gathered form, the gather of the cell terms, the
+    casts and the adds). No single PyTorch call computes the lookup by id,
+    so `library_ms` is null."""
+    import torch
+
+    from diskrag_tpu_torch.ops import pq_scan
+
+    b, m, _ = tables.shape
+    c = ids.shape[1]
+    want = pq_scan.adc_lookup_ids_ref(tables, code_table, ids, **aux)
+    got = pq_scan.adc_lookup_ids_kernel(tables, code_table, ids, **aux)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    require(mismatches == 0, f"B5 by id differs from its plain version at (B, C, m) = "
+            f"{(b, c, m)}, residual={bool(aux)}: {mismatches} entries")
+    err = float((got - want).abs().max())
+
+    def composed():
+        d = pq_scan.adc_lookup_gathered_kernel(tables, code_table[ids])
+        if aux:
+            d = (d + torch.gather(aux["cell_tables"], 1, aux["point_cell"][ids].long())
+                 + aux["point_bias"][ids])
+        return d
+
+    call = lambda: pq_scan.adc_lookup_ids_kernel(tables, code_table, ids, **aux)  # noqa: E731
+    ms, timed_by = device_ms(call, 20)
+    plain_ms, _ = device_ms(lambda: pq_scan.adc_lookup_ids_ref(tables, code_table, ids, **aux), 5)
+    composed_ms, _ = device_ms(composed, 20)
+    bound, by = b5_ids_bound_ms(tables, code_table, ids, aux)
+    return {"form": "by id", "b": b, "c": c, "m": m, "residual": bool(aux),
+            "max_abs_err": err, "mismatches": 0, "match": "bit-identical",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None, "timed_by": timed_by,
+            "replaced_ops_ms": composed_ms, "replaced_ops": 8 if aux else 2,
+            "ms_launch_to_launch": cuda_ms(call, reps),
+            "bound_ms": bound, "bound_by": by}
+
+
 # B1 int8 beyond the comparison set: (rows, D, B, NBs). D = 36 is zero-padded
 # to 48-byte rows; 960 and 1536 loop over 128-byte K boxes
 ROWSCAN_CASES = ((3001, 36, 37, (128, 512)), (50_017, 128, 1, (512,)),
                  (50_017, 128, 4096, (4096,)), (5003, 960, 70, (512,)),
                  (4001, 1536, 130, (512,)))
 
-B5_SHAPES = ((250, 192, 32), (1000, 48, 32), (1000, 24, 16), (1, 48, 64), (37, 5, 8))
+# B5: the sweep's and the engine's shapes, a table past 48 KB (m = 64), a
+# ragged one, and two with thousands of candidates a query (where a kernel
+# that staged each table in shared memory came level with the direct reads)
+B5_SHAPES = ((250, 192, 32), (1000, 48, 32), (1000, 24, 16), (1, 48, 64), (37, 5, 8),
+             (64, 2048, 16), (64, 4096, 8))
 
 
 def b5_row(tables, codes, reps: int = 50) -> dict:
@@ -232,8 +308,8 @@ def b5_row(tables, codes, reps: int = 50) -> dict:
     ms, timed_by = device_ms(lambda: pq_scan.adc_lookup_gathered_kernel(tables, codes), 20)
     plain_ms, _ = device_ms(lambda: pq_scan.adc_lookup_gathered_ref(tables, codes), 5)
     library_ms, _ = device_ms(lambda: torch.gather(tables, 2, idx).sum(1), 20)
-    return {"b": b, "c": c, "m": m, "max_abs_err": err, "mismatches": mismatches,
-            "match": "bit-identical",
+    return {"form": "gathered", "b": b, "c": c, "m": m, "max_abs_err": err,
+            "mismatches": mismatches, "match": "bit-identical",
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "timed_by": timed_by,
             "ms_launch_to_launch": cuda_ms(
                 lambda: pq_scan.adc_lookup_gathered_kernel(tables, codes), reps),
@@ -245,17 +321,26 @@ def b5_row(tables, codes, reps: int = 50) -> dict:
 
 
 def phase_b5_kernels() -> None:
-    """B5 against its plain version at the sweep's shape, the engine's
-    shapes, one table above the default 48 KB of shared memory (m = 64) and
-    a ragged one."""
+    """B5 against its plain version at `B5_SHAPES`: the gathered form,
+    then the by-id form over a 200,000-row code table without and with the
+    residual operands (256 cells)."""
     import torch
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(5)
+    n = CMP_N
     for b, c, m in B5_SHAPES:
         tables = torch.rand((b, m, 256), generator=g, device=dev) * 40.0
         codes = torch.randint(0, 256, (b, c, m), generator=g, device=dev, dtype=torch.uint8)
         emit({"phase": "kernels", "kernel": "B5", **b5_row(tables, codes)})
+        code_table = torch.randint(0, 256, (n, m), generator=g, device=dev, dtype=torch.uint8)
+        ids = torch.randint(0, n, (b, c), generator=g, device=dev)
+        aux = {"point_cell": torch.randint(0, 256, (n,), generator=g, device=dev,
+                                           dtype=torch.int32),
+               "point_bias": torch.rand((n,), generator=g, device=dev) * 100.0,
+               "cell_tables": torch.rand((b, 256), generator=g, device=dev) * -50.0}
+        for a in ({}, aux):
+            emit({"phase": "kernels", "kernel": "B5", **b5_ids_row(tables, code_table, ids, a)})
 
 
 def b4_timed(vals, kk: int) -> dict:
@@ -348,15 +433,34 @@ def phase_device() -> dict:
         "sass_b1_int8": wgmma_sass(paths["flat_scan"], "scan_i8_wgmma", "IDP4A"),
         "sass_packed_wgmma": {stem: wgmma_sass(paths[stem], "packed_wgmma_partial", "IMMA")
                               for stem in ("packed_scan", "hier_scan")},
+        "sass_b6_pingpong": wgmma_sass(paths["hier_scan"], "pingpong_wgmma_partial", "IMMA"),
+        "b6_registers": b6_registers(),
     })
     return {"smi": smi}
+
+
+def b6_registers() -> dict:
+    """The registers a thread that ptxas gave each instantiation of B6's
+    partial kernel (rows of 16-64, 80-128 and 144-192 bytes) beside those
+    its `setmaxnreg` split assumes at launch: they must be equal, or the
+    consumers' `setmaxnreg.inc` would wait forever (the launcher refuses
+    such a build; this shows it is not one)."""
+    from diskrag_tpu_torch.kernels import _build
+
+    lib = _build.load("hier_scan")
+    want = lib.hier_scan_pipelined_launch_regs()
+    got = {rb: lib.hier_scan_pipelined_kernel_regs(rb) for rb in (64, 128, 192)}
+    require(all(r == want for r in got.values()),
+            f"B6's partial kernel has {got} registers a thread, its split assumes {want}")
+    return {"launch_regs": want, "kernel_regs_by_row_bytes": got}
 
 
 def wgmma_sass(lib: pathlib.Path, kernel: str, other: str) -> dict:
     """IGMMA and `other` instructions in each instantiation of `kernel` in
     a built library (`cuobjdump -sass`, beside nvcc): its products must run
     on the tensor cores through wgmma alone — B1's int8 kernel none on
-    __dp4a (IDP4A), the partial kernel of B2 / B3 none on mma.sync (IMMA)."""
+    __dp4a (IDP4A), the partial kernels of B2 / B3 and of B6 none on
+    mma.sync (IMMA)."""
     from diskrag_tpu_torch.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
@@ -668,9 +772,18 @@ def phase_packed_kernels() -> None:
                         compare_packed(kind, qc, qs, db, norms, scale, n_buckets=128,
                                        n_valid=n_valid, cut_kk=cut)
                         cases += 1
-        emit({"phase": "kernels", "kernel": "B2+B3", "n": PACKED_ROWS, "row_bytes": d,
+                # B6 against its plain version and against B3 at its tile
+                b6, _ = compare_packed("B6", qc, qs, db, norms, scale, n_buckets=128,
+                                       n_valid=n_valid, db_tile=256)
+                b3, _ = compare_packed("B3", qc, qs, db, norms, scale, n_buckets=128,
+                                       n_valid=n_valid, db_tile=256)
+                require(bool(torch.equal(b6[0], b3[0]) and torch.equal(b6[1], b3[1])),
+                        f"B6 differs from B3 at row width {d}, b={b}")
+                cases += 2
+        emit({"phase": "kernels", "kernel": "B2+B3+B6", "n": PACKED_ROWS, "row_bytes": d,
               "b": list(PACKED_BATCHES), "contracts": ["table", "unpadded"], "nb": 128,
-              "cut_kk": [None, 40], "comparisons": cases, "match": "bit-identical"})
+              "cut_kk": [None, 40], "b6": "no cut, against B3 at db_tile 256",
+              "comparisons": cases, "match": "bit-identical"})
         del pts
     torch.cuda.empty_cache()
 
@@ -905,18 +1018,18 @@ def packed_kernel_row(kind: str, flat, q_d, plan, *, cut_kk, reps: int) -> dict:
     # pass that turns nf into each row's nc), then the merge (with the fused
     # cut where there is one)
     by_kernel = device_ms_by_kernel(call, 10)
-    partial = "hier_scan_partial_pipelined" if kind == "B6" else "packed_wgmma_partial"
+    partial = "pingpong_wgmma_partial" if kind == "B6" else "packed_wgmma_partial"
     merge = "packed_scan_merge" if kind == "B2" else "hier_scan_merge"
+    planner = fs.plan_pipelined_scan if kind == "B6" else fs.plan_packed_scan
     return {"nb": nb, "n_scan": ops[5], "n_valid": n_valid, "cut_kk": cut_kk,
             **measured, "match": "bit-identical", "ms": cuda_ms(call, reps),
             "device_ms": sum(by_kernel.values()) or None,
-            "device_ms_nc_pass": None if kind == "B6" else named(by_kernel, "packed_nc_rows"),
+            "device_ms_nc_pass": named(by_kernel, "packed_nc_rows"),
             "device_ms_partial": named(by_kernel, partial),
             "device_ms_merge_cut": named(by_kernel, merge),
             "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "plan": str(fs.plan_packed_scan(q_d.shape[0], nb, ops[5] // nb, qc.shape[1],
-                                            torch.cuda.get_device_properties(0).multi_processor_count))
-            if kind != "B6" else None}
+            "plan": str(planner(q_d.shape[0], nb, ops[5] // nb, qc.shape[1],
+                                torch.cuda.get_device_properties(0).multi_processor_count))}
 
 
 def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
@@ -1014,8 +1127,9 @@ def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
                "diskrag_tpu_torch/csrc/packed_scan.cu", "diskrag_tpu/ops/flat_scan_pallas.py:325"),
         "B3": ("B3 hier_scan (hierarchical packed fold + fused cut)",
                "diskrag_tpu_torch/csrc/hier_scan.cu", "diskrag_tpu/ops/flat_scan_pallas.py:387"),
-        "B6": ("B6 hier_scan pipelined (staged rows, product overlaps fold)",
-               "diskrag_tpu_torch/csrc/hier_scan.cu", "diskrag_tpu/ops/flat_scan_pallas.py:468"),
+        "B6": ("B6 hier_scan pipelined (ping-pong wgmma: one consumer folds while the other's "
+               "product runs)",
+               "diskrag_tpu_torch/csrc/pingpong_wgmma.cuh", "diskrag_tpu/ops/flat_scan_pallas.py:468"),
     }
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], **rows[k]} for k in ("B2", "B3", "B6")]
@@ -1198,15 +1312,34 @@ def phase_main_vamana(smi: str, base, pts, q, gt) -> dict:
                              "ms_per_batch": default_s * 1e3},
         "card": smi,
     })
-    emit(profile_batch(engine, q, path="vamana-200k-rpq16", l_search=64,
-                       watch=("adc_lookup_kernel",)))
-    # B5 at the engine's real operands: one round's gathered codes
-    tables, _ = engine._pq_serving_tables(q_d)
-    nbrs = engine.index.adjacency[:MAIN_B].clamp_min(0).long()
-    row = b5_row(tables.contiguous(), engine.codes_t[nbrs])
+    prof = with_launches_per_round(
+        profile_batch(engine, q, path="vamana-200k-rpq16", l_search=64,
+                      watch=("adc_lookup_kernel",)), rounds / reps)
+    emit(prof)
+    # B5 at the engine's real operands: one round's ids (the adjacency rows
+    # of the first 1000 points, clamped as the traversal clamps them), the
+    # engine's code table and residual operands: the by-id form the round
+    # calls, then the gathered form on the same round's codes
+    tables, aux = engine._pq_serving_tables(q_d)
+    tables = tables.contiguous()
+    nbrs = engine.index.adjacency[:MAIN_B].clamp(0, engine.codes_t.shape[0] - 1).long()
+    by_id = b5_ids_row(tables, engine.codes_t, nbrs, aux)
+    gathered = b5_row(tables, engine.codes_t[nbrs])
     del engine, pts_d, q_d
     torch.cuda.empty_cache()
-    return {"launches": launches["B5"], "rounds_per_batch": rounds / reps, **row}
+    return {"launches": launches["B5"], "rounds_per_batch": rounds / reps,
+            "device_launches_per_round": prof.get("device_launches_per_round"),
+            **by_id, "gathered_form_engine_shape": gathered}
+
+
+def with_launches_per_round(prof: dict, rounds_per_batch: float) -> dict:
+    """A profiled batch's device launches (kernels, copies and sets the
+    profiler recorded) divided by the traversal rounds of a batch: null
+    where the profiler recorded no device activity."""
+    per_batch = prof.get("device_launches_per_batch")
+    return {**prof, "rounds_per_batch": rounds_per_batch,
+            "device_launches_per_round": (per_batch / rounds_per_batch
+                                          if per_batch and rounds_per_batch else None)}
 
 
 def m1_bound_ms(bpad: int, npad: int, d: int, nb_out: int, b: int, n: int) -> tuple[float, str]:
@@ -1413,8 +1546,8 @@ def phase_micro(smi: str, sets: dict) -> int:
         del gcodes, gq, norms
         torch.cuda.empty_cache()
     emit({"phase": "micro", "derived": "packed scan ms - matmul-only ms, same rows",
-          "note": "M1 probes the mma.sync product B2 / B3 ran before their wgmma redesign (B6 still does); "
-                  "their partial kernel now runs wgmma, so the difference is not the fold",
+          "note": "M1 probes the mma.sync product B2 / B3 / B6 ran before their wgmma redesigns; "
+                  "their partial kernels now run wgmma, so the difference is not the fold",
           "by_rows": split, "m1_launches": m1_launches, "card": smi})
     return m1_launches
 
@@ -1502,6 +1635,12 @@ def phase_api(smi: str, base, name: str, n_rows: int) -> None:
     others = {k: v for k, v in launches.items() if k != "B5"}
     require(launches["B5"] == sum(rounds.values()) > 0 and not any(others.values()),
             f"the requests launched {launches}, expected B5 {sum(rounds.values())} times")
+    # what a /search-batch costs on the device: the same 64 queries through
+    # search_batch at the default width, profiled
+    emit(with_launches_per_round(
+        profile_batch(engine, qv, steps=1, path="api-vamana-200k (search_batch of the 64 "
+                      "/search-batch queries, default width)", watch=("adc_lookup_kernel",)),
+        rounds["/search-batch"]))
     emit({"phase": "api", "collection": name, "n": n_rows, "d": MAIN_D,
           "requests": [{"path": p, "status": st, "ms": ms} for p, st, _, ms in sent],
           "search_batch_queries": len(queries), "search_batch_ids": "equal to the engine's",
@@ -1568,7 +1707,8 @@ def main() -> int:
         graph = phase_main_graph(dev["smi"], *sets[CMP_N])
         b5 = phase_main_vamana(dev["smi"], base, *sets[CMP_N])
         out["kernels"].append({
-            "name": "B5 adc_lookup (gathered ADC lookup of the PQ-guided traversal)",
+            "name": "B5 adc_lookup (ADC lookup of the PQ-guided traversal: by id with the "
+                    "residual terms on the main path; the gathered form below)",
             "route": "cuda", "source": "diskrag_tpu_torch/csrc/adc_lookup.cu",
             "replaces": "diskrag_tpu/ops/pq_scan.py:30", **b5,
             "sweep_shape": graph["sweep_shape"],

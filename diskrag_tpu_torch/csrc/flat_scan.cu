@@ -149,6 +149,12 @@ __device__ __forceinline__ void fold_segment(const int (&acc)[32], Ring& r, uint
       }
     }
   }
+  // The norms above were read with plain loads and the refill of this stage
+  // is a TMA write (the async proxy): without the fence nothing orders the
+  // two, and a refill could land before the loads (the race B3 showed on the
+  // card with the same pattern). The K-box stages handed back in the loop
+  // were read by wgmma alone and need none.
+  wg::fence_proxy_async();
   release(r, empty);
 }
 

@@ -32,121 +32,20 @@
 // applies the strict '>' across super-tiles in order: exactly the sequential
 // result. The fused cut runs in that merge kernel from shared memory.
 //
-// B6 keeps the earlier mma.sync design (packed_common.cuh) and computes
-// the same parts from a software pipeline inside the block: the 16 rows of
-// segment j+1 are on their way into a shared-memory stage (cp.async, three
-// stages) and the product of segment j is started into one accumulator set
-// while segment j-1 is folded out of the other; one epilogue step folds the
-// last segment, as in the TPU kernel. Its four warps share one staged copy of
-// the rows instead of each reading them from L1/L2. Its parts feed the same
-// merge kernel, so its output equals B3's bit for bit: two independent
-// designs held against each other. It is not a default; PERF.md holds both
-// times.
+// B6 has its own partial kernel (pingpong_wgmma.cuh): a producer warpgroup
+// feeding a TMA ring and two consumer warpgroups that take turns on the
+// tensor cores through named barriers, each folding one segment while the
+// other's product runs, with registers moved from the producer to the
+// consumers by setmaxnreg. It computes the same parts from B3's nc pass,
+// and its parts feed the same merge kernel, so its output equals B3's bit
+// for bit: two independent designs held against each other. It is not a
+// default; PERF.md holds both times.
 
-#include "packed_wgmma.cuh"
+#include "pingpong_wgmma.cuh"
 
 namespace {
 
 using namespace packed;
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-constexpr int kStages = 3;
-
-// B6: B3's part on mma.sync, pipelined through shared memory.
-template <int KH>
-__global__ void __launch_bounds__(kThreads) hier_scan_partial_pipelined(
-    const int8_t* __restrict__ q, const float* __restrict__ inv_qs_ptr,
-    const int8_t* __restrict__ db, const float* __restrict__ nf, int b,
-    int row_bytes, int n_phys, int n_scan, int nb, int segs_per_part,
-    int* __restrict__ parts) {
-  using T = Tile<KH>;
-  constexpr int kRowStride = 64 * KH;  // staged rows are zero-filled to this
-  constexpr int kChunks = kLanes * 4 * KH;  // 16-byte chunks per stage
-  __shared__ __align__(16) unsigned char rows[kStages][kLanes * kRowStride];
-  __shared__ float snf[kStages][kLanes];
-
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  // every warp takes part in the copies and barriers; a warp whose queries
-  // all lie past b multiplies zeros and stores nothing
-  const int q_base = blockIdx.x * T::kBlockQ + warp * T::kWarpQ;
-  const int lane0 = blockIdx.y * kLanes;
-  const int part = blockIdx.z;
-  const int n_seg = n_scan / nb;
-  const int s_begin = part * segs_per_part;
-  const int n = max(0, min(n_seg, s_begin + segs_per_part) - s_begin);
-  const float inv_qs = *inv_qs_ptr;
-
-  uint4 bq[T::NQ][KH];
-  load_queries<KH>(bq, q, b, row_bytes, q_base, g, t);
-  int state[T::NQ][4];
-  clear<KH>(state, INT_MIN);
-
-  auto stage_segment = [&](int j) {  // segment s_begin + j -> stage j % kStages
-    const int st = j % kStages;
-    const long long row0 = (long long)(s_begin + j) * nb + lane0;
-    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-      const int r = c / (4 * KH);
-      const int off = (c % (4 * KH)) * 16;
-      const bool live = row0 + r < n_phys && off < row_bytes;
-      const int8_t* src = live ? db + (size_t)(row0 + r) * row_bytes + off : db;
-      cp_async_16(&rows[st][r * kRowStride + off], src, live ? 16 : 0);
-    }
-    if (threadIdx.x < kLanes) {
-      const long long row = row0 + threadIdx.x;
-      snf[st][threadIdx.x] = row < n_phys ? __ldg(nf + row) : INFINITY;
-    }
-  };
-
-  float nf_prev0 = INFINITY, nf_prev1 = INFINITY;
-  // step j: stage segment j+1, start the product of segment j into `cur`,
-  // fold segment j-1 out of `prev`
-  auto step = [&](int j, int (&cur)[T::NQ][4], int (&prev)[T::NQ][4]) {
-    if (j + 1 < n) stage_segment(j + 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-    float nf_cur0 = INFINITY, nf_cur1 = INFINITY;
-    if (j < n) {
-      asm volatile("cp.async.wait_group 1;\n" ::);
-      __syncthreads();
-      const int st = j % kStages;
-      uint4 a[2][KH];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int h = 0; h < KH; ++h)
-          a[r][h] = *reinterpret_cast<const uint4*>(
-              &rows[st][(g + 8 * r) * kRowStride + 64 * h + 16 * t]);
-      nf_cur0 = snf[st][g];
-      nf_cur1 = snf[st][g + 8];
-      clear<KH>(cur, 0);
-      product<KH>(cur, a, bq);
-    }
-    if (j > 0) {
-      const int seg = (s_begin + j - 1) & (kPack - 1);
-      fold<KH>(state, prev, seg - norm_int(nf_prev0, inv_qs) * kPack,
-               seg - norm_int(nf_prev1, inv_qs) * kPack);
-    }
-    nf_prev0 = nf_cur0;
-    nf_prev1 = nf_cur1;
-  };
-
-  int acc0[T::NQ][4], acc1[T::NQ][4];
-  if (n > 0) stage_segment(0);
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int j = 0; j <= n; j += 2) {
-    step(j, acc0, acc1);
-    if (j + 1 <= n) step(j + 1, acc1, acc0);
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  store_part<KH>(state, parts, part, b, nb, q_base, lane0, g, t);
-}
 
 // One block per query. Parts never cross a super-tile: parts_per_super
 // consecutive parts make one. Max over a super-tile's parts, then the
@@ -200,13 +99,24 @@ extern "C" {
 int hier_scan_queries() { return packed_wg::kQueries; }
 int hier_scan_lanes() { return packed_wg::kLanes; }
 int hier_scan_blocks_per_sm() { return packed_wg::kBlocksPerSm; }
-int hier_scan_pipelined_block_queries(int row_bytes) { return block_queries(row_bytes); }
-int hier_scan_pipelined_block_lanes() { return kLanes; }
+// B6's tiles: queries and lanes per block and the blocks an SM holds.
+int hier_scan_pipelined_queries() { return pingpong_wg::kQueries; }
+int hier_scan_pipelined_lanes() { return pingpong_wg::kLanes; }
+int hier_scan_pipelined_blocks_per_sm() { return pingpong_wg::kBlocksPerSm; }
+// The registers a thread that B6's setmaxnreg split assumes at launch, and
+// those ptxas gave its partial kernel for rows of row_bytes (-1 if CUDA
+// cannot say); hier_scan_launch refuses B6 (returns -2) where they differ.
+int hier_scan_pipelined_launch_regs() { return pingpong_wg::kLaunchRegs; }
+int hier_scan_pipelined_kernel_regs(int row_bytes) {
+  return pingpong_wg::kernel_regs(packed_wg::ksteps_for(row_bytes));
+}
 
 // Arguments as packed_scan_launch, except: any n_scan / nb; segs_per_part
 // must divide 256 so that no part crosses a super-tile; `pipelined` selects
-// B6 (nc is then unused and cut_kk must be 0). Returns -1 if the CUDA
-// driver refuses a TMA descriptor, else cudaGetLastError().
+// B6's partial kernel (cut_kk must then be 0). Returns -1 if the CUDA
+// driver refuses a TMA descriptor, -2 if B6's partial kernel was built
+// with other registers than its setmaxnreg split assumes (nothing is
+// launched then), else cudaGetLastError().
 int hier_scan_launch(const void* q, const void* inv_qs, const void* db,
                      const void* nf, int b, int row_bytes, int n_phys,
                      int n_scan, int nb, int n_valid, int segs_per_part,
@@ -217,29 +127,20 @@ int hier_scan_launch(const void* q, const void* inv_qs, const void* db,
   if (b <= 0) return cudaSuccess;
   const int n_seg = n_scan / nb;
   if (row_bytes % 16 || row_bytes > 192 || n_scan % nb ||
-      nb % (pipelined ? kLanes : packed_wg::kLanes) || segs_per_part <= 0 ||
+      nb % (pipelined ? pingpong_wg::kLanes : packed_wg::kLanes) || segs_per_part <= 0 ||
       kPack % segs_per_part || n_parts <= 0 || (long long)segs_per_part * n_parts < n_seg ||
       (pipelined && cut_kk > 0))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* pp = static_cast<int*>(parts);
-  if (pipelined) {
-    const int bq = block_queries(row_bytes);
-    dim3 grid((b + bq - 1) / bq, nb / kLanes, n_parts);
-    const PartKernel part = PACKED_PART_KERNEL_FOR(hier_scan_partial_pipelined, row_bytes);
-    part<<<grid, kThreads, 0, st>>>(static_cast<const int8_t*>(q),
-                                    static_cast<const float*>(inv_qs),
-                                    static_cast<const int8_t*>(db),
-                                    static_cast<const float*>(nf), b, row_bytes, n_phys,
-                                    n_scan, nb, segs_per_part, pp);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  } else {
-    const int err = packed_wg::launch_partial(q, inv_qs, db, nf, b, row_bytes, n_phys, n_scan,
+  const int err =
+      pipelined ? pingpong_wg::launch_partial(q, inv_qs, db, nf, b, row_bytes, n_phys, n_scan,
                                               nb, segs_per_part, n_parts, pp,
-                                              static_cast<int*>(nc), st);
-    if (err != 0) return err;
-  }
+                                              static_cast<int*>(nc), st)
+                : packed_wg::launch_partial(q, inv_qs, db, nf, b, row_bytes, n_phys, n_scan, nb,
+                                            segs_per_part, n_parts, pp, static_cast<int*>(nc),
+                                            st);
+  if (err != 0) return err;
   auto* sc = static_cast<float*>(scores);
   auto* ii = static_cast<int*>(ids);
   const int pps = kPack / segs_per_part;

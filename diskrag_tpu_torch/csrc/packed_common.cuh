@@ -18,10 +18,11 @@
 // What bounds the scans on the H100 is the product: 2 * B * n * D int8
 // operations, 0.129 ms at 1000 x 1M x 128 at the tensor-core peak. B2 and B3
 // run it on wgmma with the queries in registers and the rows fed by TMA
-// (packed_wgmma.cuh; B3 0.43 ms on the device at that shape). The helpers
-// below run it on mma.sync m16n8k32 (s8 x s8 -> s32), the design B2 and B3
-// used before (B3 0.65 ms there): B6 (1.05 ms) and M1 (0.53 ms) still do
-// (H100 80GB HBM3, 700 W; PERF.md). Database rows are the M side, queries
+// (packed_wgmma.cuh; B3 0.43 ms on the device at that shape), B6 on wgmma
+// too under its own schedule (pingpong_wgmma.cuh). The helpers below run it
+// on mma.sync m16n8k32 (s8 x s8 -> s32), the design B2, B3 and B6 used
+// before (B3 0.65 ms, B6 1.05 ms there): M1 (0.53 ms) still does (H100 80GB
+// HBM3, 700 W; PERF.md). Database rows are the M side, queries
 // the N side: a warp owns 16 bucket lanes (rows lane0 .. lane0+15 of every
 // segment) and 8*NQ queries, keeps the queries' B fragments in registers for
 // its whole life, and walks the segments, so each thread's four accumulators
@@ -139,21 +140,6 @@ __device__ __forceinline__ void product(int (&acc)[Tile<KH>::NQ][4],
   }
 }
 
-// state = max(state, cross * 512 + nc): accumulators 0, 1 belong to row g
-// (nc0), 2, 3 to row g + 8 (nc1).
-template <int KH>
-__device__ __forceinline__ void fold(int (&state)[Tile<KH>::NQ][4],
-                                     const int (&acc)[Tile<KH>::NQ][4], int nc0,
-                                     int nc1) {
-#pragma unroll
-  for (int nt = 0; nt < Tile<KH>::NQ; ++nt) {
-    state[nt][0] = max(state[nt][0], acc[nt][0] * (2 * kPack) + nc0);
-    state[nt][1] = max(state[nt][1], acc[nt][1] * (2 * kPack) + nc0);
-    state[nt][2] = max(state[nt][2], acc[nt][2] * (2 * kPack) + nc1);
-    state[nt][3] = max(state[nt][3], acc[nt][3] * (2 * kPack) + nc1);
-  }
-}
-
 template <int KH>
 __device__ __forceinline__ void clear(int (&x)[Tile<KH>::NQ][4], int v) {
 #pragma unroll
@@ -162,35 +148,8 @@ __device__ __forceinline__ void clear(int (&x)[Tile<KH>::NQ][4], int v) {
     for (int c = 0; c < 4; ++c) x[nt][c] = v;
 }
 
-// parts[part, query, lane] = state, for the queries below b.
-template <int KH>
-__device__ __forceinline__ void store_part(const int (&state)[Tile<KH>::NQ][4],
-                                           int* __restrict__ parts, int part,
-                                           int b, int nb, int q_base, int lane0,
-                                           int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < Tile<KH>::NQ; ++nt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int query = q_base + nt * 8 + t * 2 + (c & 1);
-      const int lane = lane0 + g + (c >> 1) * 8;
-      if (query < b)
-        parts[((size_t)part * b + query) * nb + lane] = state[nt][c];
-    }
-  }
-}
-
-using PartKernel = void (*)(const int8_t*, const float*, const int8_t*,
-                            const float*, int, int, int, int, int, int, int*);
-
-// B6's part kernel for rows of `row_bytes` bytes (a multiple of 16, <= 192).
-#define PACKED_PART_KERNEL_FOR(kernel, row_bytes)            \
-  ((row_bytes) <= 64 ? static_cast<PartKernel>(kernel<1>)    \
-   : (row_bytes) <= 128 ? static_cast<PartKernel>(kernel<2>) \
-                        : static_cast<PartKernel>(kernel<3>))
-
-// Queries per block of the mma.sync kernels (B6, M1) for rows of
-// `row_bytes` bytes: with kLanes, what their wrappers size the grid from.
+// Queries per block of the mma.sync kernel (M1) for rows of
+// `row_bytes` bytes: with kLanes, what its wrapper sizes the grid from.
 inline int block_queries(int row_bytes) {
   return row_bytes <= 128 ? Tile<2>::kBlockQ : Tile<3>::kBlockQ;
 }

@@ -2,8 +2,8 @@
 // mbarriers, TMA tile loads, the shared-memory matrix descriptor of a
 // 128-byte-swizzled K-major tile, the m64n64k32 s8 product and its
 // accumulator layout, a consumer's view of a ring of stages, and the
-// host-side TMA descriptors. Used by B1 (flat_scan.cu) and by the partial
-// kernel of B2 / B3 (packed_wgmma.cuh).
+// host-side TMA descriptors. Used by B1 (flat_scan.cu), by the partial
+// kernel of B2 / B3 (packed_wgmma.cuh) and by B6's (pingpong_wgmma.cuh).
 //
 // Tiles. An operand tile is R rows (64 queries or 64 database rows) of 128
 // bytes of K, loaded by one 2-D TMA box {128 bytes, R rows} with

@@ -344,11 +344,13 @@ def beam_search_pq(
     distances looked up from per-query tables; optionally the final beam ∪
     visited pool is reranked with exact distances.
 
-    Every round's lookup goes through `ops.pq_scan.adc_lookup_gathered_kernel`:
-    the CUDA kernel B5 for tensors on the card (one launch per executed
-    round), its plain version for CPU tensors. The seed scoring is a
-    shared-code lookup (`adc_lookup`) in plain PyTorch, as in the JAX
-    package.
+    Every round's distance step is one call of
+    `ops.pq_scan.adc_lookup_ids_kernel`: the CUDA kernel B5 for tensors on
+    the card (one launch per executed round: the code gather, the lookup
+    and, for a residual PQ, the cell and bias terms), its plain version for
+    CPU tensors, which composes the same steps as the JAX package's
+    `expand`. The seed scoring is a shared-code lookup (`adc_lookup`) in
+    plain PyTorch, as in the JAX package.
 
     Args:
       codes: uint8 [N, m] PQ codes (m bytes gathered per neighbor instead
@@ -362,7 +364,7 @@ def beam_search_pq(
         id int32 [N], per-point bias f32 [N], per-query cell cross terms
         [B, C]; all three together.
     """
-    from diskrag_tpu_torch.ops.pq_scan import adc_lookup_gathered_kernel
+    from diskrag_tpu_torch.ops.pq_scan import adc_lookup_ids_kernel
     from diskrag_tpu_torch.pq.product_quantizer import adc_lookup
 
     max_steps = _default_steps(search_width, expand_width, k, max_steps)
@@ -371,12 +373,15 @@ def beam_search_pq(
         raise ValueError("point_cell/point_bias/cell_tables must be given together")
     b = tables.shape[0]
     tables = tables.contiguous()
+    # the kernel's operand types, once a search rather than once a round
+    aux = {}
+    if residual:
+        aux = {"point_cell": point_cell.to(torch.int32).contiguous(),
+               "point_bias": point_bias.to(torch.float32).contiguous(),
+               "cell_tables": cell_tables.to(torch.float32).contiguous()}
 
     def expand(ids):
-        d = adc_lookup_gathered_kernel(tables, codes[ids])
-        if residual:
-            d = d + torch.gather(cell_tables, 1, point_cell[ids].long()) + point_bias[ids]
-        return d
+        return adc_lookup_ids_kernel(tables, codes, ids, **aux)
 
     def _seed_scores(seeds):
         d = adc_lookup(tables, codes[seeds])  # one shared code gather

@@ -21,9 +21,11 @@ Hand-written CUDA kernels carry this module on the card:
      share one partial kernel (`csrc/packed_wgmma.cuh`: wgmma fed by TMA),
      whose grid `plan_packed_scan` plans;
   B6 the same source, behind `scan_bucketed_topk_hier(pipelined=True)`:
-     B3's output from a kernel that stages the rows through three
-     shared-memory buffers (cp.async) and overlaps one tile's product
-     with the previous tile's fold.
+     B3's output from a partial kernel of its own
+     (`csrc/pingpong_wgmma.cuh`: a TMA producer warpgroup and two consumer
+     warpgroups taking turns on the tensor cores, each folding one segment
+     while the other's product runs), whose grid `plan_pipelined_scan`
+     plans.
 
 B2 and B3 can fuse the candidate cut (`cut_kk`): the pass that merges the
 parallel parts extracts the top-kk element ids from the exact int32 state
@@ -883,48 +885,76 @@ def plan_packed_scan(b: int, nb: int, n_seg: int, row_bytes: int, sms: int) -> P
         raise ValueError(f"packed scan: nb={nb} (a multiple of {_PACKED_LANES}), b={b}, sms={sms}")
     q_tiles = -(-b // _PACKED_QUERIES)
     lane_tiles = nb // _PACKED_LANES
-    slots = sms * _PACKED_BLOCKS_PER_SM
     part_steps = b * nb * _PART_BYTES / _PEAK_BYTES_PER_S / _STEP_SECONDS
+    spp, n_parts = _cut_parts(q_tiles * lane_tiles, n_seg, sms * _PACKED_BLOCKS_PER_SM,
+                              _BLOCK_STEPS, part_steps)
+    return PackedScanPlan(q_tiles, lane_tiles, n_seg, spp, n_parts)
+
+
+@functools.cache
+def _check_tiles(stem: str, prefix: str, want: tuple[int, int, int]) -> None:
+    """Once per process and kernel: the built partial kernel's tiles
+    (`<prefix>_queries`, `_lanes`, `_blocks_per_sm` of library `stem`) are
+    its planner's."""
+    lib = _build.load(stem)
+    got = tuple(getattr(lib, f"{prefix}_{k}")() for k in ("queries", "lanes", "blocks_per_sm"))
+    if got != want:
+        raise RuntimeError(f"{prefix}: the library's tiles {got} differ from the wrapper's {want}")
+
+
+# B6's partial kernel (csrc/pingpong_wgmma.cuh): a block is a producer
+# warpgroup and two consumer warpgroups of 64 queries each over 64 bucket
+# lanes, two blocks an SM (its launch bound; setmaxnreg hands the consumers
+# the producer's registers). Its planner's step is one segment of a block
+# (both consumers' products and folds) while the SM holds its other block:
+# about 0.6 us on an H100 at 1000 x 1M (PERF.md). Parts of 32 to 256
+# segments measured within 4% of each other at 1M, within 20% at 200k.
+_PIPE_QUERIES = 128
+_PIPE_LANES = 64
+_PIPE_BLOCKS_PER_SM = 2
+_PIPE_BLOCK_STEPS = 10.0
+_PIPE_STEP_SECONDS = 0.6e-6
+
+
+def _cut_parts(blocks_per_part: int, n_seg: int, slots: int, block_steps: float,
+               part_steps: float) -> tuple[int, int]:
+    """(segments per part, parts): the power of two (256 down to 1) that
+    minimises the estimated time of a grid of `blocks_per_part` blocks a
+    part over `slots` block slots: the blocks' work (each a part plus
+    `block_steps`) spread over the slots, plus one block's length for the
+    last to finish, plus `part_steps` a part for its scratch; the larger
+    part on ties."""
     best = None
     spp = min(_PACK, 1 << (max(1, n_seg) - 1).bit_length())
     while spp >= 1:
         n_parts = max(1, -(-n_seg // spp))
-        blocks = q_tiles * lane_tiles * n_parts
-        length = min(spp, n_seg) + _BLOCK_STEPS
+        blocks = blocks_per_part * n_parts
+        length = min(spp, n_seg) + block_steps
         est = blocks * length / slots + length + part_steps * n_parts
         if best is None or est < best[0]:
             best = (est, spp, n_parts)
         spp //= 2
-    return PackedScanPlan(q_tiles, lane_tiles, n_seg, best[1], best[2])
+    return best[1], best[2]
 
 
-@functools.cache
-def _check_packed_tiles(stem: str) -> None:
-    """Once per process and library: the built partial kernel's tiles are
-    the planner's."""
-    lib = _build.load(stem)
-    got = (getattr(lib, f"{stem}_queries")(), getattr(lib, f"{stem}_lanes")(),
-           getattr(lib, f"{stem}_blocks_per_sm")())
-    want = (_PACKED_QUERIES, _PACKED_LANES, _PACKED_BLOCKS_PER_SM)
-    if got != want:
-        raise RuntimeError(f"{stem}: the library's tiles {got} differ from the wrapper's {want}")
-
-
-# B6 (on mma.sync): segments are cut into parts until
-# its grid has about this many blocks of 256 (or 128) queries x 16 lanes
-_B6_TARGET_BLOCKS = 1024
-
-
-def _b6_parts(lib, b: int, nb: int, n_seg: int, row_bytes: int) -> tuple[int, int]:
-    """(segments per part, parts) of B6's grid: a power of two that divides
-    256, halved from 256 down to 16 while the grid is short of
-    `_B6_TARGET_BLOCKS`."""
-    bq = lib.hier_scan_pipelined_block_queries(row_bytes)
-    base = -(-b // bq) * (nb // lib.hier_scan_pipelined_block_lanes())
-    spp = _PACK
-    while spp > 16 and base * -(-n_seg // spp) < _B6_TARGET_BLOCKS:
-        spp //= 2
-    return spp, max(1, -(-n_seg // spp))
+@functools.lru_cache(maxsize=256)
+def plan_pipelined_scan(b: int, nb: int, n_seg: int, row_bytes: int, sms: int) -> PackedScanPlan:
+    """The grid of B6's partial kernel for `b` queries over `n_seg`
+    segments of `nb` lanes, rows of `row_bytes` bytes (a multiple of 16, at
+    most 192), on a card of `sms` SMs: query tiles of 128, lane tiles of
+    64, and the parts `_cut_parts` picks with B6's own costs
+    (`_PIPE_BLOCK_STEPS`, `_PIPE_STEP_SECONDS`, `_PIPE_BLOCKS_PER_SM`
+    blocks an SM). The plan changes the grid, never the result."""
+    if row_bytes % 16 or not 0 < row_bytes <= _PACKED_MAX_DIM:
+        raise ValueError(f"pipelined scan: rows of {row_bytes} bytes (a multiple of 16, <= 192)")
+    if nb % _PIPE_LANES or b <= 0 or sms <= 0:
+        raise ValueError(f"pipelined scan: nb={nb} (a multiple of {_PIPE_LANES}), b={b}, sms={sms}")
+    q_tiles = -(-b // _PIPE_QUERIES)
+    lane_tiles = nb // _PIPE_LANES
+    part_steps = b * nb * _PART_BYTES / _PEAK_BYTES_PER_S / _PIPE_STEP_SECONDS
+    spp, n_parts = _cut_parts(q_tiles * lane_tiles, n_seg, sms * _PIPE_BLOCKS_PER_SM,
+                              _PIPE_BLOCK_STEPS, part_steps)
+    return PackedScanPlan(q_tiles, lane_tiles, n_seg, spp, n_parts)
 
 
 _PACKED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
@@ -934,8 +964,8 @@ _PACKED_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined=False):
     """Launch B2 (`stem` "packed_scan") or B3 / B6 ("hier_scan") on the
     kernels' contract. Allocates the outputs and the parts scratch; B2's
-    and B3's grid comes from `plan_packed_scan`, B6's from `_b6_parts`:
-    either changes the grid, never the result."""
+    and B3's grid comes from `plan_packed_scan`, B6's from
+    `plan_pipelined_scan`: either changes the grid, never the result."""
     tensors = (q, inv_qs, db, nf)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("packed scan: queries, rows, nf and scale must be on one CUDA device")
@@ -967,16 +997,16 @@ def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined
     n_seg = n_scan // nb
     hier = stem == "hier_scan"
     if pipelined:
-        spp, n_parts = _b6_parts(_build.load(stem), b, nb, n_seg, row_bytes)
+        _check_tiles(stem, "hier_scan_pipelined", (_PIPE_QUERIES, _PIPE_LANES, _PIPE_BLOCKS_PER_SM))
+        plan = plan_pipelined_scan(b, nb, n_seg, row_bytes, _sm_count(dev))
     else:
-        _check_packed_tiles(stem)
+        _check_tiles(stem, stem, (_PACKED_QUERIES, _PACKED_LANES, _PACKED_BLOCKS_PER_SM))
         plan = plan_packed_scan(b, nb, n_seg, row_bytes, _sm_count(dev))
-        spp, n_parts = plan.segs_per_part, plan.n_parts
+    spp, n_parts = plan.segs_per_part, plan.n_parts
     # one scratch for the parts [n_parts, b, nb] and, 16-byte aligned after
-    # them, the partial kernel's per-row term nc [n_scan] (B6 takes nf)
+    # them, the partial kernel's per-row term nc [n_scan]
     n_part_ints = -(-n_parts * b * nb // 4) * 4
-    scratch = torch.empty(n_part_ints + (0 if pipelined else n_scan), dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty(n_part_ints + n_scan, dtype=torch.int32, device=dev)
     argtypes = _PACKED_ARGTYPES + ([ctypes.c_int] if hier else []) + _PACKED_TAIL
     fn = _c_function(stem, f"{stem}_launch", argtypes)
     args = [q.data_ptr(), inv_qs.data_ptr(), db.data_ptr(), nf.data_ptr(),
@@ -994,6 +1024,13 @@ def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined
         scan_bucketed_topk_hier.launches += 1
     if err == -1:
         raise RuntimeError(f"{stem}_launch: the CUDA driver refused a TMA descriptor")
+    if err == -2:  # B6 only: checked before anything is launched
+        lib = _build.load(stem)
+        raise RuntimeError(
+            f"{stem}_launch: B6's partial kernel was built with "
+            f"{lib.hier_scan_pipelined_kernel_regs(row_bytes)} registers a thread, its "
+            f"setmaxnreg split assumes {lib.hier_scan_pipelined_launch_regs()}: refused, "
+            "as setmaxnreg.inc would wait forever")
     _build.check(err, f"{stem}_launch")
     return scores, ids
 
@@ -1086,8 +1123,9 @@ def scan_bucketed_topk_hier(
     [B, NB], -1 for empty buckets), or with `cut_kk` (None, ids
     [B, cut_kk]).
 
-    `pipelined` runs B6, the kernel that overlaps one tile's product with
-    the previous tile's fold; its output is B3's. As in the reference it
+    `pipelined` runs B6, the kernel that overlaps one warpgroup's product
+    with another's fold (the reference overlaps a tile's product with the
+    previous tile's fold); its output is B3's. As in the reference it
     narrows the TPU tile to 2 * NB (which can change the pad rows scanned)
     and rejects `cut_kk`."""
     args = _hier_fold_operands(

@@ -204,6 +204,45 @@ def test_beam_search_pq_matches_jax(graph, quantizers, kind, rerank):
                                    search_width=8, k=4, rerank=False, point_cell=cells_t)
 
 
+@pytest.mark.parametrize("kind", ["plain", "residual"])
+def test_beam_search_pq_makes_one_lookup_call_per_round(graph, quantizers, kind, monkeypatch):
+    """A round's whole distance step is one call of B5's by-id wrapper (on
+    the card: one launch a round), with the residual operands where the
+    quantizer has them; the gathered wrapper is not called."""
+    from diskrag_tpu_torch.ops import pq_scan
+
+    pts, q = graph["floats"], graph["q_flt"]
+    jpq = quantizers[0] if kind == "plain" else quantizers[1]
+    tidx = vamana_index_from_jax(pts, graph["adj"], graph["med"], entry_points=graph["eps"],
+                                 device="cpu")
+    if kind == "plain":
+        pq, codes_t, _, _ = pq_from_jax(jpq.to_arrays(), np.asarray(jpq.encode(pts)), device="cpu")
+        tables, aux = pq.compute_distance_tables(q), {}
+    else:
+        jcodes, jcid = (np.asarray(a) for a in jpq.encode(pts))
+        pq, codes_t, cells_t, bias_t = pq_from_jax(
+            jpq.to_arrays(), jcodes, jcid, np.asarray(jpq.point_bias(jcodes, jcid)), device="cpu")
+        tables = pq.inner_tables(q)
+        aux = {"point_cell": cells_t, "point_bias": bias_t, "cell_tables": pq.cell_tables(q)}
+    calls = []
+    real = pq_scan.adc_lookup_ids_kernel
+
+    def spy(*a, **k):
+        calls.append(sorted(k))
+        return real(*a, **k)
+
+    def never(*a, **k):
+        raise AssertionError("the gathered wrapper was called")
+
+    monkeypatch.setattr(pq_scan, "adc_lookup_ids_kernel", spy)
+    monkeypatch.setattr(pq_scan, "adc_lookup_gathered_kernel", never)
+    res = tsearch.beam_search_pq(codes_t, tables, tidx.adjacency, tidx.medoid, search_width=24,
+                                 k=5, rerank=False, expand_width=2,
+                                 entry_points=tidx.entry_points, **aux)
+    assert int(res.n_steps) > 1 and len(calls) == int(res.n_steps)
+    assert all(c == sorted(aux) for c in calls)
+
+
 def test_seed_scoring_is_chunked_past_4096_seeds():
     """More entry points than one tile of the shared seed lookup: the
     tiled scores equal the untiled ones."""

@@ -2,8 +2,9 @@
 branch of the fused search held against the JAX package on the same
 inputs, made by numpy from a seed. The JAX side runs its Pallas kernels in
 interpret mode; the port's side runs the plain PyTorch versions (the
-tensors lie on the CPU). A last test, marked `cuda`, holds the CUDA
-kernels against the plain versions on a card.
+tensors lie on the CPU). The tests marked `cuda` hold the CUDA kernels
+against the plain versions on a card, and check that B6 refuses a build
+whose registers differ from what its `setmaxnreg` split assumes.
 
 Kernel-level tests carry the JAX-built table across and demand bit
 identity: after one f32 product (nf * 1/q_scale) the folds are integer
@@ -140,6 +141,17 @@ def test_pipelined_hier_equals_plain_hier(n, nb):
         tfs.scan_bucketed_topk_hier(
             _t(q).to(torch.int8), torch.tensor(1.0), _t(pts).to(torch.int8),
             torch.ones(n), torch.tensor(1.0), pipelined=True, cut_kk=8)
+
+
+@pytest.mark.parametrize("d", [8, 40, 64, 100, 128, 160, 192])
+def test_pipelined_hier_matches_jax_at_b6_row_widths(d):
+    """Over the row widths of B6's three partial-kernel instantiations
+    (rows of up to 64, 128 and 192 bytes), the port's pipelined path
+    equals the JAX pipelined kernel bit for bit."""
+    pts, q = _data(5000, d, 5, seed=d)
+    js, ji, ps, pi = _both("scan_bucketed_topk_hier", pts, q, table=True, n_buckets=128,
+                           pipelined=True)
+    _same(js, ji, ps, pi)
 
 
 @pytest.mark.parametrize("fn", ["scan_bucketed_topk_packed", "scan_bucketed_topk_hier"])
@@ -439,3 +451,74 @@ def test_packed_kernels_match_plain_versions_on_card():
                     sp, ip = tfs.scan_bucketed_topk_hier(qc, qs, codes, nf, scale, n_buckets=nb,
                                                          n_valid=nv, pipelined=True)
                     assert torch.equal(sp, sk) and torch.equal(ip, ik)
+
+
+@pytest.mark.cuda
+def test_pipelined_kernel_matches_b3_and_plain_version_on_card():
+    """Run with `pytest -m cuda` on a machine with a card: B6's ping-pong
+    kernel against B3 (an independent partial kernel, the same tile) and
+    against its plain version, bit-identical, at row widths of one and two
+    K boxes, at batches that leave its second consumer warpgroup empty or
+    partly filled, and over 70,000 rows (547 segments at NB 128); one
+    launch a call, counted as B6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    tfs.reset_launch_counts()
+    calls = 0
+    for n, d, b in ((70_000, 16, 1), (70_000, 48, 65), (70_000, 128, 129), (20_000, 144, 1000),
+                    (70_000, 192, 37)):
+        pts, q = _data(n, d, b, seed=29)
+        pts[n // 2 :] = pts[: n - n // 2]
+        codes, nf, scale, nv = tfs.build_packed_scan_table(_t(pts).to(dev))
+        qc, qs = tfs.quantize_int8_global(_t(q).to(dev))
+        for nb in (128, 512):
+            kw = dict(n_buckets=nb, db_tile=min(2048, 2 * nb), n_valid=nv)
+            sp, ip = tfs.scan_bucketed_topk_hier(qc, qs, codes, nf, scale, pipelined=True, **kw)
+            calls += 1
+            s3, i3 = tfs.scan_bucketed_topk_hier(qc, qs, codes, nf, scale, **kw)
+            sr, ir = tfs.scan_bucketed_topk_hier_ref(
+                *tfs._hier_fold_operands(qc, qs, codes, nf, scale, query_block=1024,
+                                         pipelined=True, cut_kk=None, **kw))
+            assert torch.equal(sp, s3) and torch.equal(ip, i3), (n, d, b, nb)
+            assert torch.equal(sp, sr) and torch.equal(ip, ir), (n, d, b, nb)
+    assert tfs.scan_bucketed_topk_hier.launches_pipelined == calls
+
+
+@pytest.mark.cuda
+def test_b6_refuses_a_build_whose_registers_differ_from_its_split(tmp_path, monkeypatch):
+    """Run with `pytest -m cuda` on a machine with a card: every
+    instantiation of B6's partial kernel has the registers a thread that
+    its `setmaxnreg` split assumes at launch; a build whose split assumes
+    8 more (`-DPINGPONG_LAUNCH_REGS`) is refused before anything is
+    launched, with an error that names both counts, where its consumers'
+    `setmaxnreg.inc` would otherwise wait forever."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; kernels have no CPU mode")
+    import ctypes
+    import subprocess
+
+    from diskrag_tpu_torch.kernels import _build
+
+    lib = _build.load("hier_scan")
+    want = lib.hier_scan_pipelined_launch_regs()
+    assert [lib.hier_scan_pipelined_kernel_regs(rb) for rb in (64, 128, 192)] == [want] * 3
+    so = tmp_path / "hier_scan.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-DPINGPONG_LAUNCH_REGS={want + 8}",
+                    "-o", str(so), str(_build.CSRC / "hier_scan.cu")],
+                   check=True, capture_output=True, timeout=600)
+    variant = ctypes.CDLL(str(so))
+    assert variant.hier_scan_pipelined_kernel_regs(128) == want
+    monkeypatch.setitem(_build._libs, "hier_scan", variant)
+    monkeypatch.setattr(tfs, "_c_functions", {})
+    dev = torch.device("cuda", 0)
+    pts, q = _data(20_000, 128, 65, seed=31)
+    codes, nf, scale, nv = tfs.build_packed_scan_table(_t(pts).to(dev))
+    qc, qs = tfs.quantize_int8_global(_t(q).to(dev))
+    kw = dict(n_buckets=128, db_tile=256, n_valid=nv)
+    with pytest.raises(RuntimeError, match=f"built with {want} registers.*assumes {want + 8}"):
+        tfs.scan_bucketed_topk_hier(qc, qs, codes, nf, scale, pipelined=True, **kw)
+    torch.cuda.synchronize()
+    # B3, from the same library, still runs
+    tfs.scan_bucketed_topk_hier(qc, qs, codes, nf, scale, **kw)
+    torch.cuda.synchronize()

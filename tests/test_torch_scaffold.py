@@ -36,10 +36,12 @@ from diskrag_tpu_torch.graph import (
     robust_prune_batch,
 )
 from diskrag_tpu_torch.pq import ProductQuantizer, ResidualPQ, pq_from_arrays
-from diskrag_tpu_torch.ops.pq_scan import adc_lookup_gathered_kernel, adc_lookup_gathered_ref
+from diskrag_tpu_torch.ops.pq_scan import (
+    adc_lookup_gathered_kernel, adc_lookup_gathered_ref, adc_lookup_ids_kernel, adc_lookup_ids_ref,
+)
 from diskrag_tpu_torch.convert import pq_from_jax, vamana_index_from_jax
 from diskrag_tpu_torch.ops.flat_scan import (
-    build_packed_scan_table, epilogue_cut_ids_ref, plan_packed_search,
+    build_packed_scan_table, epilogue_cut_ids_ref, plan_packed_search, plan_pipelined_scan,
     quantize_int8_global, scan_bucketed_topk_hier, scan_bucketed_topk_hier_ref,
     scan_bucketed_topk_packed, scan_bucketed_topk_packed_ref,
 )
@@ -231,7 +233,8 @@ def test_kernel_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     from diskrag_tpu_torch.kernels import _build
 
     headers = sorted(h.name for h in _build.CSRC.glob("*.cuh"))
-    assert headers == ["packed_common.cuh", "packed_wgmma.cuh", "wgmma_common.cuh"]
+    assert headers == ["packed_common.cuh", "packed_wgmma.cuh", "pingpong_wgmma.cuh",
+                       "wgmma_common.cuh"]
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
