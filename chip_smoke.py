@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `diskrag_tpu_torch/csrc/` (into
-`build/diskrag_tpu_torch/`), checks in their SASS that B1's int8 kernel and
-the partial kernels of B2 / B3 and of B6 run their products on wgmma, holds
-each kernel against its plain PyTorch version on the card (B1 int8 at row
-widths 36 to 1536, 1 to 4096 queries and NB 128 to 32768; B4 on those
+`build/diskrag_tpu_torch/`), checks in their SASS that B1's int8 and bf16
+kernels, the partial kernels of B2 / B3 and of B6 and M1 run their products
+on wgmma, holds each kernel against its plain PyTorch version on the card
+(B1 int8 and bf16 at row widths 36 to 1536, 1 to 4096 queries and NB 128 to
+32768; B4 on those
 blocks, on ties with signed zeros and -inf rows, at NB = 32768 and with kk >
 NB; B2 / B3 / B6 at row widths 16 to 192 bytes, 1 to 4096 queries and more
 than 256 segments, B6 also against B3; B5 in both its forms, gathered and by
@@ -15,8 +16,9 @@ then serves the flat index end to end at
 the benchmark's sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000
 queries, k = 10)
 through `build_index_from_vectors` and `SearchEngine.search_batch` — with
-the per-row int8 scan (kernels B1, B4) and with `flat_precision:
-int8_packed` (kernels B2, B3) — runs the pipelined fold (B6) through its
+the per-row int8 scan (kernels B1, B4), with `flat_precision:
+int8_packed` (kernels B2, B3) and, at 1,000,000, with `flat_precision:
+bf16` (B1's bf16 form, B4) — runs the pipelined fold (B6) through its
 wrapper at the 1M shape, builds the Vamana graph at 200,000 x 128 on the
 card (B1 and B4 inside its kNN pass), sweeps exact and PQ-guided
 traversal over it (the ADC lookup by id, kernel B5, once a round), serves
@@ -62,6 +64,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM published peaks (dense): int8 tensor cores, f32 outside them,
 # HBM3 bandwidth. Bounds are stated against these, beside the power limit.
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_OPS = 989e12
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -156,6 +159,18 @@ def b1_bound_ms(b: int, n: int, d: int, nb: int) -> tuple[float, str]:
     — the larger."""
     t_ops = 2.0 * b * n * d / PEAK_INT8_OPS
     nbytes = n * d + n * 8 + b * d + b * 4 + b * nb * 8
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def b1_bf16_bound_ms(b: int, n: int, d: int, nb: int) -> tuple[float, str]:
+    """Least time for B1's bf16 work over the n rows: the products (2 ops
+    per multiply-add) at the bf16 tensor-core peak, or each input byte read
+    once (bf16 rows and queries, 2 bytes an element; the f32 norm row) and
+    each output byte written once ([B, NB] vals + ids) at HBM bandwidth —
+    the larger."""
+    t_ops = 2.0 * b * n * d / PEAK_BF16_OPS
+    nbytes = 2 * n * d + 4 * n + 2 * b * d + b * nb * 8
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
@@ -431,9 +446,12 @@ def phase_device() -> dict:
         "build_seconds": round(build_s, 3),
         "kernels_built": sorted(paths), "ptxas": ptxas,
         "sass_b1_int8": wgmma_sass(paths["flat_scan"], "scan_i8_wgmma", "IDP4A"),
+        "sass_b1_bf16": wgmma_sass(paths["flat_scan"], "scan_bf16_wgmma", "FFMA", want="HGMMA",
+                                   absent="scan_partial"),
         "sass_packed_wgmma": {stem: wgmma_sass(paths[stem], "packed_wgmma_partial", "IMMA")
                               for stem in ("packed_scan", "hier_scan")},
         "sass_b6_pingpong": wgmma_sass(paths["hier_scan"], "pingpong_wgmma_partial", "IMMA"),
+        "sass_m1": wgmma_sass(paths["mm_probe"], "mm_probe_kernel", "IMMA"),
         "b6_registers": b6_registers(),
     })
     return {"smi": smi}
@@ -455,12 +473,15 @@ def b6_registers() -> dict:
     return {"launch_regs": want, "kernel_regs_by_row_bytes": got}
 
 
-def wgmma_sass(lib: pathlib.Path, kernel: str, other: str) -> dict:
-    """IGMMA and `other` instructions in each instantiation of `kernel` in
-    a built library (`cuobjdump -sass`, beside nvcc): its products must run
-    on the tensor cores through wgmma alone — B1's int8 kernel none on
-    __dp4a (IDP4A), the partial kernels of B2 / B3 and of B6 none on
-    mma.sync (IMMA)."""
+def wgmma_sass(lib: pathlib.Path, kernel: str, other: str, want: str = "IGMMA",
+               absent: str | None = None) -> dict:
+    """`want` (IGMMA: integer wgmma, HGMMA: bf16 wgmma) and `other`
+    instructions in each instantiation of `kernel` in a built library
+    (`cuobjdump -sass`, beside nvcc): its products must run on the tensor
+    cores through wgmma alone — B1's int8 kernel none on __dp4a (IDP4A),
+    its bf16 kernel none on scalar FMAs (FFMA), the partial kernels of B2 /
+    B3, B6 and M1 none on mma.sync (IMMA). With `absent`, no function of
+    that name may remain in the library (B1's retired fmaf kernel)."""
     from diskrag_tpu_torch.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
@@ -469,13 +490,18 @@ def wgmma_sass(lib: pathlib.Path, kernel: str, other: str) -> dict:
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
     counts: dict = {}
+    names = []
     for section in sass.split("Function : ")[1:]:
         name = section.split("\n", 1)[0].strip()
+        names.append(name)
         if kernel in name:
             key = name[name.index(kernel):][:len(kernel) + 17]  # the template arguments
-            counts[key] = {op: section.count(op) for op in ("IGMMA", other)}
-    require(bool(counts) and all(c["IGMMA"] > 0 and c[other] == 0 for c in counts.values()),
+            counts[key] = {op: section.count(op) for op in (want, other)}
+    require(bool(counts) and all(c[want] > 0 and c[other] == 0 for c in counts.values()),
             f"{kernel} in {lib.name} is not on wgmma alone: {counts}")
+    if absent is not None:
+        require(not any(absent in n for n in names), f"{absent} is still in {lib.name}")
+        counts[f"{absent} functions"] = 0
     return counts
 
 
@@ -578,20 +604,26 @@ def phase_kernels() -> dict:
                                     torch.sum(src * src, -1), n_buckets=nb, use_norms=l2)
                 rows.append({"metric": metric, **row})
         del pts_d, q_d
-    # B1 int8 at the other row widths, batch sizes and NB the wrappers pass
-    # (ragged n; the wide rows at a modest n); B4 cut from each block
+    # B1 at the other row widths, batch sizes and NB the wrappers pass
+    # (ragged n; the wide rows at a modest n): int8, and bf16 on the same
+    # rows (D = 36 zero-padded to 80-byte rows, D = 1536 streaming its query
+    # boxes); B4 cut from each int8 block
     g = torch.Generator(device="cpu").manual_seed(3)
     for n_pts, d, b, nbs in ROWSCAN_CASES:
         pts = torch.randn((n_pts, d), generator=g).to(dev)
         q_d = pts[:b] + 0.05 * torch.randn((b, d), generator=g).to(dev)
         for metric in ("l2", "cosine", "dot"):
-            qc, qs, codes, block, n, _, _ = _scan_inputs(pts, q_d, metric)
+            l2 = metric == "l2"
+            qc, qs, codes, block, n, src, qf = _scan_inputs(pts, q_d, metric)
             for nb in nbs:
-                vals, row = compare_b1(qc, codes, block, n_buckets=nb, use_norms=metric == "l2",
+                vals, row = compare_b1(qc, codes, block, n_buckets=nb, use_norms=l2,
                                        q_scales=qs, n_valid=n)
                 rows.append({"metric": metric, "b": b, **row})
-                if metric == "l2":
+                if l2:
                     b4_cases.append((vals, min(nb, 260 if nb >= 4096 else 40)))
+                _, row = compare_b1(qf.to(torch.bfloat16), src.to(torch.bfloat16),
+                                    torch.sum(src * src, -1), n_buckets=nb, use_norms=l2)
+                rows.append({"metric": metric, "b": b, **row})
         del pts, q_d
     # NB = 32768 (the widening rule's ceiling) from a real scan: kk = 1316
     # (k = 329) and kk > NB (the 16-bit sort)
@@ -971,6 +1003,89 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
     del engine, flat, pts_d, q_d, vals
     torch.cuda.empty_cache()
     return {"kernels": kernels}
+
+
+def b1_bf16_row(q_d, db, norms, reps: int) -> dict:
+    """B1's bf16 form at NB 512 on one batch, as the engine hands it: held
+    against its plain version (compare_b1), then timed launch to launch, on
+    the device, beside its plain version, its bound and the product alone
+    in PyTorch (`torch.matmul` of the f32 query and row copies, TF32 off;
+    and on the bf16 copies, f32 sums rounded to a bf16 result): no single
+    call computes the bucketed fold, so `library_ms` is that product alone."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    qb = q_d.to(torch.bfloat16)
+    kw = dict(n_buckets=512, use_norms=True)
+    _, row = compare_b1(qb, db, norms, **kw)
+    ops = fs._scan_operands(qb, db, norms, q_scales=None, db_scales=None, n_valid=None, **kw)
+    call = lambda: fs.scan_bucketed_topk(qb, db, norms, **kw)  # noqa: E731
+    b, d = q_d.shape
+    n = db.shape[0]
+    bound, by = b1_bf16_bound_ms(b, n, d, 512)
+    qf, dbf = ops[0].float(), db[:, :d].float()
+    out = {"b": b, "n": n, "d": d, "nb": 512, "max_abs_err": row["max_abs_err"],
+           "match": row["match"], "id_mismatches": row["id_mismatches"],
+           "ms": cuda_ms(call, reps), "device_ms": kernel_device_ms(call, 5),
+           "plain_ms": cuda_ms(lambda: fs.scan_bucketed_topk_ref(*ops), 2),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": cuda_ms(lambda: torch.matmul(qf, dbf.T), 3),
+           "library_call": "torch.matmul(q_f32, rows_f32.T): the product alone",
+           "library_bf16_ms": cuda_ms(lambda: torch.matmul(ops[0], db.T), 3),
+           "plan": str(fs.plan_rowscan(b, 512, n, db.shape[1] * 2,
+                                       torch.cuda.get_device_properties(0).multi_processor_count))}
+    del qf, dbf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_main_bf16(smi: str, base, sets: dict) -> dict:
+    """The bf16 flat path (`flat_precision: bf16`) at 1M through
+    `build_index_from_vectors` and `SearchEngine.search_batch`: one launch
+    of B1 (its bf16 form) and of B4 a batch and none of the others, recall
+    against the exact ground truth, a profile; then B1 bf16's row of the
+    kernels line at the shapes it serves (1M) and at 200k."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+
+    pts, q, gt = sets[MAIN_N]
+    t0 = time.perf_counter()
+    engine, _ = serve(base, "bf16_1m", pts, "bf16")
+    setup_s = time.perf_counter() - t0
+    flat = engine.flat
+    require(flat._fused_db.dtype == torch.bfloat16, "the index is not bf16")
+    reps = 5
+    dists, ids, all_stats, batch_s, launches = drive(engine, q, reps)
+    others = {k: v for k, v in launches.items() if k not in ("B1", "B4")}
+    require(launches["B1"] == reps and launches["B4"] == reps and not any(others.values()),
+            f"flat-1M-bf16 did not launch B1 and B4 once per batch and nothing else: {launches}")
+    require(ids.shape == (MAIN_B, MAIN_K) and bool(np.isfinite(dists).all())
+            and bool((np.diff(dists, axis=1) >= 0).all()), "distances not finite and ascending")
+    recall = recall_at_k(ids, gt, MAIN_K)
+    require(recall >= 0.97, f"bf16 recall@10 {recall} < 0.97")
+    med = float(np.median(batch_s))
+    emit({"phase": "main-bf16", "n": MAIN_N, "d": MAIN_D, "queries": MAIN_B, "k": MAIN_K,
+          "recall_at_10": recall, "jax_package_recorded": 0.9909, "qps": MAIN_B / med,
+          "ms_per_batch_median": med * 1e3, "ms_per_batch": [x * 1e3 for x in batch_s],
+          "launches": launches, "launches_per_search_batch": {k: v / reps for k, v in launches.items()},
+          "setup_seconds": setup_s, "search_type": all_stats[-1]["search_type"], "card": smi})
+    emit(profile_batch(engine, q, path="flat-1M-bf16"))
+    row = b1_bf16_row(torch.as_tensor(q, device="cuda"), flat._fused_db, flat.norms_sq, 10)
+    del engine, flat
+    torch.cuda.empty_cache()
+    pts_s, q_s, _ = sets[CMP_N]
+    v = torch.as_tensor(pts_s, device="cuda")
+    at_200k = b1_bf16_row(torch.as_tensor(q_s, device="cuda"), v.to(torch.bfloat16),
+                          torch.sum(v * v, -1), 20)
+    del v
+    torch.cuda.empty_cache()
+    return {"name": "B1 flat_scan bf16 (per-row bf16 scan + bucket fold)", "route": "cuda",
+            "source": "diskrag_tpu_torch/csrc/flat_scan.cu",
+            "replaces": "diskrag_tpu/ops/flat_scan_pallas.py:42 (int8=False)",
+            "launches": launches["B1"], **row, "at_200k": at_200k, "card": smi}
 
 
 # recall@10 per rerank width that the JAX package records for its packed
@@ -1429,14 +1544,27 @@ def m1_case(gq, gcodes, tile: int, reps: int) -> dict:
             "library_with_slice_add_ms": cuda_ms(lambda: library(True), 3)}
 
 
-def phase_m1_kernels(smi: str, sets: dict) -> dict:
-    """M1 against its plain version at the micro script's shapes (B = 1000,
-    D = 128, 200k and 1M rows, tiles 2048 and 4096, nb_out 512) and at a
-    ragged one (B, n and D no multiples of anything). Returns M1's entry
-    of the kernels line, without its launches."""
+def m1_equal(q, db, tile: int, nb_out: int, what: str) -> None:
+    """M1 on card tensors bit-identical to its plain version (both outputs)."""
     import torch
 
     from diskrag_tpu_torch.ops import mm_probe as mp
+
+    got = mp.mm_probe(q, db, tile=tile, nb_out=nb_out)
+    want = mp.mm_probe_ref(q, db, tile=tile, nb_out=nb_out)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+            f"M1 differs from its plain version at {what}")
+
+
+def phase_m1_kernels(smi: str, sets: dict) -> dict:
+    """M1 against its plain version at the micro script's shapes (B = 1000,
+    D = 128, 200k and 1M rows, tiles 2048 and 4096, nb_out 512; at 200k also
+    B = 1 and 37), at a ragged one (B, n and D no multiples of anything,
+    tile 272: a column block across two tiles) and where every sum wraps
+    (codes -128, tile 64, 1100 tiles). Returns M1's entry of the kernels
+    line, without its launches."""
+    import torch
 
     cases = []
     for n_pts in (CMP_N, MAIN_N):
@@ -1446,18 +1574,24 @@ def phase_m1_kernels(smi: str, sets: dict) -> dict:
             case = m1_case(gq, gcodes, tile, reps=20)
             cases.append(case)
             emit({"phase": "kernels", "kernel": "M1", "card": smi, **case})
+            if n_pts == CMP_N:
+                for b in (1, 37):
+                    m1_equal(gq[:b], gcodes, tile, M1_NB_OUT, f"b={b} n={n_pts} tile={tile}")
         del gcodes, gq
         torch.cuda.empty_cache()
     g = torch.Generator(device="cpu").manual_seed(11)
     rq = torch.randint(-127, 128, (37, 44), generator=g, dtype=torch.int8).cuda()
     rdb = torch.randint(-127, 128, (5003, 44), generator=g, dtype=torch.int8).cuda()
-    got = mp.mm_probe(rq, rdb, tile=272, nb_out=100)
-    want = mp.mm_probe_ref(rq, rdb, tile=272, nb_out=100)
-    torch.cuda.synchronize()
-    require(bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
-            "M1 differs from its plain version at the ragged shape")
-    emit({"phase": "kernels", "kernel": "M1", "case": "ragged", "b": 37, "n": 5003, "d": 44,
-          "tile": 272, "nb_out": 100, "match": "bit-identical (out and all-column row sum)"})
+    m1_equal(rq, rdb, 272, 100, "the ragged shape")
+    wq = torch.full((37, 128), -128, dtype=torch.int8, device="cuda")
+    wdb = torch.full((64 * 1100, 128), -128, dtype=torch.int8, device="cuda")
+    m1_equal(wq, wdb, 64, 64, "the wrapping shape")
+    emit({"phase": "kernels", "kernel": "M1", "cases": [
+        {"case": "ragged", "b": 37, "n": 5003, "d": 44, "tile": 272, "nb_out": 100},
+        {"case": "wraps (codes -128: column sums 2.3e9, row sums 1.5e11)", "b": 37,
+         "n": 70400, "d": 128, "tile": 64, "nb_out": 64},
+        {"case": "small batches", "b": [1, 37], "n": CMP_N, "tile": [2048, 4096]}],
+        "match": "bit-identical (out and all-column row sum)"})
     main_case = next(c for c in cases if c["n"] == MAIN_N and c["tile"] == 2048)
     return {"name": "M1 mm_probe (the packed scans' product, fold taken out)",
             "route": "cuda", "source": "diskrag_tpu_torch/csrc/mm_probe.cu",
@@ -1493,12 +1627,12 @@ def phase_micro(smi: str, sets: dict) -> int:
     at 200k rows, the M1 and hierarchical stages at 1M (where B3 serves).
     Every stage must have launched exactly the kernels it is named for,
     once per call. Then a packed scan's time beside M1's at the same rows,
-    on the host clock (stages) and on the device by kernel name: while B2 /
-    B3 ran M1's mma.sync product, the difference was what their fold and
-    merge cost; their partial kernel now runs wgmma, so it measures the two
-    designs against each other. Returns M1's launches over
-    the phase, the counts having been set to 0 before each stage and read
-    after it."""
+    on the host clock (stages) and on the device by kernel name: M1 runs
+    the product of B2 / B3's partial kernel with the fold taken out, so the
+    partial kernel's device time less M1's is what their fold costs (and,
+    at 1M, B6's partial kernel less M1's what B6's fold and turns cost).
+    Returns M1's launches over the phase, the counts having been set to 0
+    before each stage and read after it."""
     import torch
 
     from diskrag_tpu_torch.ops import flat_scan as fs
@@ -1543,11 +1677,19 @@ def phase_micro(smi: str, sets: dict) -> int:
                 named(k_scan, "packed_wgmma_partial") - named(k_mm, "mm_probe_kernel")
                 if k_scan and k_mm else None),
         }
+        if n_pts == MAIN_N:
+            k_b6 = device_ms_by_kernel(
+                lambda: scan(gq, gqs, gcodes, norms, gscale, pipelined=True), 5)
+            split[str(n_pts)].update({
+                "device_b6_partial_ms": named(k_b6, "pingpong_wgmma_partial"),
+                "device_b6_partial_less_probe_ms": (
+                    named(k_b6, "pingpong_wgmma_partial") - named(k_mm, "mm_probe_kernel")
+                    if k_b6 and k_mm else None)})
         del gcodes, gq, norms
         torch.cuda.empty_cache()
     emit({"phase": "micro", "derived": "packed scan ms - matmul-only ms, same rows",
-          "note": "M1 probes the mma.sync product B2 / B3 / B6 ran before their wgmma redesigns; "
-                  "their partial kernels now run wgmma, so the difference is not the fold",
+          "note": "M1 runs B2 / B3's partial kernel with the fold taken out (same block, TMA ring "
+                  "and wgmma): device_partial_less_probe_ms is what the fold costs",
           "by_rows": split, "m1_launches": m1_launches, "card": smi})
     return m1_launches
 
@@ -1698,6 +1840,7 @@ def main() -> int:
     try:
         out = phase_main(dev["smi"], base, *sets[MAIN_N])
         out["kernels"] += phase_main_packed(dev["smi"], base, sets)
+        out["kernels"].append(phase_main_bf16(dev["smi"], base, sets))
         m1 = phase_m1_kernels(dev["smi"], sets)
         m1["launches"] = phase_micro(dev["smi"], sets)
         del sets[MAIN_N]

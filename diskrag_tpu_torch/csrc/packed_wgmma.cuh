@@ -35,6 +35,10 @@
 // Each block stores its [64, 64] state into parts[part]; the merge kernels
 // of B2 / B3 take it from there.
 //
+// M1 (mm_probe.cu) is this kernel with the fold taken out: the same block,
+// producer (produce), ring, A fragments (load_query_fragments) and product
+// (issue), its accumulators running through all tiles of its part.
+//
 // Why this shape (measured on an H100 80GB HBM3 at 700 W; see PERF.md): a
 // warpgroup's step (wait for the tile, product, fold) is a chain of
 // latencies whose parts add up, about 0.4 us a segment with three blocks an
@@ -88,11 +92,14 @@ __global__ void packed_nc_rows(const float* __restrict__ nf, const float* __rest
 
 using Ring = wg::Ring<kStages>;
 
-// Waits for the next stage and starts acc = the block's queries (A, in
-// registers) x the stage's 64 rows (asynchronous: one committed wgmma group).
+// Waits for the next stage and starts acc = (or, with `accumulate`, +=) the
+// block's queries (A, in registers) x the stage's 64 rows (asynchronous: one
+// committed wgmma group). The scans start each segment afresh; M1 runs one
+// sum through all tiles of its part.
 template <int kKSteps>
 __device__ __forceinline__ void issue(int (&acc)[32], const uint32_t (&a)[kKSteps][4], Ring& r,
-                                      uint64_t* full, const unsigned char* stages) {
+                                      uint64_t* full, const unsigned char* stages,
+                                      bool accumulate) {
   constexpr int kBoxes = (kKSteps + 3) / 4;
   wg::mbar_wait(&full[r.stage], r.phase);
   const unsigned char* st = stages + r.stage * kBoxes * wg::kTileBytes;
@@ -100,7 +107,7 @@ __device__ __forceinline__ void issue(int (&acc)[32], const uint32_t (&a)[kKStep
 #pragma unroll
   for (int ks = 0; ks < kKSteps; ++ks) {
     const uint64_t db = wg::sw128_desc(st + (ks / 4) * wg::kTileBytes);
-    wg::wgmma_m64n64k32_s8_rs(acc, a[ks], wg::desc_k(db, ks % 4), ks > 0);
+    wg::wgmma_m64n64k32_s8_rs(acc, a[ks], wg::desc_k(db, ks % 4), accumulate || ks > 0);
   }
   wg::wgmma_commit();
   r.next();
@@ -138,6 +145,75 @@ __device__ __forceinline__ uint32_t query_word(const int8_t* __restrict__ q, int
              : 0u;
 }
 
+// The consumer warpgroup's A fragments: thread (g, t4) of warp w4 holds
+// query rows row_lo = q0 + 16 * w4 + g and row_lo + 8 of the block's 64.
+template <int kKSteps>
+__device__ __forceinline__ void load_query_fragments(uint32_t (&a)[kKSteps][4],
+                                                     const int8_t* __restrict__ q, int b,
+                                                     int row_bytes, int row_lo, int t4) {
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    const int col = 32 * ks + 4 * t4;
+    a[ks][0] = query_word(q, b, row_bytes, row_lo, col);
+    a[ks][1] = query_word(q, b, row_bytes, row_lo + 8, col);
+    a[ks][2] = query_word(q, b, row_bytes, row_lo, col + 16);
+    a[ks][3] = query_word(q, b, row_bytes, row_lo + 8, col + 16);
+  }
+}
+
+// The producer thread: for step i < n_steps in order, the row boxes of the
+// 64-row database tile at row0 + i * row_step (and with kNc its 64 nc
+// values) into the ring, each stage once the consumers have handed it back.
+template <int kBoxes, bool kNc>
+__device__ __forceinline__ void produce(const CUtensorMap* db_map, const CUtensorMap* nc_map,
+                                        int row0, int row_step, int n_steps,
+                                        unsigned char* stages, int* snc, uint64_t* full,
+                                        uint64_t* empty) {
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    const int row = row0 + i * row_step;
+    wg::mbar_wait(&empty[stage], phase ^ 1);
+    unsigned char* st = stages + stage * kBoxes * wg::kTileBytes;
+    wg::mbar_arrive_expect_tx(&full[stage], kBoxes * wg::kTileBytes + (kNc ? kLanes * 4 : 0));
+    for (int kb = 0; kb < kBoxes; ++kb)
+      wg::tma_load_2d(st + kb * wg::kTileBytes, db_map, &full[stage], kb * wg::kBoxK, row);
+    if constexpr (kNc) wg::tma_load_2d(snc + stage * kLanes, nc_map, &full[stage], row, 0);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// The shared memory of a block (smem_bytes): the ring's row boxes, its nc
+// values, the full and empty mbarriers, set up by thread 0.
+struct Smem {
+  unsigned char* stages;
+  int* snc;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+template <int kBoxes>
+__device__ __forceinline__ Smem setup_smem(unsigned char* smem_raw) {
+  Smem m;
+  m.stages = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  m.snc = reinterpret_cast<int*>(m.stages + kStages * kBoxes * wg::kTileBytes);
+  m.full = reinterpret_cast<uint64_t*>(m.snc + kStages * kLanes);
+  m.empty = m.full + kStages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(&m.full[i], 1);  // the producer's expect_tx
+      wg::mbar_init(&m.empty[i], 128);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  return m;
+}
+
 // Grid (query tiles, nb / 64, parts), kThreads threads. kKSteps k-steps of
 // 32 bytes a row (kKSteps / 4 rounded up 128-byte K boxes a tile).
 template <int kKSteps>
@@ -147,11 +223,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) packed_wgmma_partial(
     int* __restrict__ parts) {
   constexpr int kBoxes = (kKSteps + 3) / 4;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* stages = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  int* snc = reinterpret_cast<int*>(stages + kStages * kBoxes * wg::kTileBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(snc + kStages * kLanes);
-  uint64_t* empty = full + kStages;
+  const Smem m = setup_smem<kBoxes>(smem_raw);
 
   const int q0 = blockIdx.x * kQueries;
   const int l0 = blockIdx.y * kLanes;
@@ -159,59 +231,29 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) packed_wgmma_partial(
   const int s_begin = part * segs_per_part;
   const int s_end = min(n_seg, s_begin + segs_per_part);
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      wg::mbar_init(&full[i], 1);  // the producer's expect_tx
-      wg::mbar_init(&empty[i], 128);
-    }
-    wg::mbar_init_fence();
-  }
-  __syncthreads();
-
   if (threadIdx.x >= 128) {
     // producer (one thread): for every segment in order its row boxes and
     // nc values
-    if (threadIdx.x != 128) return;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int s = s_begin; s < s_end; ++s) {
-      wg::mbar_wait(&empty[stage], phase ^ 1);
-      unsigned char* st = stages + stage * kBoxes * wg::kTileBytes;
-      wg::mbar_arrive_expect_tx(&full[stage], kBoxes * wg::kTileBytes + kLanes * 4);
-      for (int kb = 0; kb < kBoxes; ++kb)
-        wg::tma_load_2d(st + kb * wg::kTileBytes, &db_map, &full[stage], kb * wg::kBoxK,
-                        s * nb + l0);
-      wg::tma_load_2d(snc + stage * kLanes, &nc_map, &full[stage], s * nb + l0, 0);
-      if (++stage == kStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
+    if (threadIdx.x == 128)
+      produce<kBoxes, true>(&db_map, &nc_map, s_begin * nb + l0, nb, s_end - s_begin, m.stages,
+                            m.snc, m.full, m.empty);
     return;
   }
 
-  // the consumer warpgroup: thread (g, t4) of warp w4 holds query rows
-  // 16 * w4 + g and + 8 of the block's 64
+  // the consumer warpgroup
   const int t4 = threadIdx.x & 3;
   const int row_lo = q0 + 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2);
   uint32_t a[kKSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    const int col = 32 * ks + 4 * t4;
-    a[ks][0] = query_word(q, b, row_bytes, row_lo, col);
-    a[ks][1] = query_word(q, b, row_bytes, row_lo + 8, col);
-    a[ks][2] = query_word(q, b, row_bytes, row_lo, col + 16);
-    a[ks][3] = query_word(q, b, row_bytes, row_lo + 8, col + 16);
-  }
+  load_query_fragments<kKSteps>(a, q, b, row_bytes, row_lo, t4);
   int state[32];
   int acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) state[i] = INT_MIN;
   Ring r;
   for (int s = s_begin; s < s_end; ++s) {
-    issue<kKSteps>(acc, a, r, full, stages);
+    issue<kKSteps>(acc, a, r, m.full, m.stages, false);
     wg::wgmma_wait<0>();
-    fold(state, acc, r, empty, snc, t4);
+    fold(state, acc, r, m.empty, m.snc, t4);
   }
 
 #pragma unroll

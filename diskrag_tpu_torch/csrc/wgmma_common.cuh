@@ -1,19 +1,22 @@
-// Hopper building blocks for int8 scans on the tensor cores through wgmma:
+// Hopper building blocks for scans on the tensor cores through wgmma:
 // mbarriers, TMA tile loads, the shared-memory matrix descriptor of a
-// 128-byte-swizzled K-major tile, the m64n64k32 s8 product and its
-// accumulator layout, a consumer's view of a ring of stages, and the
-// host-side TMA descriptors. Used by B1 (flat_scan.cu), by the partial
-// kernel of B2 / B3 (packed_wgmma.cuh) and by B6's (pingpong_wgmma.cuh).
+// 128-byte-swizzled K-major tile, the m64n64k32 s8 and m64n64k16 bf16
+// products and their accumulator layout, a consumer's view of a ring of
+// stages, and the host-side TMA descriptors. Used by B1 (flat_scan.cu, int8
+// and bf16), by the partial kernel of B2 / B3 and M1 (packed_wgmma.cuh,
+// mm_probe.cu) and by B6's (pingpong_wgmma.cuh).
 //
 // Tiles. An operand tile is R rows (64 queries or 64 database rows) of 128
 // bytes of K, loaded by one 2-D TMA box {128 bytes, R rows} with
 // CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned buffer: row r at r *
 // 128, its 16-byte chunks permuted by r % 8. The wgmma descriptor of such a
 // tile says "128-byte swizzle, 8-row groups 1024 bytes apart"; the k-step
-// kk (32 bytes of K) starts 32 * kk bytes into it. K past a row's end is
-// zero-filled by TMA's out-of-bounds fill, as are rows past the tensor's end.
+// kk (32 bytes of K: 32 s8 or 16 bf16 values) starts 32 * kk bytes into it,
+// whatever the element type. K past a row's end is zero-filled by TMA's
+// out-of-bounds fill, as are rows past the tensor's end.
 //
-// Accumulators of wgmma m64nNk32 (s32): thread t of the warpgroup holds
+// Accumulators of wgmma m64nNk32 s8 (s32) and m64nNk16 bf16 (f32): thread t
+// of the warpgroup holds
 // d[4c + 2h + j] = D[16 * (t / 32) + (t % 32) / 4 + 8h][8c + 2 * (t % 4) + j]
 // for c < N / 8 and h, j in {0, 1}.
 
@@ -179,13 +182,42 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// One 64 x 64 output tile over one 128-byte K box: four k-steps.
+// d (+)= A[64 x 16] . B[64 x 16]^T, both bf16 K-major in shared memory,
+// f32 accumulators (the tensor cores' own order of adds). scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t da,
+                                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// One 64 x 64 output tile over one 128-byte K box: four k-steps, s8 into
+// s32 accumulators or bf16 into f32 ones.
 __device__ __forceinline__ void wgmma_tile(int (&d)[32], const void* a, const void* b,
                                            bool accumulate) {
   const uint64_t da = sw128_desc(a), db = sw128_desc(b);
 #pragma unroll
   for (int kk = 0; kk < kBoxK / 32; ++kk)
     wgmma_m64n64k32_s8(d, desc_k(da, kk), desc_k(db, kk), (accumulate || kk) ? 1 : 0);
+}
+__device__ __forceinline__ void wgmma_tile(float (&d)[32], const void* a, const void* b,
+                                           bool accumulate) {
+  const uint64_t da = sw128_desc(a), db = sw128_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < kBoxK / 32; ++kk)
+    wgmma_m64n64k16_bf16(d, desc_k(da, kk), desc_k(db, kk), (accumulate || kk) ? 1 : 0);
 }
 
 // --- host: TMA descriptors -------------------------------------------------
@@ -230,16 +262,18 @@ inline bool make_row_map(CUtensorMap* map, const void* base, long long rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The map of a [2, n_rows] f32 block whose rows lie `stride` floats apart
-// (a multiple of 4, base 16-byte aligned), in boxes of {kTileRows, 2}:
-// a tile's row 0 then its row 1. Columns at or past n_rows read as NaN.
+// The map of the first `n_norm_rows` (1 or 2) rows of an [R, n_rows] f32
+// block whose rows lie `stride` floats apart (a multiple of 4, base 16-byte
+// aligned), in boxes of {kTileRows, n_norm_rows}: a tile's row 0, then its
+// row 1. Columns at or past n_rows read as NaN. With one row the stride is
+// never followed, so a [n_rows] vector is its own one-row block.
 inline bool make_norm_map(CUtensorMap* map, const void* base, long long n_rows,
-                          long long stride) {
+                          long long stride, int n_norm_rows) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)n_rows, 2};
+  const cuuint64_t dims[2] = {(cuuint64_t)n_rows, (cuuint64_t)n_norm_rows};
   const cuuint64_t strides[1] = {(cuuint64_t)stride * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)kTileRows, 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kTileRows, (cuuint32_t)n_norm_rows};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
             strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,

@@ -196,32 +196,33 @@ def scan_bucketed_topk_ref(
     return best_v, ids.to(torch.int32)
 
 
-# The int8 kernel's tiles (`csrc/flat_scan.cu`; the wrapper checks them
-# against the library's exported values): 64 queries per consumer
-# warpgroup, one to three warpgroups per block, 64 bucket lanes per block,
-# rows in K boxes of 128 bytes, a ring of 4 stages.
-_I8_WG_QUERIES = 64
-_I8_MAX_CONSUMERS = 3
-_I8_LANES = 64
-_I8_BOX = 128
-_I8_STAGES = 4
+# The scan kernel's tiles (`csrc/flat_scan.cu`, both forms; the wrapper
+# checks them against the library's exported values): 64 queries per
+# consumer warpgroup, one to three warpgroups per block, 64 bucket lanes per
+# block, rows in K boxes of 128 bytes, a ring of 4 stages.
+_ROWSCAN_WG_QUERIES = 64
+_ROWSCAN_MAX_CONSUMERS = 3
+_ROWSCAN_LANES = 64
+_ROWSCAN_BOX = 128
+_ROWSCAN_STAGES = 4
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt into
 
 
-def _i8_smem_bytes(n_cons: int, n_kb: int, streamed: bool) -> int:
-    """The int8 kernel's dynamic shared memory (`i8_smem_bytes` in
+def _rowscan_smem_bytes(n_cons: int, n_kb: int, streamed: bool) -> int:
+    """The scan kernel's dynamic shared memory (`scan_smem_bytes` in
     `csrc/flat_scan.cu`): alignment slack, the resident query boxes, the
     ring's stages (a database tile, plus the query tiles when streamed),
-    the staged norms and the mbarriers."""
-    tile = _I8_BOX * _I8_LANES
+    the staged norm rows and the mbarriers."""
+    tile = _ROWSCAN_BOX * _ROWSCAN_LANES
     a = 0 if streamed else n_cons * n_kb * tile
     stage = (1 + (n_cons if streamed else 0)) * tile
-    return 1024 + a + _I8_STAGES * stage + _I8_STAGES * 2 * _I8_LANES * 4 + (2 * _I8_STAGES + 1) * 8
+    return (1024 + a + _ROWSCAN_STAGES * stage + _ROWSCAN_STAGES * 2 * _ROWSCAN_LANES * 4
+            + (2 * _ROWSCAN_STAGES + 1) * 8)
 
 
 @dataclasses.dataclass(frozen=True)
 class RowScanPlan:
-    """How the int8 scan (B1) cuts one call into blocks: `n_cons` consumer
+    """How B1 (int8 or bf16) cuts one call into blocks: `n_cons` consumer
     warpgroups of 64 queries per block, query boxes resident in shared
     memory or `streamed` through the ring, a grid of (query tiles, lane
     tiles, parts), each part `seg_per_split` contiguous segments. The plan
@@ -237,27 +238,27 @@ class RowScanPlan:
 
     @property
     def block_queries(self) -> int:
-        return self.n_cons * _I8_WG_QUERIES
+        return self.n_cons * _ROWSCAN_WG_QUERIES
 
 
 @functools.lru_cache(maxsize=256)
 def plan_rowscan(b: int, nb: int, rows: int, row_bytes: int, sms: int) -> RowScanPlan:
-    """B1's int8 grid for `b` queries over `rows` rows of `row_bytes`
-    bytes in buckets of `nb` lanes on a card of `sms` SMs (one block an
-    SM). Up to three consumer warpgroups (192 queries) per block, as many
-    as the batch fills and as fit their query boxes in shared memory beside
-    the ring; the query boxes stream through the ring only where even one
-    warpgroup's do not fit. The segments are cut into parts when
-    the query x lane tiles are fewer than two blocks an SM: between two
-    and eight waves, the count that leaves the last wave fullest (the
-    smaller on ties)."""
-    n_kb = -(-row_bytes // _I8_BOX)
-    want = min(_I8_MAX_CONSUMERS, -(-b // _I8_WG_QUERIES))
+    """B1's grid for `b` queries over `rows` rows of `row_bytes` bytes
+    (D for int8, 2 * D for bf16) in buckets of `nb` lanes on a card of `sms`
+    SMs (one block an SM). Up to three consumer warpgroups (192 queries)
+    per block, as many as the batch fills and as fit their query boxes in
+    shared memory beside the ring; the query boxes stream through the ring
+    only where even one warpgroup's do not fit. The segments are cut into
+    parts when the query x lane tiles are fewer than two blocks an SM:
+    between two and eight waves, the count that leaves the last wave
+    fullest (the smaller on ties)."""
+    n_kb = -(-row_bytes // _ROWSCAN_BOX)
+    want = min(_ROWSCAN_MAX_CONSUMERS, -(-b // _ROWSCAN_WG_QUERIES))
     n_cons, streamed = next(
         (c, st) for st in (False, True) for c in range(want, 0, -1)
-        if _i8_smem_bytes(c, n_kb, st) <= _SMEM_LIMIT)
-    q_tiles = -(-b // (n_cons * _I8_WG_QUERIES))
-    lane_tiles = -(-nb // _I8_LANES)
+        if _rowscan_smem_bytes(c, n_kb, st) <= _SMEM_LIMIT)
+    q_tiles = -(-b // (n_cons * _ROWSCAN_WG_QUERIES))
+    lane_tiles = -(-nb // _ROWSCAN_LANES)
     n_seg = -(-rows // nb)
     base = q_tiles * lane_tiles
     n_split = 1
@@ -275,11 +276,11 @@ def plan_rowscan(b: int, nb: int, rows: int, row_bytes: int, sms: int) -> RowSca
 
 
 @functools.cache
-def _check_i8_tiles() -> None:
+def _check_rowscan_tiles() -> None:
     """Once per process: the built kernel's tiles are the planner's."""
     lib = _build.load("flat_scan")
-    if (lib.flat_scan_i8_wg_queries(), lib.flat_scan_i8_max_consumers(),
-            lib.flat_scan_i8_lanes()) != (_I8_WG_QUERIES, _I8_MAX_CONSUMERS, _I8_LANES):
+    if (lib.flat_scan_wg_queries(), lib.flat_scan_max_consumers(),
+            lib.flat_scan_lanes()) != (_ROWSCAN_WG_QUERIES, _ROWSCAN_MAX_CONSUMERS, _ROWSCAN_LANES):
         raise RuntimeError("B1: the library's tile sizes differ from the wrapper's")
 
 
@@ -300,12 +301,8 @@ def _tma_norm_rows(block: torch.Tensor) -> torch.Tensor:
     return wide
 
 
-_I8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4 + [
-    ctypes.c_int, ctypes.c_void_p,
-]
-_BF16_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4 + [
-    ctypes.c_int, ctypes.c_void_p,
-]
+_SCAN_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
+    ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _scan_cuda(q, db, norm_block, nb, use_norms, q_scales, n):
@@ -336,40 +333,30 @@ def _scan_cuda(q, db, norm_block, nb, use_norms, q_scales, n):
     if db.data_ptr() % 16:
         db = db.clone()
     row_bytes = d * esize
-    lib = _build.load("flat_scan")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if int8:
-        _check_i8_tiles()
-        plan = plan_rowscan(b, nb, rows, row_bytes, _sm_count(dev))
-        n_split, spp = plan.n_split, plan.seg_per_split
-    else:
-        bq, lanes = lib.flat_scan_block_queries(), lib.flat_scan_block_lanes()
-        n_seg = -(-rows // nb)
-        base = -(-b // bq) * -(-nb // lanes)
-        n_split = max(1, min(n_seg, -(-_sm_count(dev) * 8 // base)))
-        spp = -(-n_seg // n_split)
-        n_split = -(-n_seg // spp)
-    parts = 0 if int8 and n_split == 1 else n_split  # one int8 part writes vals / ids
+    _check_rowscan_tiles()
+    plan = plan_rowscan(b, nb, rows, row_bytes, _sm_count(dev))
+    parts = 0 if plan.n_split == 1 else plan.n_split  # one part writes vals / ids
     part_v = torch.empty((parts, b, nb), dtype=torch.float32, device=dev)
     part_s = torch.empty((parts, b, nb), dtype=torch.int32, device=dev)
-    tail = (part_v.data_ptr(), part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(), dev.index, stream)
     if int8:
-        fn = _c_function("flat_scan", "flat_scan_i8_launch", _I8_ARGTYPES)
         qs = q_scales.to(torch.float32).contiguous()
         norm_block = _tma_norm_rows(norm_block)
-        err = fn(q.data_ptr(), qs.data_ptr(), db.data_ptr(), norm_block.data_ptr(),
-                 b, row_bytes, rows, norm_block.stride(0), nb, n, int(use_norms),
-                 plan.n_cons, int(plan.streamed), spp, n_split, *tail)
-        what = "flat_scan_i8_launch"
-        if err == -1:
-            raise RuntimeError(f"{what}: the CUDA driver refused a TMA descriptor")
-    else:
-        fn = _c_function("flat_scan", "flat_scan_bf16_launch", _BF16_ARGTYPES)
-        err = fn(q.data_ptr(), db.data_ptr(), norm_block.data_ptr(),
-                 b, row_bytes // 4, rows, nb, n, int(use_norms), spp, n_split, *tail)
-        what = "flat_scan_bf16_launch"
+        stride = norm_block.stride(0)
+    else:  # row 0 alone, read as a vector: no copy, whatever the block's stride
+        qs = None
+        if norm_block.data_ptr() % 16:
+            norm_block = norm_block[:1].clone()
+        stride = 0
+    fn = _c_function("flat_scan", "flat_scan_launch", _SCAN_ARGTYPES)
+    err = fn(0 if int8 else 1, q.data_ptr(), 0 if qs is None else qs.data_ptr(), db.data_ptr(),
+             norm_block.data_ptr(), b, row_bytes, rows, stride, nb, n, int(use_norms),
+             plan.n_cons, int(plan.streamed), plan.seg_per_split, plan.n_split,
+             part_v.data_ptr(), part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     scan_bucketed_topk.launches += 1
-    _build.check(err, what)
+    if err == -1:
+        raise RuntimeError("flat_scan_launch: the CUDA driver refused a TMA descriptor")
+    _build.check(err, "flat_scan_launch")
     return vals, ids
 
 

@@ -29,22 +29,74 @@ bit for bit. The operation count for the kernel's bound is the full
 2 * Bpad * Npad * D.
 
 `tile` is an argument because it defines the function (which rows share
-an output column), not because any block of the CUDA kernel has that
-size. `mm_probe` runs the kernel for CUDA tensors (or raises) and the
-plain version `mm_probe_ref` only for CPU tensors, and counts the kernel's
-launches in `mm_probe.launches`.
+an output column). The kernel runs B2 / B3's product (`wgmma` fed by TMA)
+over blocks of 64 queries x 64 columns of the tile x a part of the tiles,
+planned by `plan_mm_probe`; where `tile` is no multiple of 64 the last
+column block is masked at `tile`. `mm_probe` runs the kernel for CUDA
+tensors (or raises) and the plain version `mm_probe_ref` only for CPU
+tensors, and counts the kernel's launches in `mm_probe.launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from diskrag_tpu_torch.kernels import _build
-from diskrag_tpu_torch.ops.flat_scan import _PACKED_MAX_DIM, _match_width, align_code_rows
+from diskrag_tpu_torch.ops.flat_scan import (
+    _PACKED_BLOCKS_PER_SM,
+    _PACKED_LANES,
+    _PACKED_MAX_DIM,
+    _PACKED_QUERIES,
+    _check_tiles,
+    _match_width,
+    _sm_count,
+    align_code_rows,
+)
 
-_TARGET_BLOCKS = 1024  # tiles are cut into parts until the grid has about this many blocks
+# The planner's fixed cost of a block, in tiles of its part: the queries
+# into registers, the ring's first fill, its atomics (as B2 / B3's planner
+# counts a block's fixed cost in segments).
+_BLOCK_TILES = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class MmProbePlan:
+    """How M1 cuts one call into blocks: a grid of (query tiles of 64,
+    column blocks of 64 over the tile, parts), each part `tiles_per_part`
+    contiguous tiles. Column block y covers columns [64y, 64y + 64) of every
+    tile, masked at `tile`. The plan changes the grid, never the result."""
+
+    q_tiles: int
+    col_blocks: int
+    n_tiles: int
+    tiles_per_part: int
+    n_parts: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_mm_probe(b: int, tile: int, rows: int, sms: int) -> MmProbePlan:
+    """M1's grid for `b` queries over `rows` rows in tiles of `tile` on a
+    card of `sms` SMs holding three blocks each: the parts that minimise the
+    estimated time, whole waves of blocks times a block's length (its tiles
+    plus `_BLOCK_TILES`); the fewer parts on ties."""
+    if b <= 0 or tile <= 0 or rows <= 0 or sms <= 0:
+        raise ValueError(f"M1 plan: b={b}, tile={tile}, rows={rows}, sms={sms}")
+    q_tiles = -(-b // _PACKED_QUERIES)
+    col_blocks = -(-tile // _PACKED_LANES)
+    n_tiles = -(-rows // tile)
+    slots = sms * _PACKED_BLOCKS_PER_SM
+    best = None
+    for tpp in sorted({-(-n_tiles // parts) for parts in range(1, n_tiles + 1)}, reverse=True):
+        blocks = q_tiles * col_blocks * -(-n_tiles // tpp)
+        est = -(-blocks // slots) * (tpp + _BLOCK_TILES)
+        if best is None or est < best[0]:
+            best = (est, tpp)
+    tpp = best[1]
+    return MmProbePlan(q_tiles, col_blocks, n_tiles, tpp, -(-n_tiles // tpp))
 
 
 def padded_queries(b: int, qb: int = 1024) -> int:
@@ -127,22 +179,20 @@ def _probe_cuda(q, db, tile, nb_out, qb):
     q, db = q.contiguous(), db.contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
-    if db.data_ptr() % 16:
+    if db.data_ptr() % 16:  # TMA reads the rows from a 16-byte-aligned base
         db = db.clone()
-    row_bytes = q.shape[1]
+    _check_tiles("mm_probe", "mm_probe", (_PACKED_QUERIES, _PACKED_LANES, _PACKED_BLOCKS_PER_SM))
+    plan = plan_mm_probe(b, tile, n, _sm_count(dev))
     lib = _build.load("mm_probe")
     fn = lib.mm_probe_launch
     fn.argtypes = _PROBE_ARGTYPES
     fn.restype = ctypes.c_int
-    base = -(-b // lib.mm_probe_block_queries(row_bytes)) * (tile // lib.mm_probe_block_lanes())
-    n_tiles = -(-n // tile)
-    n_parts = max(1, min(n_tiles, -(-_TARGET_BLOCKS // base)))
-    tiles_per_part = -(-n_tiles // n_parts)
-    n_parts = -(-n_tiles // tiles_per_part)
-    err = fn(q.data_ptr(), db.data_ptr(), b, row_bytes, n, tile, n_tiles, tiles_per_part,
-             n_parts, nb_out, out.data_ptr(), rowsum.data_ptr(),
+    err = fn(q.data_ptr(), db.data_ptr(), b, q.shape[1], n, tile, plan.n_tiles,
+             plan.tiles_per_part, plan.n_parts, nb_out, out.data_ptr(), rowsum.data_ptr(),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     mm_probe.launches += 1
+    if err == -1:
+        raise RuntimeError("mm_probe_launch: the CUDA driver refused a TMA descriptor")
     _build.check(err, "mm_probe_launch")
     return out, rowsum
 

@@ -236,17 +236,21 @@ def test_topk_lanes_ref_matches_lexsort(case):
 @pytest.mark.parametrize(
     "b,nb,rows,row_bytes",
     [(1000, 512, 1_003_520, 128), (4096, 4096, 200_704, 128), (1, 512, 1_003_520, 128),
-     (37, 128, 3000, 48), (130, 512, 4000, 1536), (100, 128, 2000, 3072), (64, 200, 4097, 16)],
+     (37, 128, 3000, 48), (130, 512, 4000, 1536), (100, 128, 2000, 3072), (64, 200, 4097, 16),
+     # bf16 rows (2 * D bytes): D = 128 at 1M and 200k, D = 36 (80-byte aligned rows),
+     # D = 768, D = 1536 (query boxes streamed)
+     (1000, 512, 1_000_000, 256), (1000, 512, 200_000, 256), (37, 128, 3000, 80),
+     (70, 512, 5000, 1536), (130, 512, 4001, 3072)],
 )
 def test_plan_rowscan_covers_every_query_lane_segment_once(b, nb, rows, row_bytes):
     plan = tfs.plan_rowscan(b, nb, rows, row_bytes, sms=132)
     n_kb = -(-row_bytes // 128)
     fits = [c for c in range(1, min(3, -(-b // 64)) + 1)
-            if tfs._i8_smem_bytes(c, n_kb, False) <= 227 * 1024]
+            if tfs._rowscan_smem_bytes(c, n_kb, False) <= 227 * 1024]
     # the most warpgroups the batch fills whose query boxes stay resident;
     # streamed only where not even one warpgroup's fit
     assert (plan.n_cons, plan.streamed) == ((max(fits), False) if fits else (plan.n_cons, True))
-    assert tfs._i8_smem_bytes(plan.n_cons, n_kb, plan.streamed) <= 227 * 1024
+    assert tfs._rowscan_smem_bytes(plan.n_cons, n_kb, plan.streamed) <= 227 * 1024
     n_seg = -(-rows // nb)
     assert plan.n_seg == n_seg
     # the splits: contiguous, in segment order, non-empty, covering all
@@ -331,6 +335,43 @@ def _card_b4_block(case):
         s[3, 200:] = -np.inf
         return s, 700
     return rng.normal(size=(4, 32768)).astype(np.float32), 40_000  # "indirect_sort"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,b,nb", [(36, 3000, 37, 128), (128, 30011, 1000, 512),
+                                      (768, 5000, 70, 512)])
+def test_b1_bf16_kernel_matches_plain_version_on_card(d, n, b, nb):
+    """Run with `pytest -m cuda` on a machine with a card: B1's bf16 form
+    (wgmma m64n64k16 bf16, f32 sums in the tensor cores' order) against
+    its plain version for all three metrics at D = 36 (rows zero-padded to
+    80 bytes), 128 and 768: scores within 1e-5 of the block's largest
+    |score|, the same finite entries, ids equal except where two segments
+    tie within that tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    for i, metric in enumerate(("l2", "cosine", "dot")):
+        pts, q = _data(n, d, b, seed=40 + i)
+        if metric == "cosine":
+            pts = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+            q = q / np.linalg.norm(q, axis=1, keepdims=True)
+        tq = _t(q).to(dev).to(torch.bfloat16)
+        tdb = _t(pts).to(dev).to(torch.bfloat16)
+        norms = _t(np.sum(pts * pts, -1).astype(np.float32)).to(dev)
+        kw = dict(n_buckets=nb, use_norms=metric == "l2")
+        launches = tfs.scan_bucketed_topk.launches
+        vk, ik = tfs.scan_bucketed_topk(tq, tdb, norms, **kw)
+        assert tfs.scan_bucketed_topk.launches == launches + 1
+        vr, ir = tfs.scan_bucketed_topk_ref(
+            *tfs._scan_operands(tq, tdb, norms, q_scales=None, db_scales=None, n_valid=None,
+                                **kw))
+        torch.cuda.synchronize()
+        fin = torch.isfinite(vr)
+        assert torch.equal(fin, torch.isfinite(vk)), (d, metric)
+        tol = 1e-5 * float(vr[fin].abs().max())
+        assert float((vk[fin] - vr[fin]).abs().max()) <= tol, (d, metric)
+        near = (vk - vr).abs() <= tol
+        assert bool(((ik == ir) | near).all()), (d, metric)
 
 
 @pytest.mark.cuda
