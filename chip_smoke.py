@@ -30,8 +30,16 @@ microbenchmark (`diskrag_tpu_torch.tools.fused_scan_micro`) in process at
 200,000 rows (and its M1 and hierarchical stages at 1,000,000), checking
 that every stage launched the kernel it is named for, and serves the
 vamana collection over HTTP (`diskrag_tpu_torch.api.create_app` on a
-socket on 127.0.0.1), sending a few requests one after the other. Every
-phase prints JSON lines; the line before the last is the
+socket on 127.0.0.1), sending a few requests one after the other. Phase
+`main-host-tier` serves the host tier through `SearchEngine(serving_mode=
+"host_tier")`: the JAX bench's 1M host-tier configuration (degree-48
+graph, int8 rows, the f32 vectors in the packed record file read by the
+native reader, the rerank on the host; recall@10 gates 0.985 at L = 32 and
+0.99 at L = 48), the default 200k vamana collection in its residual-PQ
+mode (B5 by id once a round; recall within 0.01 of mode "auto"; one HTTP
+/search) and in bf16 mode. Profiled figures are taken per recorded
+event, so a few dropped events do not bias them, from windows retried
+when they lost many; a null one is printed with its reason. Every phase prints JSON lines; the line before the last is the
 card's name and power limit as nvidia-smi gives them, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -102,32 +110,123 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms_by_kernel(fn, reps: int) -> dict:
-    """Device time per fn() call by kernel name (`torch.profiler`, CUPTI):
-    one warm-up cycle inside the profiler first, since it can miss kernels
-    at its start, then `reps` recorded calls. Empty where the profiler
-    records no device activity (a machine that does not let CUPTI trace;
-    `CHIP_SMOKE_NO_PROFILER=1` gives the same without asking it): the
-    callers then time with CUDA events or report the figure as null."""
+class ByKernel(dict):
+    """{kernel name: device ms per call}; empty, with `null_reason` set,
+    where no trustworthy recording was had."""
+
+    null_reason: str | None = None
+    windows: int = 0
+
+
+def _profiled_window(step_fn, steps: int) -> tuple[dict, dict, list]:
+    """One profiler window: a warm-up step (the profiler can miss kernels
+    at its start), then `steps` recorded calls of `step_fn`, each closed by
+    a synchronize. Returns ({name: device ms summed over the window},
+    {name: device events recorded}, host ms of each recorded call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    events: list = []  # the active cycle's, taken before the profiler clears them
+    wall: list = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        for i in range(steps + 1):
+            t = time.perf_counter()
+            step_fn()
+            torch.cuda.synchronize()
+            if i:
+                wall.append((time.perf_counter() - t) * 1e3)
+            prof.step()
+    by: dict = {}
+    count: dict = {}
+    for e in events:  # device-side work only; the step ranges are annotations
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
+    return by, count, wall
+
+
+def preloaded_event_ms(fn, reps: int) -> float:
+    """Device time of one fn() call by CUDA events with the stream held
+    busy (`torch.cuda._sleep`) while the host enqueues the calls, so the
+    host's launch path is not in the window: for a call of one kernel, its
+    device time."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled(step_fn, steps: int, *, what: str, single_ms=None, attempts: int = 4):
+    """Device time per call by kernel name from a recording the figures
+    can trust, retried window by window. The profiler drops device events
+    (on the card: a few at a window's edge, sometimes all of them), so a
+    call's time is not the window's sum over `steps`: each name's recorded
+    events are averaged and multiplied by the times a call runs it
+    (its count over `steps`, rounded up). A window is retried when it
+    recorded nothing, when it holds under half the events those counts
+    imply, and, for a call of one kernel, when the estimate falls under
+    half that call's device time by CUDA events (`single_ms()`, asked
+    only then). Returns (by-name ms per call, device operations per call,
+    share of them recorded, host ms of the window's calls, windows run,
+    None) or, after `attempts` windows, (None, None, None, host ms,
+    attempts, the reason), emitting the reason on a line of its own."""
+    import math
+
     if os.environ.get("CHIP_SMOKE_NO_PROFILER"):
-        return {}
-    events: list = []
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=reps),
-                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
-        for _ in range(reps + 1):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    out: dict = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        reason = "CHIP_SMOKE_NO_PROFILER is set"
+        emit({"phase": "profiler", "null": what, "reason": reason, "windows": 0})
+        return None, None, None, [], 0, reason
+    reason, wall = "no window ran", []
+    for w in range(1, attempts + 1):
+        by, count, wall = _profiled_window(step_fn, steps)
+        n = sum(count.values())
+        if n == 0:
+            reason = "the profiler recorded no device activity"
+            continue
+        per_call = {k: math.ceil(c / steps) for k, c in count.items()}
+        ops = sum(per_call.values())
+        if n < 0.5 * ops * steps:
+            reason = f"recorded {n} of the {ops * steps} device events the calls ran"
+            continue
+        est = {k: by[k] / count[k] * per_call[k] for k in by}
+        if single_ms is not None and ops == 1:
+            ev = single_ms()
+            if sum(est.values()) < 0.5 * ev:
+                reason = (f"by-kernel estimate {sum(est.values()):.4f} ms a call against "
+                          f"{ev:.4f} ms of device time by CUDA events")
+                continue
+        return est, ops, n / (ops * steps), wall, w, None
+    emit({"phase": "profiler", "null": what, "reason": reason, "windows": attempts})
+    return None, None, None, wall, attempts, reason
+
+
+def device_ms_by_kernel(fn, reps: int) -> ByKernel:
+    """Device time per fn() call by kernel name (`torch.profiler`, CUPTI),
+    from a window `profiled` can trust. Empty, with `null_reason`, where
+    none was had (a machine that does not let CUPTI trace, a recording
+    that kept dropping events; `CHIP_SMOKE_NO_PROFILER=1` gives the same
+    without asking): the callers then time with CUDA events or report the
+    figure as null, beside the reason."""
+    fn()
+    import torch
+
+    torch.cuda.synchronize()
+    by, _, _, _, windows, reason = profiled(
+        fn, reps, what=getattr(fn, "__qualname__", "a call"),
+        single_ms=lambda: preloaded_event_ms(fn, reps))
+    out = ByKernel(by or {})
+    out.null_reason, out.windows = reason, windows
     return out
 
 
@@ -429,13 +528,32 @@ def phase_device() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    import threading
+
+    from diskrag_tpu_torch.native import load_library
+
     t0 = time.perf_counter()
+    # the host tier's record reader (host C++) builds beside the nvcc runs
+    reader_build: dict = {}
+
+    def build_reader():
+        try:
+            load_library()
+            reader_build["seconds"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — re-raised below, in this thread
+            reader_build["error"] = e
+
+    th = threading.Thread(target=build_reader)
+    th.start()
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
+    th.join()
+    if "error" in reader_build:
+        raise reader_build["error"]
     ptxas = {
         stem: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln or "wgmma" in ln]
-        for stem, log in _build.build_logs.items()
+        for stem, log in _build.build_logs.items() if not stem.startswith("native/")
     }
     emit({
         "phase": "device", "nvidia_smi": smi,
@@ -445,6 +563,8 @@ def phase_device() -> dict:
         "python": sys.version.split()[0],
         "build_seconds": round(build_s, 3),
         "kernels_built": sorted(paths), "ptxas": ptxas,
+        "record_reader": {"library": _build.host_lib_path(_build.NATIVE / "io_native.cpp").name,
+                          "built_in_seconds": round(reader_build["seconds"], 3)},
         "sass_b1_int8": wgmma_sass(paths["flat_scan"], "scan_i8_wgmma", "IDP4A"),
         "sass_b1_bf16": wgmma_sass(paths["flat_scan"], "scan_bf16_wgmma", "FFMA", want="HGMMA",
                                    absent="scan_partial"),
@@ -823,57 +943,36 @@ def phase_packed_kernels() -> None:
 def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8",
                   l_search: int | None = None, watch: tuple[str, ...] = ()) -> dict:
     """Device time by kernel name per `search_batch` (torch.profiler,
-    CUPTI; one warm-up step first, since the profiler can miss kernels at
-    its start) and the device's idle share of the profiled host time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    wall_ms = 0.0
-    events: list = []  # the active cycle's events, taken before the profiler clears them
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=steps),
-                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
-        for i in range(steps + 1):
-            t = time.perf_counter()
-            engine.search_batch(q, k=MAIN_K, l_search=l_search)
-            if i:
-                wall_ms += (time.perf_counter() - t) * 1e3
-            prof.step()
-    if os.environ.get("CHIP_SMOKE_NO_PROFILER"):
-        events = []
-    by_name: dict[str, float] = {}
-    for e in events:  # device-side work only; the step ranges are annotations
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    CUPTI, through `profiled`, which tolerates a few dropped events and
+    retries a window that lost many) and the device's idle share of the
+    profiled host time. Null figures carry the reason."""
+    by_name, per_batch, recorded, wall, windows, reason = profiled(
+        lambda: engine.search_batch(q, k=MAIN_K, l_search=l_search), steps, what=f"profile {path}")
+    by_name = by_name or {}
+    wall_ms = sum(wall) / max(len(wall), 1)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     watched = {w: sum(v for k, v in by_name.items() if w in k) for w in watch}
     return {
         **({"device_ms_watched_per_batch": watched,
-            "device_launches_per_batch": sum(
-                1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith("ProfilerStep")) / steps} if watch else {}),
-        "phase": "profile", "path": path, "batches": steps,
-        "wall_ms_per_batch": wall_ms / steps,
-        "device_busy_ms_per_batch": busy,
-        "device_idle_share": (1.0 - busy * steps / wall_ms) if busy else "not measured",
+            "device_launches_per_batch": per_batch} if watch else {}),
+        "phase": "profile", "path": path, "batches": steps, "profiler_windows": windows,
+        "profiler_events_recorded_share": recorded,
+        "wall_ms_per_batch": wall_ms,
+        "device_busy_ms_per_batch": busy if by_name else None,
+        "device_idle_share": (1.0 - busy / wall_ms) if by_name else None,
+        **({"device_null_reason": reason} if reason else {}),
         "device_ms_by_kernel_per_batch": [[k[:90], v] for k, v in top],
     }
 
 
-def serve(base, name: str, pts, precision: str | None):
-    """Persist `pts` as collection `name`, build its index — a flat one of
-    the given precision, or with `precision=None` whatever `index_type=
-    "auto"` and the defaults give — and load it into a `SearchEngine` on
-    the card: the entry points a user's `index` and `search` commands go
-    through. Returns (engine, meta)."""
+def make_collection(base, name: str, pts):
+    """Collection `name` under `base` holding `pts` (its vectors.npy and
+    info, no index yet); returns its index directory."""
     import numpy as np
 
-    from diskrag_tpu_torch.build_index import build_index_from_vectors
     from diskrag_tpu_torch.data.collection import CollectionManager
     from diskrag_tpu_torch.data.config import CollectionInfo
-    from diskrag_tpu_torch.engine import SearchEngine
 
     mgr = CollectionManager(base)
     (base / name).mkdir(parents=True)
@@ -882,11 +981,25 @@ def serve(base, name: str, pts, precision: str | None):
         name=name, config={}, dimension=pts.shape[1], num_vectors=len(pts),
         created_at="", updated_at="", source_files=[],
     ))
+    return mgr.get_index_dir(name)
+
+
+def serve(base, name: str, pts, precision: str | None):
+    """Persist `pts` as collection `name`, build its index — a flat one of
+    the given precision, or with `precision=None` whatever `index_type=
+    "auto"` and the defaults give, with the host tier's record file
+    (`write_compat`) — and load it into a `SearchEngine` on the card: the
+    entry points a user's `index` and `search` commands go through.
+    Returns (engine, meta)."""
+    from diskrag_tpu_torch.build_index import build_index_from_vectors
+    from diskrag_tpu_torch.engine import SearchEngine
+
+    index_dir = make_collection(base, name, pts)
     if precision is None:
-        meta = build_index_from_vectors(pts, mgr.get_index_dir(name), index_type="auto",
+        meta = build_index_from_vectors(pts, index_dir, index_type="auto", write_compat=True,
                                         device="cuda")
     else:
-        meta = build_index_from_vectors(pts, mgr.get_index_dir(name), index_type="flat",
+        meta = build_index_from_vectors(pts, index_dir, index_type="flat",
                                         flat_precision=precision, device="cuda")
         require(meta["index_type"] == "flat" and meta["flat_precision"] == precision,
                 "build did not make the requested flat index")
@@ -1444,7 +1557,7 @@ def phase_main_vamana(smi: str, base, pts, q, gt) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches["B5"], "rounds_per_batch": rounds / reps,
             "device_launches_per_round": prof.get("device_launches_per_round"),
-            **by_id, "gathered_form_engine_shape": gathered}
+            **by_id, "gathered_form_engine_shape": gathered, "auto_recall_at_64": recall}
 
 
 def with_launches_per_round(prof: dict, rounds_per_batch: float) -> dict:
@@ -1470,7 +1583,8 @@ def m1_bound_ms(bpad: int, npad: int, d: int, nb_out: int, b: int, n: int) -> tu
 
 def named(by_kernel: dict, part: str) -> float | None:
     """Device ms of the kernels whose name holds `part`: one must be among
-    those the profiler recorded. None where it recorded nothing at all."""
+    those the profiler recorded. None where `profiled` kept no window (its
+    reason is on a "profiler" line and in the by-kernel dict)."""
     if not by_kernel:
         return None
     ms = sum(v for k, v in by_kernel.items() if part in k)
@@ -1797,6 +1911,261 @@ def phase_api(smi: str, base, name: str, n_rows: int) -> None:
     torch.cuda.empty_cache()
 
 
+# recall@10 gates of the host tier's 1M int8 cell, by l_search (the JAX
+# package's v5e engine figures, its parity targets: 0.9916-0.9987 at L = 32,
+# E = 8 and 0.9992 at L = 48)
+HOST_TIER_RECALL_GATE = {32: 0.985, 48: 0.99}
+HOST_TIER_JAX_RECORDED = {32: "0.9916-0.9987", 48: "0.9992"}
+
+
+def _ht_drive(engine, q, gt, l_search: int, reps: int = 5) -> dict:
+    """One warm-up `search_batch`, then `reps` timed ones with every launch
+    count set to 0 just before and read just after."""
+    import numpy as np
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+
+    engine.search_batch(q, k=MAIN_K, l_search=l_search)
+    cache0 = engine.host_tier.reader.cache_stats()
+    dists, ids, all_stats, batch_s, launches = drive(engine, q, reps, l_search=l_search)
+    cache1 = engine.host_tier.reader.cache_stats()
+    stats = all_stats[-1]
+    require(ids.shape == (len(q), MAIN_K) and bool(np.isfinite(dists).all())
+            and bool((np.diff(dists, axis=1) >= 0).all()), "host-tier distances not finite and ascending")
+    require(stats["search_type"] == "host_tier", f"served as {stats['search_type']}")
+    med = float(np.median(batch_s))
+    return {
+        "l_search": l_search, "expand_width": stats["expand_width"],
+        "recall_at_10": recall_at_k(ids, gt, MAIN_K),
+        "ms_per_batch_median": med * 1e3, "ms_per_batch_min": min(batch_s) * 1e3,
+        "ms_per_batch_max": max(batch_s) * 1e3, "qps": len(q) / med,
+        "stage_ms": stats["stage_ms"], "rounds_per_batch": sum(s["rounds"] for s in all_stats) / reps,
+        "pipelined_chunks": stats.get("pipelined_chunks", 1),
+        "nodes_visited": stats["nodes_visited"],
+        "host_vectors_fetched": stats["host_vectors_fetched"],
+        "reader_cache_hits": cache1["hits"] - cache0["hits"],
+        "reader_cache_misses": cache1["misses"] - cache0["misses"],
+        "launches": launches, "_ids": ids, "_rounds": sum(s["rounds"] for s in all_stats),
+    }
+
+
+def _ht_search_ms(ht, q, reps: int, **kw) -> tuple[list, object, dict]:
+    """Host ms of `reps` calls of `HostTierIndex.search` (`pipelined` in kw
+    picks `search_pipelined`), after one warm-up; (times, ids, stats)."""
+    fn = ht.search_pipelined if kw.pop("pipelined", False) else ht.search
+    fn(q, **kw)
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        _, ids, stats = fn(q, **kw)
+        times.append((time.perf_counter() - t) * 1e3)
+    return times, ids, stats
+
+
+def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
+    """Cell host-tier-1M-iq8, as the JAX bench's host-tier stage builds it:
+    the degree-48 graph (B1 and B4 in its kNN pass), `IntQuantizer(bits=8)`
+    fit and encoded, `save_index(write_compat=True)` with the tuned L = 32 /
+    E = 8, then served by `SearchEngine(serving_mode="host_tier")`: int8
+    rows and the graph on the card, the f32 vectors in the record file,
+    the rerank on the host. The iq traversal reaches no kernel."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.engine import SearchEngine
+    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+    from diskrag_tpu_torch.index.host_tier import HostTierIndex
+    from diskrag_tpu_torch.index.persist import save_index
+    from diskrag_tpu_torch.pq.intq import IntQuantizer
+
+    name = "host_tier_1m"
+    index_dir = make_collection(base, name, pts)
+    stages: dict = {}
+    seconds: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    index = build_vamana_knn(pts, degree_bound=48, alpha=1.2, seed=0, device="cuda",
+                             stage_seconds=stages)
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - t0
+    build_launches = read_counts()
+    require(build_launches["B1"] > 0 and build_launches["B4"] == build_launches["B1"],
+            f"the 1M graph build did not go through B1 and B4: {build_launches}")
+    t0 = time.perf_counter()
+    iq8 = IntQuantizer(bits=8, device="cuda").fit(pts, seed=0)
+    torch.cuda.synchronize()
+    seconds["fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = iq8.encode(pts)
+    seconds["encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_index(index_dir, index, pq=iq8, pq_codes=codes,
+               meta_extra={"recommended_search_L": 32, "recommended_expand_width": 8},
+               write_compat=True, host_vectors=pts)
+    seconds["save"] = time.perf_counter() - t0
+    del index, iq8, codes
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = SearchEngine(name, base_dir=str(base), serving_mode="host_tier", device="cuda")
+    seconds["engine_load_and_self_check"] = time.perf_counter() - t0
+    ht = engine.host_tier
+    require(ht.mode == "iq" and ht.reader.is_native,
+            f"host tier picked mode {ht.mode}, native reader {ht.reader.is_native}")
+    require(bool(engine.diagnostics and engine.diagnostics["passed"]),
+            f"startup diagnostic failed: {engine.diagnostics}")
+    points, ids_at = [], {}
+    for l_search in (32, 48):
+        row = _ht_drive(engine, q, gt, l_search)
+        ids_at[l_search] = row.pop("_ids")
+        row.pop("_rounds")
+        require(not any(row["launches"].values()),
+                f"the iq traversal launched a kernel: {row['launches']}")
+        gate = HOST_TIER_RECALL_GATE[l_search]
+        require(row["recall_at_10"] >= gate,
+                f"host-tier 1M recall@10 {row['recall_at_10']} < {gate} at L={l_search}")
+        row.update(recall_gate=gate, jax_package_recorded=HOST_TIER_JAX_RECORDED[l_search])
+        points.append(row)
+    emit({"phase": "main-host-tier", "cell": "host-tier-1M-iq8", "n": len(pts), "d": pts.shape[1],
+          "queries": len(q), "k": MAIN_K, "degree_bound": 48, "mode": ht.mode,
+          "reader_native": ht.reader.is_native, "points": points, "seconds": seconds,
+          "build_stage_seconds": stages, "build_launches": build_launches,
+          "device_bytes_tier": ht.device_bytes(), "host_f32_bytes": int(pts.nbytes),
+          "device_allocated_bytes": torch.cuda.memory_allocated(), "card": smi})
+    rounds32 = points[0]["rounds_per_batch"]
+    emit(with_launches_per_round(
+        profile_batch(engine, q, steps=2, path="host-tier-1M-iq8", l_search=32,
+                      watch=("gemm", "bmm")), rounds32))
+
+    # the same queries through HostTierIndex.search and search_pipelined
+    # (chunk 500, the engine's), alternating, at L = 32 / E = 8
+    kw = dict(search_width=32, k=MAIN_K, expand_width=8)
+    seq_a, ids_seq, st_seq = _ht_search_ms(ht, q, 3, **kw)
+    pip_a, ids_pip, st_pip = _ht_search_ms(ht, q, 3, pipelined=True, chunk=500, **kw)
+    seq_b, _, _ = _ht_search_ms(ht, q, 3, **kw)
+    pip_b, _, _ = _ht_search_ms(ht, q, 3, pipelined=True, chunk=500, **kw)
+    require(bool(np.array_equal(ids_seq, ids_pip)), "search_pipelined ids differ from search")
+    require(bool(np.array_equal(ids_pip, ids_at[32])), "the engine's ids differ from search_pipelined")
+    emit({"phase": "main-host-tier", "cell": "host-tier-1M-iq8", "compare": "search vs search_pipelined",
+          "l_search": 32, "expand_width": 8, "chunk": 500,
+          "search_ms": seq_a + seq_b, "search_pipelined_ms": pip_a + pip_b,
+          "search_stage_ms": st_seq["stage_ms"], "search_pipelined_stage_ms": st_pip["stage_ms"],
+          "ids": "equal", "order": "search, pipelined, search, pipelined", "card": smi})
+
+    # the 256-byte gather pad: the same tier without it, rounds timed
+    # alternately on the same queries
+    bare = HostTierIndex.from_store(engine.manager.get_index_dir(name), gather_pad=False,
+                                    device="cuda")
+    require(bare.codes.shape[1] == 130 and ht.codes.shape[1] == 256, "gather pad widths")
+    rows = {}
+    for label, tier in (("padded_256", ht), ("unpadded_130", bare), ("padded_256_again", ht),
+                        ("unpadded_130_again", bare)):
+        times, ids, st = _ht_search_ms(tier, q, 3, **kw)
+        rows[label] = {"search_ms": times, "traverse_and_fetch_ms": st["stage_ms"]["traverse_and_fetch"],
+                       "rounds": st["rounds"]}
+        require(bool(np.array_equal(ids, ids_seq)), f"{label}: ids differ with the pad")
+    emit({"phase": "main-host-tier", "cell": "host-tier-1M-iq8", "compare": "gather pad",
+          "l_search": 32, "expand_width": 8, **rows, "ids": "equal", "card": smi})
+    del engine, ht, bare
+    torch.cuda.empty_cache()
+    shutil.rmtree(base / name, ignore_errors=True)  # 2 GB of files no later phase reads
+    return {"build_launches": build_launches}
+
+
+def phase_host_tier_200k(smi: str, base, name: str, pts, q, gt, auto_recall: float) -> dict:
+    """Cells host-tier-200k-pq and host-tier-200k-bf16 over the default
+    vamana collection (`phase_main_vamana` built it with its record file):
+    `SearchEngine(serving_mode="host_tier")` picks the residual PQ (m = 16),
+    B5 by id once a round; one HTTP /search through `create_app`; then
+    `HostTierIndex.from_store(mode="bf16")` of the same directory."""
+    import asyncio
+
+    import aiohttp
+    import numpy as np
+    import torch
+    from aiohttp import web
+
+    from diskrag_tpu_torch.api import AppState, create_app
+    from diskrag_tpu_torch.benchmark import recall_at_k
+    from diskrag_tpu_torch.data import EmbeddingConfig, EmbeddingGenerator
+    from diskrag_tpu_torch.engine import SearchEngine
+    from diskrag_tpu_torch.index.host_tier import HostTierIndex
+    from diskrag_tpu_torch.pq.residual import ResidualPQ
+
+    engine = SearchEngine(name, base_dir=str(base), serving_mode="host_tier", device="cuda")
+    ht = engine.host_tier
+    require(ht.mode == "pq" and isinstance(ht.pq, ResidualPQ) and ht.pq.n_subvectors == 16,
+            f"host tier over the default index picked {ht.mode} / {type(ht.pq).__name__}")
+    row = _ht_drive(engine, q, gt, 64)
+    row.pop("_ids")
+    rounds = row.pop("_rounds")
+    others = {k: v for k, v in row["launches"].items() if k != "B5"}
+    require(row["launches"]["B5"] == rounds > 0 and not any(others.values()),
+            f"expected {rounds} launches of B5 (one a round) and no other: {row['launches']}")
+    require(row["recall_at_10"] >= auto_recall - 0.01,
+            f"host-tier pq recall {row['recall_at_10']} < mode auto's {auto_recall} - 0.01")
+    emit({"phase": "main-host-tier", "cell": "host-tier-200k-pq", "n": len(pts), "d": pts.shape[1],
+          "queries": len(q), "k": MAIN_K, "mode": ht.mode, "n_subvectors": 16,
+          "auto_mode_recall_at_64": auto_recall, **row,
+          "device_bytes_tier": ht.device_bytes(), "host_f32_bytes": int(pts.nbytes), "card": smi})
+    emit(with_launches_per_round(
+        profile_batch(engine, q, steps=2, path="host-tier-200k-pq", l_search=64,
+                      watch=("adc_lookup_kernel",)), row["rounds_per_batch"]))
+
+    # one HTTP /search under host_tier (the collection got its metadata
+    # table in phase_api)
+    cfg = EmbeddingConfig(provider="mock", model="mock", dimension=MAIN_D)
+    state = AppState(base_dir=str(base), embedding_config=cfg, serving_mode="host_tier",
+                     device="cuda")
+    state.embedder = EmbeddingGenerator(cfg, cache_dir=base / ".embeddings")
+    state.prepare()
+    state.get_engine(name)
+    sent: list = []
+
+    async def exchange() -> None:
+        runner = web.AppRunner(create_app(state))
+        await runner.setup()
+        try:
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            url = f"http://127.0.0.1:{runner.addresses[0][1]}/search"
+            t = time.perf_counter()
+            async with aiohttp.request("POST", url, json={
+                    "collection": name, "query": "how do I use feature 3?", "top_k": 5}) as resp:
+                sent.append((resp.status, await resp.json(), (time.perf_counter() - t) * 1e3))
+        finally:
+            await runner.cleanup()
+
+    reset_counts()
+    asyncio.run(exchange())
+    launches = read_counts()
+    status, body, ms = sent[0]
+    require(status == 200 and len(body["results"]) == 5, f"/search under host_tier answered {status}")
+    st = body["stats"]
+    require(st["search_type"] == "host_tier" and launches["B5"] == st["rounds"] > 0,
+            f"/search under host_tier: {st['search_type']}, B5 {launches['B5']}, rounds {st['rounds']}")
+    emit({"phase": "main-host-tier", "cell": "host-tier-200k-pq", "request": "/search", "status": status,
+          "ms": ms, "search_type": st["search_type"], "l_search": st["L_search"],
+          "rounds": st["rounds"], "launches": launches, "card": smi})
+    b5_launches = row["launches"]["B5"]
+    del engine, state, ht
+    torch.cuda.empty_cache()
+
+    # bf16 traversal of the same directory
+    index_dir = base / name / "index"
+    bf = HostTierIndex.from_store(index_dir, mode="bf16", device="cuda")
+    out = {}
+    for l_search in (32, 64):
+        times, ids, st = _ht_search_ms(bf, q, 3, search_width=l_search, k=MAIN_K, expand_width=4)
+        out[l_search] = {"recall_at_10": recall_at_k(ids, gt, MAIN_K), "search_ms": times,
+                         "stage_ms": st["stage_ms"], "rounds": st["rounds"]}
+    emit({"phase": "main-host-tier", "cell": "host-tier-200k-bf16", "n": len(pts), "expand_width": 4,
+          "by_l_search": out, "device_bytes_tier": bf.device_bytes(), "card": smi})
+    del bf
+    torch.cuda.empty_cache()
+    return {"b5_launches": b5_launches, "rounds": rounds}
+
+
 def main() -> int:
     try:
         import torch
@@ -1843,22 +2212,30 @@ def main() -> int:
         out["kernels"].append(phase_main_bf16(dev["smi"], base, sets))
         m1 = phase_m1_kernels(dev["smi"], sets)
         m1["launches"] = phase_micro(dev["smi"], sets)
+        ht1m = phase_host_tier_1m(dev["smi"], base, *sets[MAIN_N])
+        for row in out["kernels"][:2]:  # B1, B4: their launches in the 1M host-tier build
+            row["launches_host_tier_1m_build"] = ht1m["build_launches"][row["name"][:2]]
         del sets[MAIN_N]
         build_shapes = phase_build_shape_kernels(sets[CMP_N][0], dev["smi"])
         for row in out["kernels"][:2]:  # B1, B4: their shapes inside the graph build
             row["graph_build_shape"] = build_shapes[row["name"][:2]]
         graph = phase_main_graph(dev["smi"], *sets[CMP_N])
         b5 = phase_main_vamana(dev["smi"], base, *sets[CMP_N])
-        out["kernels"].append({
+        auto_recall = b5.pop("auto_recall_at_64")
+        b5_row = {
             "name": "B5 adc_lookup (ADC lookup of the PQ-guided traversal: by id with the "
                     "residual terms on the main path; the gathered form below)",
             "route": "cuda", "source": "diskrag_tpu_torch/csrc/adc_lookup.cu",
             "replaces": "diskrag_tpu/ops/pq_scan.py:30", **b5,
             "sweep_shape": graph["sweep_shape"],
             "launches_pq_sweep": graph["launches_pq_sweep"],
-        })
+        }
+        out["kernels"].append(b5_row)
         out["kernels"].append(m1)
         phase_api(dev["smi"], base, "vamana_200k", CMP_N)
+        ht200 = phase_host_tier_200k(dev["smi"], base, "vamana_200k", *sets[CMP_N], auto_recall)
+        b5_row["launches_host_tier_200k_pq"] = ht200["b5_launches"]
+        b5_row["rounds_host_tier_200k_pq"] = ht200["rounds"]
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

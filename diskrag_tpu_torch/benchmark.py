@@ -1,8 +1,9 @@
 """Benchmark helpers — part of `diskrag_tpu/benchmark.py`: the seeded
 dataset (numpy, byte-identical to the JAX package's), recall@k, an exact
 tiled ground-truth oracle in PyTorch, the graph sweeps (`sweep_exact`,
-`sweep_pq`) and the flat-index sweep (`sweep_flat`,
-`adaptive_flat_point`) with their timing helper. A test, smoke and
+`sweep_pq`, `sweep_iq`), the host tier's (`sweep_host_tier`) and the
+flat-index sweep (`sweep_flat`, `adaptive_flat_point`) with their timing
+helper. A test, smoke and
 measurement tool, not on the search path.
 """
 
@@ -188,6 +189,59 @@ def sweep_pq(
     return _graph_sweep(search_chunk, index, queries, gt, k=k, widths=widths,
                         expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
                         mode=mode, min_seconds=min_seconds)
+
+
+def sweep_iq(
+    index, iq, rows: np.ndarray, queries: np.ndarray, gt: np.ndarray, *,
+    k: int, widths=(16, 24), expand_widths=(8,), repeats: int = 3,
+    pipeline: int = 4, min_seconds: float = 1.5,
+) -> list[SweepPoint]:
+    """Int-quantized traversal + exact-rerank sweep (`pq/intq.py`,
+    `beam_search_iq`): int8 / int4 rows guide the beam, the rerank of beam
+    ∪ visited restores recall. The query tables are built inside the timed
+    pass, as `sweep_pq` builds its own."""
+    from diskrag_tpu_torch.graph.search import beam_search_iq
+
+    rows_t = torch.as_tensor(np.asarray(rows, np.int8), device=index.device)
+    label = f"iq{iq.bits}" + (f"c{iq.n_cells}" if iq.n_cells else "")
+
+    def search_chunk(c, w, e):
+        return beam_search_iq(
+            rows_t, iq.query_tables(c), index.adjacency, index.medoid,
+            dim=iq.dim, bits=iq.bits, n_cells=iq.n_cells, search_width=w, k=k,
+            rerank=True, vectors=index.vectors, queries=c, metric=index.metric,
+            expand_width=e, entry_points=index.entry_points,
+        )
+
+    return _graph_sweep(search_chunk, index, queries, gt, k=k, widths=widths,
+                        expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
+                        mode=label, min_seconds=min_seconds)
+
+
+def sweep_host_tier(
+    index_dir, queries: np.ndarray, gt: np.ndarray, *, k: int,
+    widths=(32, 48, 64), expand_widths=(4,), repeats: int = 3, device: str = "cuda",
+) -> list[SweepPoint]:
+    """Host-offload tier sweep (the analog of the reference's disk-mode
+    beam sweep): the compressed traversal form and the graph on the
+    device, the full vectors fetched from the host record file for the
+    rerank. `HostTierIndex.search` on the whole batch, after one warm-up
+    pass at the batch's shape; `rounds` are one pass's."""
+    from diskrag_tpu_torch.index.host_tier import HostTierIndex
+
+    ht = HostTierIndex.from_store(index_dir, device=device)
+    points = []
+    for w in widths:
+        for e in expand_widths:
+            ht.search(queries, search_width=w, k=k, expand_width=e)
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                _, ids, stats = ht.search(queries, search_width=w, k=k, expand_width=e)
+            dt = (time.perf_counter() - t0) / repeats
+            points.append(SweepPoint(w, recall_at_k(ids, gt, k), len(queries) / dt,
+                                     dt / len(queries) * 1e3, "host-tier", e,
+                                     rounds=stats["rounds"], passes=repeats + 1))
+    return points
 
 
 def _point(idx, q, gt, k, mode, repeats, min_seconds, width=0) -> SweepPoint:

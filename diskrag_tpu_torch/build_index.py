@@ -9,10 +9,11 @@ chosen device. `build_index_from_vectors` builds and persists
   - a flat index for `index_type="flat"`, and for `"auto"` below 100k
     points;
   - a Vamana graph with adaptive PQ for `"vamana"`, and for `"auto"` from
-    100k points up, by the kNN-based build.
+    100k points up, by the kNN-based build; `pq_kind` int8 / int4 trains
+    the int quantizer (`pq/intq.py`) instead, and `write_compat` adds the
+    packed record file the host tier serves from.
 
-The wave-insertion build, the int-quantized rows, IVF and sharded
-indexes are later slices of the port (ROADMAP.md, "Modules still to
+The wave-insertion build, IVF and sharded indexes are later slices of the port (ROADMAP.md, "Modules still to
 port"); asking for one raises `NotImplementedError` rather than building
 something else.
 """
@@ -89,11 +90,15 @@ def _vector_stats(vectors: np.ndarray) -> dict:
     }
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _validate_pq(pq, vectors: np.ndarray, codes: np.ndarray,
                  coarse_ids: np.ndarray | None = None) -> dict:
     """PQ acceptance checks: encode determinism, reconstruction error,
-    exact-vs-ADC correlation, for a plain ProductQuantizer and for a
-    ResidualPQ."""
+    exact-vs-ADC correlation, for a plain ProductQuantizer, a ResidualPQ
+    and an IntQuantizer (whose "codes" are its int8 rows)."""
     n = len(vectors)
     sample = np.random.default_rng(0).choice(n, size=min(256, n), replace=False)
     residual = coarse_ids is not None
@@ -104,7 +109,7 @@ def _validate_pq(pq, vectors: np.ndarray, codes: np.ndarray,
             and (cids2.cpu().numpy() == coarse_ids[sample]).all()
         )
     else:
-        consistent = bool((pq.encode(vectors[sample]).cpu().numpy() == codes[sample]).all())
+        consistent = bool((_host(pq.encode(vectors[sample])) == codes[sample]).all())
 
     recon_err = pq.reconstruction_error(vectors[sample])
     base = float(np.mean(np.sum(np.square(vectors[sample]), axis=1)))
@@ -135,12 +140,13 @@ def _validate_pq(pq, vectors: np.ndarray, codes: np.ndarray,
 def _resolve_pq_kind(pq_kind: str, metric: str) -> str:
     """"auto" trains a ResidualPQ on L2 indexes (plain-PQ ADC ordering
     collapses on clustered data, `pq/residual.py`) and a plain PQ
-    otherwise (ADC traversal is L2-only anyway)."""
+    otherwise (ADC traversal is L2-only anyway). "int8" / "int4" train the
+    int quantizer (`pq/intq.py`), L2 only."""
     if pq_kind == "auto":
         return "residual" if metric == "l2" else "plain"
-    if pq_kind in ("int8", "int4"):
-        raise _not_ported(f"pq_kind={pq_kind!r} (the int-quantized rows of pq/intq)")
-    if pq_kind not in ("plain", "residual"):
+    if pq_kind in ("int8", "int4") and metric != "l2":
+        raise ValueError(f"pq_kind={pq_kind} is L2-only (normalize + l2 for cosine)")
+    if pq_kind not in ("plain", "residual", "int8", "int4"):
         raise ValueError(f"unknown pq_kind: {pq_kind}")
     return pq_kind
 
@@ -148,9 +154,16 @@ def _resolve_pq_kind(pq_kind: str, metric: str) -> str:
 def _train_pq(vectors: np.ndarray, n_subvectors: int, kind: str, *, seed: int = 0,
               opq_iters: int = 0, device: str | torch.device = "cuda"):
     """Fit the requested quantizer kind; returns (pq, codes, coarse_ids)
-    as numpy arrays, coarse_ids None for plain PQ."""
+    as numpy arrays, coarse_ids None for plain PQ. For int8 / int4 the
+    "codes" are the IntQuantizer's int8 rows (`n_subvectors` is ignored:
+    the dimension and the bit depth set the row width)."""
     if kind in ("int8", "int4"):
-        raise _not_ported(f"pq_kind={kind!r} (the int-quantized rows of pq/intq)")
+        from diskrag_tpu_torch.pq import IntQuantizer, default_iq_cells
+
+        bits = int(kind[3:])
+        iq = IntQuantizer(bits=bits, n_cells=default_iq_cells(len(vectors), bits),
+                          device=device).fit(vectors, seed=seed)
+        return iq, iq.encode(vectors), None
     if kind == "residual":
         from diskrag_tpu_torch.pq import ResidualPQ, default_n_coarse
 
@@ -309,9 +322,6 @@ def build_index_from_vectors(
         raise _not_ported("build_method='wave' (the insertion build of graph/build)")
     if build_method != "knn":
         raise ValueError(f"unknown build_method: {build_method}")
-    if write_compat:
-        raise _not_ported("write_compat (the packed record file of the host tier)")
-
     params = calculate_adaptive_build_params(n, target_quality)
     if params_override:
         params.update(params_override)
@@ -346,7 +356,7 @@ def build_index_from_vectors(
 
     meta = save_index(
         index_dir, index, pq=pq, pq_codes=codes, pq_coarse_ids=coarse_ids,
-        host_vectors=vectors,
+        host_vectors=vectors, write_compat=write_compat,
         meta_extra={
             "L": l,
             "alpha": alpha,

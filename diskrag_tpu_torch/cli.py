@@ -250,9 +250,8 @@ class DiskRAG:
         """Repair a collection's index artifacts: retrain PQ from
         vectors.npy; if vectors.npy is missing but index artifacts exist,
         reconstruct it from the persisted index. The quantizer kind that
-        `meta.json` records is the one retrained; a kind the port cannot
-        train yet (int8 / int4) raises `NotImplementedError` rather than
-        being repaired as another kind."""
+        `meta.json` records is the one retrained (int8 / int4 rows as
+        their own kind)."""
         import json
 
         from diskrag_tpu_torch.build_index import _resolve_pq_kind, attach_pq
@@ -282,13 +281,6 @@ class DiskRAG:
             except ValueError:
                 pass
         index_type = peek.get("index_type", "vamana")
-        if peek.get("pq_kind") in ("int8", "int4"):
-            raise NotImplementedError(
-                f"doctor: this index was built with pq_kind={peek['pq_kind']!r} (the "
-                "int-quantized rows of pq/intq), which the port cannot retrain yet "
-                "(ROADMAP.md, 'Modules still to port': int-quantized traversal); "
-                "it is not repaired as another kind"
-            )
         if index_type in ("flat", "ivf", "sharded"):
             # these types have no detached PQ artifact set to repair
             report["actions"].append(
@@ -317,7 +309,7 @@ class DiskRAG:
         pq_src = index.vectors.cpu().numpy()
         if pq is None or codes is None or len(codes) != n_index:
             # retrain the SAME quantizer kind the index was built with
-            # (meta records it); `_resolve_pq_kind` refuses int8 / int4
+            # (meta records it)
             kind = _resolve_pq_kind(
                 meta.get("pq_kind") or "auto", meta.get("distance_metric", "l2"))
             pq, codes, validation = attach_pq(pq_src, pq_kind=kind, device=self.device)
@@ -404,9 +396,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", "-k", type=int, default=5)
     p.add_argument("--faq", action="store_true",
                    help="FAQ mode: dedup by qa_id, keep type=='faq' entries")
-    p.add_argument("--serving-mode", default="auto", choices=["auto"],
-                   help="the port serves mode 'auto' (host_tier, sharded_flat "
-                        "and streaming are later slices: ROADMAP.md)")
+    p.add_argument("--serving-mode", default="auto", choices=["auto", "host_tier"],
+                   help="host_tier: graph and compressed rows on the device, f32 "
+                        "vectors in the host record file (needs an index built "
+                        "with write_compat); sharded_flat and streaming are later "
+                        "slices (ROADMAP.md)")
 
     p = sub.add_parser("process-dir", help="process a whole directory")
     p.add_argument("directory")

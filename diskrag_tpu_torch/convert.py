@@ -5,8 +5,8 @@ so that both packages compute on the same index.
 JAX `diskrag_tpu.ops.flat.FlatIndex` (the scan table is taken as it is,
 not rebuilt); `vamana_index_from_jax` a `VamanaIndex` from a JAX graph's
 arrays; `pq_from_jax` a quantizer from a JAX quantizer's `to_arrays()`,
-with its codes and residual serving arrays moved to the device.
-Persisted indexes need no conversion: both packages read and write the
+with its codes and residual serving arrays moved to the device;
+`iq_from_jax` an `IntQuantizer` from a JAX one's state. Persisted indexes need no conversion: both packages read and write the
 same `index/` layout.
 """
 
@@ -105,3 +105,15 @@ def pq_from_jax(
 
     return (pq, put(codes, torch.uint8), put(point_cell, torch.int32),
             put(point_bias, torch.float32))
+
+
+def iq_from_jax(jax_iq, *, device: str = "cuda"):
+    """The port's `IntQuantizer` with a JAX `diskrag_tpu.pq.intq.IntQuantizer`'s
+    state (bits, cells, per-dim steps, cell centroids, the bias lanes'
+    affine), carried across as numpy: the two then encode and score the
+    same rows."""
+    from diskrag_tpu_torch.pq.intq import IntQuantizer
+
+    return IntQuantizer.from_arrays(
+        {k: np.asarray(v) for k, v in jax_iq.to_arrays().items()}, device=device
+    )

@@ -8,15 +8,25 @@ Loads a collection's index, runs the startup self-check, and serves
   - a Vamana graph (`index_type: vamana`, the default): PQ-guided
     traversal + exact rerank of beam ∪ visited ("pq_accelerated") when
     the index carries PQ artifacts, the metric is L2 and the caller did
-    not turn it off; exact traversal ("exact") otherwise;
+    not turn it off — int-quantized traversal ("iq_accelerated") when
+    those artifacts are IntQuantizer rows; exact traversal ("exact")
+    otherwise;
   - a flat index (`index_type: flat`), served by `ops.flat.FlatIndex`
     with the collection's precision and rerank width;
   - no loadable index: brute-force mode, the flat scan over the
     collection's `vectors.npy`.
 
-The other index types (ivf, sharded) and serving modes (host_tier,
-sharded_flat, streaming) raise `NotImplementedError`: those are later
-slices of the port, and serving them by brute force would hide that.
+Serving mode "host_tier" serves a vamana index saved with `write_compat`
+from `index.host_tier.HostTierIndex`: the graph and a compressed
+traversal form on the device, the f32 vectors in the host record file,
+the exact rerank on the host; batches over one chunk are pipelined. It
+never degrades to brute force: a missing or broken artifact raises
+`ServingConfigError`.
+
+The other index types (ivf, sharded) and serving modes (sharded_flat,
+streaming, host_tier on a sharded index) raise `NotImplementedError`:
+those are later slices of the port, and serving them by brute force
+would hide that.
 Results come back to the host with one `.cpu()` per output per batch;
 `search_pipelined` of the JAX package (it hides a remote device's fetch
 latency) is not ported.
@@ -42,7 +52,8 @@ logger = logging.getLogger(__name__)
 
 class ServingConfigError(RuntimeError):
     """A request the engine's serving configuration cannot take (a live
-    insert or delete on an engine that is not in streaming mode).
+    insert or delete on an engine that is not in streaming mode, a
+    host-tier engine over an index without its record file).
     Deliberately not a ValueError: the artifact-loading path degrades
     ValueError / FileNotFoundError to brute-force serving, and a
     configuration error must reach the operator instead."""
@@ -63,13 +74,16 @@ class SearchEngine:
     ):
         if serving_mode not in ("auto", "host_tier", "sharded_flat", "streaming"):
             raise ValueError(f"unknown serving_mode: {serving_mode}")
-        if serving_mode != "auto":
+        if serving_mode in ("sharded_flat", "streaming"):
             raise NotImplementedError(
                 f"serving_mode={serving_mode!r} is not ported yet (ROADMAP.md, "
-                "'Modules still to port'); the port serves mode 'auto'"
+                "'Modules still to port'); the port serves modes 'auto' and 'host_tier'"
             )
         self.device = resolve_device(device)
         self.serving_mode = serving_mode
+        # host-tier batches larger than this are pipelined (the host
+        # reranks chunk i while the device traverses chunk i+1)
+        self.host_tier_pipeline_chunk = 256
         self.collection_name = collection_name
         self.manager = CollectionManager(base_dir)
         info = self.manager.get_collection_info(collection_name)
@@ -91,6 +105,7 @@ class SearchEngine:
         self.pq_cells_t = None  # residual-PQ aux (pq/residual.py)
         self.pq_bias_t = None
         self.flat = None
+        self.host_tier = None   # serving_mode "host_tier"
         self.streaming = None   # the mutable tier: a later slice (ROADMAP.md)
         self.meta: dict = {}
         self.use_pq = False
@@ -123,8 +138,12 @@ class SearchEngine:
         if self.index_type not in ("vamana", "flat"):
             raise NotImplementedError(
                 f"index_type={self.index_type!r} is not ported yet: the port "
-                "serves vamana and flat indexes (ROADMAP.md, 'Modules still to port')"
+                f"serves vamana and flat indexes (serving_mode={self.serving_mode!r}; "
+                "ROADMAP.md, 'Modules still to port')"
             )
+        if self.serving_mode == "host_tier":
+            self._load_host_tier(index_dir, meta_path)
+            return
         try:
             if self.index_type == "flat":
                 vecs, self.meta = load_flat_vectors(index_dir)
@@ -175,6 +194,32 @@ class SearchEngine:
                 self.pq_bias_t = torch.as_tensor(bias, device=self.device).to(torch.float32)
         self.recommended_l = int(self.meta.get("recommended_search_L", 64))
 
+    def _load_host_tier(self, index_dir, meta_path) -> None:
+        """The single-card host tier over a vamana index with its record
+        file. Configuration errors, and artifacts that are missing or
+        broken, raise `ServingConfigError`: an explicit host-tier request
+        never degrades to a brute-force load of the full f32 set it
+        exists to keep off the device."""
+        from diskrag_tpu_torch.index.host_tier import HostTierIndex
+        from diskrag_tpu_torch.index.persist import IndexStore
+
+        if self.index_type != "vamana":
+            raise ServingConfigError(
+                f"host_tier serving needs a vamana index, got {self.index_type}"
+            )
+        compat = IndexStore(index_dir).compat_path
+        if not compat.exists():
+            raise ServingConfigError(
+                f"host_tier serving needs the packed record file {compat} "
+                "(build with write_compat)"
+            )
+        try:
+            self.host_tier = HostTierIndex.from_store(index_dir, device=self.device)
+            self.meta = json.loads(meta_path.read_text())
+        except (FileNotFoundError, ValueError) as e:
+            raise ServingConfigError(f"host_tier serving could not load its artifacts: {e}") from e
+        self.recommended_l = int(self.meta.get("recommended_search_L", 64))
+
     def _pq_serving_tables(self, q: torch.Tensor) -> tuple:
         """(tables, beam_search_pq aux kwargs) for the active quantizer:
         inner tables + cell / bias operands for a ResidualPQ (its serving
@@ -188,7 +233,14 @@ class SearchEngine:
         return self.pq.compute_distance_tables(q), {}
 
     def _diagnostic_sample(self, n_sample: int = 8):
+        """(vectors f32 [S, D], ids [S]) from the storage the serving mode
+        keeps: the device tensors, or the host record file of the host
+        tier."""
         rng = np.random.default_rng(0)
+        if self.host_tier is not None:
+            n = int(self.meta["num_points"])
+            ids = np.sort(rng.choice(n, size=min(n_sample, n), replace=False))
+            return self.host_tier.reader.get_vectors(ids), ids
         vectors = self.flat.vectors if self.flat is not None else self.index.vectors
         n = vectors.shape[0]
         ids = np.sort(rng.choice(n, size=min(n_sample, n), replace=False))
@@ -208,7 +260,8 @@ class SearchEngine:
         dim = int(sample_vecs.shape[1])
         if not validate_vector_dimension(dim):
             logger.warning("dimension %d is outside the supported whitelist", dim)
-        mode = "brute_force" if self.brute_force_mode else self.index_type
+        mode = ("brute_force" if self.brute_force_mode
+                else self.serving_mode if self.serving_mode != "auto" else self.index_type)
         result = {
             "vector_stats": {
                 "n_points": self._n_points(),
@@ -322,12 +375,14 @@ class SearchEngine:
             # explicit l_search overrides it either way
             l_search = max(2 * k, 20, self.recommended_l)
         l_search = max(l_search, k)
-        dists_t, ids_t, res, search_type, counts = self._dispatch_branches(
+        dists_t, ids_t, res, search_type, counts, extra = self._dispatch_branches(
             q, b, k, l_search, use_pq_search
         )
         t_fetch = time.perf_counter()
-        ids = ids_t.cpu().numpy()
-        dists = dists_t.cpu().numpy().astype(np.float64)
+        ids = np.asarray(ids_t.cpu() if isinstance(ids_t, torch.Tensor) else ids_t)
+        dists = np.asarray(
+            dists_t.cpu() if isinstance(dists_t, torch.Tensor) else dists_t
+        ).astype(np.float64)
         counter = 0 if res is None else int(torch.sum(res.n_expanded))
         fetch_time = time.perf_counter() - t_fetch
         nodes_visited, n_exact, n_pq = counts(counter)
@@ -351,41 +406,81 @@ class SearchEngine:
         }
         if res is not None:
             stats["rounds"] = int(res.n_steps)  # traversal rounds executed
+        stats.update(extra)
         return dists, ids, stats
 
     def _dispatch_branches(self, q: torch.Tensor, b: int, k: int, l_search: int,
                            use_pq_search: bool):
-        """(dists, ids, graph SearchResult | None, search_type, counts) of
-        the active mode; `counts(total_expanded)` gives the (nodes_visited,
-        n_exact, n_pq) stats triple."""
-        from diskrag_tpu_torch.graph.search import beam_search, beam_search_pq
+        """(dists, ids, graph SearchResult | None, search_type, counts,
+        extra stats) of the active mode; `counts(total_expanded)` gives the
+        (nodes_visited, n_exact, n_pq) stats triple. dists / ids are device
+        tensors, or numpy arrays from the host tier."""
+        from diskrag_tpu_torch.graph.search import beam_search, beam_search_iq, beam_search_pq
+        from diskrag_tpu_torch.pq.intq import IntQuantizer
 
+        if self.host_tier is not None:
+            return self._host_tier_branch(q, b, k, l_search)
         if self.flat is not None:
             dists, ids = self.flat.search(q, k=k)
             nv = self.flat.n_points * b
             kind = "brute_force" if self.brute_force_mode else "flat"
-            return dists, ids, None, kind, lambda c: (nv, nv, 0)
+            return dists, ids, None, kind, lambda c: (nv, nv, 0), {}
         index = self.index
         deg = index.degree_bound
         if use_pq_search and self.use_pq and index.metric == "l2":
-            # ADC tables rank by squared L2 only: on a cosine / dot index
-            # PQ-guided traversal would converge to the wrong region, so
-            # those metrics fall through to exact traversal below
-            tables, aux = self._pq_serving_tables(q)
-            res = beam_search_pq(
-                self.codes_t, tables, index.adjacency, index.medoid,
-                search_width=l_search, k=k, rerank=True,
-                vectors=index.vectors, queries=q, metric=index.metric,
-                entry_points=index.entry_points, **aux,
-            )
+            # ADC / iq tables rank by squared L2 only: on a cosine / dot
+            # index quantized traversal would converge to the wrong region,
+            # so those metrics fall through to exact traversal below
+            if isinstance(self.pq, IntQuantizer):
+                res = beam_search_iq(
+                    self.codes_t, self.pq.query_tables(q), index.adjacency, index.medoid,
+                    dim=self.pq.dim, bits=self.pq.bits, n_cells=self.pq.n_cells,
+                    search_width=l_search, k=k, rerank=True,
+                    vectors=index.vectors, queries=q, metric=index.metric,
+                    entry_points=index.entry_points,
+                )
+                kind = "iq_accelerated"
+            else:
+                tables, aux = self._pq_serving_tables(q)
+                res = beam_search_pq(
+                    self.codes_t, tables, index.adjacency, index.medoid,
+                    search_width=l_search, k=k, rerank=True,
+                    vectors=index.vectors, queries=q, metric=index.metric,
+                    entry_points=index.entry_points, **aux,
+                )
+                kind = "pq_accelerated"
             ne = b * (l_search + res.visited_ids.shape[1])
-            return res.dists, res.ids, res, "pq_accelerated", lambda c: (c, ne, c * deg)
+            return res.dists, res.ids, res, kind, lambda c: (c, ne, c * deg), {}
         res = beam_search(
             index.vectors, index.adjacency, index.medoid, q,
             search_width=l_search, k=k, metric=index.metric,
             entry_points=index.entry_points,
         )
-        return res.dists, res.ids, res, "exact", lambda c: (c, c * deg, 0)
+        return res.dists, res.ids, res, "exact", lambda c: (c, c * deg, 0), {}
+
+    def _host_tier_branch(self, q: torch.Tensor, b: int, k: int, l_search: int):
+        """The host tier's search: batches over one chunk pipelined
+        (chunk >= half the batch: narrower chunks add traversal rounds
+        faster than the overlap pays back), the expand width and the
+        rerank-pool cut from the index meta when the build tuned them."""
+        chunk = max(self.host_tier_pipeline_chunk, -(-b // 2))
+        e = int(self.meta.get("recommended_expand_width", 0) or 4)
+        kwargs = {}
+        rp = int(self.meta.get("recommended_rerank_pool", 0) or 0)
+        if rp:
+            kwargs["rerank_pool"] = rp
+        dists, ids, ht = self.host_tier.search_pipelined(
+            q.cpu().numpy(), search_width=l_search, k=k, chunk=chunk,
+            expand_width=e, **kwargs,
+        )
+        nv = ht["nodes_visited"]
+        ne = ht["host_vectors_fetched"]
+        npq = nv * int(self.host_tier.adjacency.shape[1]) if self.host_tier.mode == "pq" else 0
+        extra = {"rounds": ht["rounds"], "stage_ms": ht["stage_ms"], "mode": ht["mode"],
+                 "expand_width": e, "host_vectors_fetched": ne, "cache": ht["cache"]}
+        if "pipelined_chunks" in ht:
+            extra["pipelined_chunks"] = ht["pipelined_chunks"]
+        return dists, ids, None, "host_tier", lambda c: (nv, ne, npq), extra
 
     # --- public text API -------------------------------------------------
     def search(

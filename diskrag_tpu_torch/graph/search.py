@@ -416,9 +416,61 @@ def beam_search_pq(
     return exact_rerank(vectors, queries, res, k, metric)
 
 
-def beam_search_iq(*args, **kwargs):
-    """Int-quantized graph search of the JAX package: not ported."""
-    raise NotImplementedError(
-        "beam_search_iq needs pq/intq, which is not ported yet (ROADMAP.md, "
-        "'Modules still to port')"
+def beam_search_iq(
+    rows: torch.Tensor,
+    tables,
+    adjacency: torch.Tensor,
+    medoid: torch.Tensor,
+    *,
+    dim: int,
+    bits: int,
+    n_cells: int,
+    search_width: int,
+    k: int,
+    max_steps: int | None = None,
+    rerank: bool = True,
+    vectors: torch.Tensor | None = None,
+    queries: torch.Tensor | None = None,
+    metric: str = Metric.L2.value,
+    expand_width: int = 1,
+    entry_points: torch.Tensor | None = None,
+    onehot_cells: bool = True,
+) -> SearchResult:
+    """Int-quantized graph search: traversal guided by int8 / int4 rows
+    (`pq/intq.py`), optionally an exact rerank of beam ∪ visited.
+
+    A candidate costs one row gather and its share of one [B, Cand, D]
+    product, both plain PyTorch: the JAX package scores these rows outside
+    Pallas too, so no kernel of the port serves this search.
+
+    Args:
+      rows: int8 [N, W] encoded rows (`IntQuantizer.encode`; trailing pad
+        lanes allowed).
+      tables: `IQTables` from `IntQuantizer.query_tables(queries)`.
+      dim / bits / n_cells: the quantizer's geometry.
+      onehot_cells: accepted for the JAX signature; the cell term is a
+        gather either way (same values, `pq/intq.py::_cell_term`).
+    """
+    from diskrag_tpu_torch.pq.intq import iq_score_gathered, iq_score_shared
+
+    max_steps = _default_steps(search_width, expand_width, k, max_steps)
+    b = tables.qw.shape[0]
+
+    def expand(ids):
+        return iq_score_gathered(tables, rows[ids], dim=dim, bits=bits, n_cells=n_cells,
+                                 onehot_cells=onehot_cells)
+
+    def seed_expand(seeds):
+        return iq_score_shared(tables, rows[seeds], dim=dim, bits=bits, n_cells=n_cells)
+
+    res = _frontier_search(
+        adjacency, medoid, expand, b,
+        search_width=search_width, k=search_width, max_steps=max_steps,
+        expand_width=expand_width, entry_points=entry_points,
+        seed_expand_fn=seed_expand,
     )
+    if not rerank:
+        return dataclasses.replace(res, ids=res.ids[:, :k], dists=res.dists[:, :k])
+    if vectors is None or queries is None:
+        raise ValueError("rerank=True requires vectors and queries")
+    return exact_rerank(vectors, queries, res, k, metric)

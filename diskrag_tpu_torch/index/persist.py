@@ -12,12 +12,13 @@ package loads in the other:
       pq_model.npz       codebooks float32[m, 256, ds] + params
                          (+ coarse_centroids for a residual PQ)
       pq_aux.npz         point_cell int32[N], point_bias f32[N] (residual PQ)
+      index.dat          packed records f32[D] ‖ u32[R]    (write_compat)
 
+`pq_codes.npy` holds an IntQuantizer's int8 rows [N, row_width] instead
+of PQ codes when `pq_kind` is int8 / int4 (self-contained, no aux file).
 Writes are atomic (`.tmp` then rename); the PQ model is reloaded before
-it replaces the old one. The packed record file (`index.dat`,
-`write_compat`) belongs to the host tier, which is not ported yet: the
-port does not write it, and reads it back only to verify a directory the
-JAX package wrote (`read_compat_records`, `tools/verify_index.py`).
+it replaces the old one. The packed record file is what the host tier
+(`index/host_tier.py`) reads its f32 vectors from.
 """
 
 from __future__ import annotations
@@ -104,15 +105,19 @@ def save_pq_artifacts(
     """Persist pq_codes.npy + pq_model.npz (atomic, reload-validated);
     returns the meta keys describing them. A ResidualPQ additionally
     persists pq_aux.npz (coarse cell ids + per-point serving bias), and
-    its coarse codebook rides inside pq_model.npz."""
+    its coarse codebook rides inside pq_model.npz. An IntQuantizer
+    persists its int8 rows in pq_codes.npy (self-contained: no aux
+    file)."""
+    from diskrag_tpu_torch.pq.intq import IntQuantizer
     from diskrag_tpu_torch.pq.residual import ResidualPQ, pq_from_arrays
 
     if pq_codes is None:
         raise ValueError("pq given without pq_codes")
     residual = isinstance(pq, ResidualPQ)
+    intq = isinstance(pq, IntQuantizer)
     if residual and coarse_ids is None:
         raise ValueError("ResidualPQ needs coarse_ids alongside the codes")
-    pq_codes = np.asarray(_np(pq_codes), np.uint8)
+    pq_codes = np.asarray(_np(pq_codes), np.int8 if intq else np.uint8)
     _atomic_save_npy(store.pq_codes_path, pq_codes)
     tmp = store.pq_model_path.with_suffix(".npz.tmp")
     with open(tmp, "wb") as f:
@@ -120,6 +125,12 @@ def save_pq_artifacts(
     with np.load(tmp) as loaded:
         pq_from_arrays(dict(loaded), device="cpu")
     os.replace(tmp, store.pq_model_path)
+    if intq:
+        return {
+            "pq_kind": f"int{pq.bits}",
+            "iq_row_width": int(pq.row_width),
+            "iq_n_cells": int(pq.n_cells),
+        }
     meta = {
         "n_subvectors": int(pq.n_subvectors),
         "pq_centroids": int(pq.n_centroids),
@@ -153,7 +164,7 @@ def load_pq_aux(
         raise ValueError(
             f"pq_aux.npz is stale: {cells.shape[0]} cells / "
             f"{bias.shape[0]} biases for {expect_n} code rows — rebuild "
-            f"the PQ artifacts (--force-rebuild)"
+            f"the PQ artifacts (cli doctor, or --force-rebuild)"
         )
     return cells, bias
 
@@ -173,12 +184,8 @@ def save_index(
 
     `host_vectors`: a host-side copy of `index.vectors`, when the caller
     still holds the numpy array the index was built from: it saves the
-    device-to-host copy of the vector matrix."""
-    if write_compat:
-        raise NotImplementedError(
-            "write_compat (the packed record file of the host tier) is not "
-            "ported yet (ROADMAP.md, 'Modules still to port')"
-        )
+    device-to-host copy of the vector matrix. `write_compat` also writes
+    the packed record file (`index.dat`) the host tier serves from."""
     store = IndexStore(index_dir)
     store.dir.mkdir(parents=True, exist_ok=True)
     if host_vectors is not None:
@@ -210,6 +217,8 @@ def save_index(
     if meta_extra:
         meta.update(meta_extra)
     _atomic_write_bytes(store.meta_path, json.dumps(meta, indent=2).encode("utf-8"))
+    if write_compat:
+        write_compat_records(store.compat_path, vectors, adjacency)
     return meta
 
 
@@ -260,9 +269,32 @@ def load_index(
         with np.load(store.pq_model_path) as loaded:
             pq = pq_from_arrays(dict(loaded), device=dev)
         codes = np.load(store.pq_codes_path)
-        if codes.shape != (meta["num_points"], pq.n_subvectors):
+        from diskrag_tpu_torch.pq.intq import IntQuantizer
+
+        want_w = pq.row_width if isinstance(pq, IntQuantizer) else pq.n_subvectors
+        if codes.shape != (meta["num_points"], want_w):
             raise ValueError(f"pq_codes shape {codes.shape} mismatch")
     return index, pq, codes, meta
+
+
+def write_compat_records(
+    path: str | os.PathLike, vectors: np.ndarray, adjacency: np.ndarray
+) -> int:
+    """Write the packed per-node record file: float32[dim] ‖ uint32[R]
+    per node, record size 4 * (dim + R), an empty neighbour slot
+    0xFFFFFFFF (the reference's layout, io/diskann_persist.py:15-24,
+    except its padding is 0). Returns the record size in bytes."""
+    n, dim = vectors.shape
+    r = adjacency.shape[1]
+    nbrs = adjacency.astype(np.int64)
+    packed_nbrs = np.where(nbrs < 0, COMPAT_PAD, nbrs.astype(np.uint32)).astype(np.uint32)
+    rec = np.empty((n, 4 * (dim + r)), np.uint8)
+    rec[:, : 4 * dim] = np.ascontiguousarray(vectors.astype(np.float32)).view(np.uint8).reshape(n, -1)
+    rec[:, 4 * dim:] = np.ascontiguousarray(packed_nbrs).view(np.uint8).reshape(n, -1)
+    tmp = pathlib.Path(path).with_suffix(".dat.tmp")
+    rec.tofile(tmp)
+    os.replace(tmp, path)
+    return 4 * (dim + r)
 
 
 def read_compat_records(

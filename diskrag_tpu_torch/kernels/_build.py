@@ -7,6 +7,10 @@ placed in `build/diskrag_tpu_torch/` beside the package and loaded with
 shared headers (`csrc/*.cuh`) and of the build flags changes. All stale sources are compiled together, one
 `nvcc` process each, so the first call pays for the slowest file only.
 
+The host tier's record reader (`native/<name>.cpp`, no CUDA) is built the
+same way by the host C++ compiler (`load_host`), into the same directory,
+keyed by the hash of its source and flags.
+
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check()` raises on a non-zero code, because a launch CUDA refused
 (too many threads, too much shared memory) never runs and a later
@@ -24,6 +28,7 @@ import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+NATIVE = pathlib.Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = (
     pathlib.Path(__file__).resolve().parents[2] / "build" / "diskrag_tpu_torch"
 )
@@ -31,6 +36,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -105,6 +112,44 @@ def load(stem: str) -> ctypes.CDLL:
                 if name not in _libs:
                     _libs[name] = ctypes.CDLL(str(path))
             lib = _libs[stem]
+        return lib
+
+
+def _cxx() -> str:
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        if name and shutil.which(name):
+            return shutil.which(name)
+    raise RuntimeError("no host C++ compiler found: set CXX or put g++ on PATH")
+
+
+def host_lib_path(src: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def load_host(stem: str) -> ctypes.CDLL:
+    """The loaded library for `native/<stem>.cpp`, compiled by the host
+    C++ compiler on the first call (and whenever its source changed).
+    Raises when the compiler is missing or fails: the caller asked for
+    the native path."""
+    key = f"native/{stem}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            src = NATIVE / f"{stem}.cpp"
+            out = host_lib_path(src)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(src)],
+                                      capture_output=True, text=True)
+                build_logs[key] = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"{src.name} failed to build:\n{build_logs[key]}")
+                os.replace(tmp, out)
+            lib = _libs[key] = ctypes.CDLL(str(out))
         return lib
 
 

@@ -53,6 +53,7 @@ import functools
 import torch
 
 from diskrag_tpu_torch.kernels import _build
+from diskrag_tpu_torch.kernels.launches import count
 from diskrag_tpu_torch.ops.distance import Metric, brute_force_topk, rerank_exact_topk
 
 NEG_INF = float("-inf")
@@ -353,7 +354,7 @@ def _scan_cuda(q, db, norm_block, nb, use_norms, q_scales, n):
              plan.n_cons, int(plan.streamed), plan.seg_per_split, plan.n_split,
              part_v.data_ptr(), part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    scan_bucketed_topk.launches += 1
+    count(scan_bucketed_topk)
     if err == -1:
         raise RuntimeError("flat_scan_launch: the CUDA driver refused a TMA descriptor")
     _build.check(err, "flat_scan_launch")
@@ -477,7 +478,7 @@ def topk_lanes(scores: torch.Tensor, kk: int) -> torch.Tensor:
     fn = _c_function("topk_lanes", "topk_lanes_launch", _CUT_ARGTYPES)
     err = fn(scores.data_ptr(), b, nb, kk, plan.threads, int(plan.indirect), plan.smem,
              out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    topk_lanes.launches += 1
+    count(topk_lanes)
     _build.check(err, "topk_lanes_launch")
     return out
 
@@ -1004,11 +1005,11 @@ def _packed_cuda(stem, q, inv_qs, db, nf, nb, n_scan, n_valid, cut_kk, pipelined
     err = fn(*args, 0 if scores is None else scores.data_ptr(), ids.data_ptr(),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if not hier:
-        scan_bucketed_topk_packed.launches += 1
+        count(scan_bucketed_topk_packed)
     elif pipelined:
-        scan_bucketed_topk_hier.launches_pipelined += 1
+        count(scan_bucketed_topk_hier, "launches_pipelined")
     else:
-        scan_bucketed_topk_hier.launches += 1
+        count(scan_bucketed_topk_hier)
     if err == -1:
         raise RuntimeError(f"{stem}_launch: the CUDA driver refused a TMA descriptor")
     if err == -2:  # B6 only: checked before anything is launched

@@ -46,6 +46,7 @@ import functools
 import torch
 
 from diskrag_tpu_torch.kernels import _build
+from diskrag_tpu_torch.kernels.launches import count
 from diskrag_tpu_torch.ops.flat_scan import (
     _PACKED_BLOCKS_PER_SM,
     _PACKED_LANES,
@@ -190,7 +191,7 @@ def _probe_cuda(q, db, tile, nb_out, qb):
     err = fn(q.data_ptr(), db.data_ptr(), b, q.shape[1], n, tile, plan.n_tiles,
              plan.tiles_per_part, plan.n_parts, nb_out, out.data_ptr(), rowsum.data_ptr(),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    mm_probe.launches += 1
+    count(mm_probe)
     if err == -1:
         raise RuntimeError("mm_probe_launch: the CUDA driver refused a TMA descriptor")
     _build.check(err, "mm_probe_launch")

@@ -29,6 +29,7 @@ import functools
 import torch
 
 from diskrag_tpu_torch.kernels import _build
+from diskrag_tpu_torch.kernels.launches import count
 
 N_CENTROIDS = 256
 
@@ -102,7 +103,7 @@ def _adc_cuda(tables, codes, c, *, n=0, ids=None, point_cell=None, point_bias=No
     err = fn(tables.data_ptr(), codes.data_ptr(), n, ptr(ids), ptr(point_cell), ptr(point_bias),
              ptr(cell_tables), n_cells, b, c, m, out.data_ptr(), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
-    adc_lookup_gathered_kernel.launches += 1
+    count(adc_lookup_gathered_kernel)
     _build.check(err, "adc_lookup_launch")
     return out
 

@@ -1,12 +1,13 @@
 """Product quantization (counterpart of `diskrag_tpu/pq/`): the batched
-k-means, the plain and the residual quantizer, and the adaptive
-parameter recommendation. The int-quantized rows (`pq/intq`) are not
-ported yet (ROADMAP.md)."""
+k-means, the plain and the residual quantizer, the int quantizer
+(self-contained int8 / int4 rows, `pq/intq`) and the adaptive parameter
+recommendation."""
 
 from diskrag_tpu_torch.pq.adaptive import (
     PQRecommendation,
     calculate_adaptive_pq_params,
 )
+from diskrag_tpu_torch.pq.intq import IntQuantizer, IQTables, default_iq_cells
 from diskrag_tpu_torch.pq.kmeans import kmeans_fit
 from diskrag_tpu_torch.pq.product_quantizer import ProductQuantizer
 from diskrag_tpu_torch.pq.residual import (
@@ -21,6 +22,9 @@ __all__ = [
     "ProductQuantizer",
     "ResidualPQ",
     "RPQTables",
+    "IntQuantizer",
+    "IQTables",
+    "default_iq_cells",
     "default_n_coarse",
     "pq_from_arrays",
     "PQRecommendation",

@@ -301,13 +301,12 @@ class ResidualPQ:
 
 def pq_from_arrays(arrays: dict, *, device: str | torch.device = "cuda"):
     """Factory: the right quantizer type for a persisted artifact dict
-    (ResidualPQ when the coarse codebook is present, ProductQuantizer
-    otherwise). The int-quantized rows (`iq_meta`) are not ported."""
+    (IntQuantizer when `iq_meta` is present, ResidualPQ when the coarse
+    codebook is, ProductQuantizer otherwise)."""
     if "iq_meta" in arrays:
-        raise NotImplementedError(
-            "this index holds IntQuantizer rows (pq_kind int8/int4): pq/intq "
-            "is not ported yet (ROADMAP.md, 'Modules still to port')"
-        )
+        from diskrag_tpu_torch.pq.intq import IntQuantizer
+
+        return IntQuantizer.from_arrays(arrays, device=device)
     if "coarse_centroids" in arrays:
         return ResidualPQ.from_arrays(arrays, device=device)
     return ProductQuantizer.from_arrays(arrays, device=device)

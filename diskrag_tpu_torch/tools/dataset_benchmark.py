@@ -1,15 +1,16 @@
 """User-facing dataset benchmark (counterpart of
 `diskrag_tpu/tools/dataset_benchmark.py`): load vectors (parquet/npy or a
 seeded synthetic set), build the graph, compute the exact ground truth,
-and sweep recall / latency / QPS for exact traversal and for PQ-guided
-traversal + rerank, on the chosen device.
+and sweep recall / latency / QPS for exact traversal, for PQ-guided
+traversal + rerank and (`--host-tier`) for the host-offload tier over the
+same graph, saved with its record file to a temporary directory, on the
+chosen device.
 
     python -m diskrag_tpu_torch.tools.dataset_benchmark --n 100000 --dim 128
     python -m diskrag_tpu_torch.tools.dataset_benchmark --vectors data.npy --queries q.npy
 
-Not ported yet (each raises `NotImplementedError` naming ROADMAP.md):
-`--build-method wave` (the insertion build of `graph/build`) and
-`--host-tier` (the host-offload tier).
+Not ported yet (raises `NotImplementedError` naming ROADMAP.md):
+`--build-method wave` (the insertion build of `graph/build`).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--expand", default="1,4")
     ap.add_argument("--pq-m", type=int, default=0, help="0 = skip PQ sweep")
     ap.add_argument("--host-tier", action="store_true",
-                    help="sweep the host-offload tier (not ported yet)")
+                    help="also sweep the host-offload tier (bf16 traversal, host rerank)")
     ap.add_argument("--build-method", choices=["knn", "wave"], default="knn")
     ap.add_argument(
         "--metric", choices=["l2", "cosine", "dot"], default="l2",
@@ -70,10 +71,6 @@ def main(argv: list[str] | None = None) -> int:
         raise NotImplementedError(
             "--build-method wave (the insertion build of graph/build) is not ported yet "
             "(ROADMAP.md, 'Modules still to port'); use --build-method knn")
-    if args.host_tier:
-        raise NotImplementedError(
-            "--host-tier (the host-offload tier) is not ported yet "
-            "(ROADMAP.md, 'Modules still to port')")
 
     if args.vectors:
         pts = load_vectors(args.vectors)
@@ -109,6 +106,16 @@ def main(argv: list[str] | None = None) -> int:
         codes = pq.encode(pts)
         points += sweep_pq(index, pq, codes, queries, gt, k=args.k, widths=widths,
                            expand_widths=expands)
+    if args.host_tier:
+        import tempfile
+
+        from diskrag_tpu_torch.benchmark import sweep_host_tier
+        from diskrag_tpu_torch.index.persist import save_index
+
+        with tempfile.TemporaryDirectory() as td:
+            save_index(td, index, write_compat=True, host_vectors=pts)
+            points += sweep_host_tier(td, queries, gt, k=args.k, widths=(24, 32, 48, 64),
+                                      expand_widths=(expands[-1],), device=args.device)
 
     # process memory report: psutil where installed, else the stdlib
     # (ru_maxrss is KiB on linux)

@@ -112,7 +112,9 @@ def test_cli_process_dir(workspace, capsys):
 def test_cli_serving_mode_choices():
     args = build_parser().parse_args(["search", "c", "q", "--serving-mode", "auto"])
     assert args.serving_mode == "auto" and args.device == "cuda"
-    for mode in ("host_tier", "sharded_flat", "streaming"):  # later slices: not offered
+    args = build_parser().parse_args(["search", "c", "q", "--serving-mode", "host_tier"])
+    assert args.serving_mode == "host_tier"
+    for mode in ("sharded_flat", "streaming"):  # later slices: not offered
         with pytest.raises(SystemExit):
             build_parser().parse_args(["search", "c", "q", "--serving-mode", mode])
 

@@ -31,11 +31,15 @@ import diskrag_tpu_torch.graph, diskrag_tpu_torch.graph.types, diskrag_tpu_torch
 import diskrag_tpu_torch.graph.prune, diskrag_tpu_torch.graph.knn_build
 import diskrag_tpu_torch.pq, diskrag_tpu_torch.pq.kmeans, diskrag_tpu_torch.pq.adaptive
 import diskrag_tpu_torch.pq.product_quantizer, diskrag_tpu_torch.pq.residual
+import diskrag_tpu_torch.pq.intq, diskrag_tpu_torch.native, diskrag_tpu_torch.index.host_tier
 from diskrag_tpu_torch.graph import (
     VamanaIndex, beam_search, beam_search_pq, beam_search_reranked, build_vamana_knn,
     robust_prune_batch,
 )
-from diskrag_tpu_torch.pq import ProductQuantizer, ResidualPQ, pq_from_arrays
+from diskrag_tpu_torch.pq import IntQuantizer, ProductQuantizer, ResidualPQ, pq_from_arrays
+from diskrag_tpu_torch.index.host_tier import HostTierIndex, exact_rerank_pool
+from diskrag_tpu_torch.native import RecordReader
+from diskrag_tpu_torch.convert import iq_from_jax
 from diskrag_tpu_torch.ops.pq_scan import (
     adc_lookup_gathered_kernel, adc_lookup_gathered_ref, adc_lookup_ids_kernel, adc_lookup_ids_ref,
 )
@@ -46,7 +50,7 @@ from diskrag_tpu_torch.ops.flat_scan import (
     scan_bucketed_topk_packed, scan_bucketed_topk_packed_ref,
 )
 from diskrag_tpu_torch.benchmark import (
-    SweepPoint, adaptive_flat_point, sweep_exact, sweep_flat, sweep_pq,
+    SweepPoint, adaptive_flat_point, sweep_exact, sweep_flat, sweep_host_tier, sweep_iq, sweep_pq,
 )
 from diskrag_tpu_torch.api import AppState, create_app
 from diskrag_tpu_torch.ops.mm_probe import mm_probe, mm_probe_ref
@@ -276,11 +280,11 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         with pytest.raises(ValueError, match="fused_precision"):
             FlatIndex(pts, fused_precision="int4_packed", device="cpu")
     elif cut == "build":
+        # write_compat and pq_kind int8 / int4 are ported (the host tier
+        # and the int-quantized rows); these are still later slices
         for kw in (dict(index_type="ivf"), dict(index_type="sharded"),
-                   dict(index_type="vamana", build_method="wave"),
-                   dict(index_type="vamana", write_compat=True),
-                   dict(index_type="vamana", force_pq=True, pq_kind="int8"),
-                   dict(index_type="vamana", force_pq=True, pq_kind="int4")):
+                   dict(index_type="sharded", write_compat=True),
+                   dict(index_type="vamana", build_method="wave")):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 build_index_from_vectors(pts, tmp_path / "i", device="cpu", **kw)
             assert not (tmp_path / "i").exists()
@@ -293,6 +297,8 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         # never served by brute force in place of the requested index
         with pytest.raises(NotImplementedError, match="ivf"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu")
+        # host_tier is served on a vamana index only: on an ivf index the
+        # index type is the missing slice, and the message names the mode
         for mode in ("host_tier", "sharded_flat", "streaming"):
             with pytest.raises(NotImplementedError, match=mode):
                 SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode=mode)
@@ -330,21 +336,32 @@ def test_unported_graph_options_raise_not_implemented(what, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prune.gathered_distance_int8(None, None, None, None, "l2")
     elif what == "iq":
-        from diskrag_tpu_torch.graph.search import beam_search_iq
-        from diskrag_tpu_torch.pq import pq_from_arrays
+        # the int-quantized rows are ported; the host tier over a sharded
+        # index (the parallel slice) is not
+        from diskrag_tpu_torch.engine import SearchEngine
+        from diskrag_tpu_torch.pq import IntQuantizer, pq_from_arrays
 
+        iq = IntQuantizer(device="cpu").fit(pts)
+        assert isinstance(pq_from_arrays(iq.to_arrays(), device="cpu"), IntQuantizer)
+        _tiny_collection(tmp_path, pts, {"index_type": "sharded"})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            beam_search_iq(None, None, None, None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pq_from_arrays({"iq_meta": np.zeros(3)}, device="cpu")
+            SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="host_tier")
     else:
+        # the packed record file is written now; a sharded index, whose
+        # build would write its records, is still a later slice
+        from diskrag_tpu_torch.build_index import build_index_from_vectors
         from diskrag_tpu_torch.graph.types import VamanaIndex
-        from diskrag_tpu_torch.index.persist import save_index
+        from diskrag_tpu_torch.index.persist import read_compat_records, save_index
 
-        index = VamanaIndex.from_numpy(pts, np.zeros((64, 2), np.int32), 0, device="cpu")
+        adj = np.zeros((64, 2), np.int32)
+        index = VamanaIndex.from_numpy(pts, adj, 0, device="cpu")
+        save_index(tmp_path / "i", index, write_compat=True)
+        vecs, back = read_compat_records(tmp_path / "i" / "index.dat", 64, 8, 2)
+        assert np.array_equal(vecs, pts) and np.array_equal(back, adj)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            save_index(tmp_path / "i", index, write_compat=True)
-        assert not (tmp_path / "i").exists()
+            build_index_from_vectors(pts, tmp_path / "s", index_type="sharded",
+                                     write_compat=True, device="cpu")
+        assert not (tmp_path / "s").exists()
 
 
 def test_f32_products_stay_full_precision():

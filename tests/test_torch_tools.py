@@ -167,9 +167,8 @@ def test_dataset_benchmark_cosine_cli(capsys):
     assert result["metric"] == "cosine" and result["device"] == "cpu"
     assert all(p["mode"] != "pq" for p in result["sweep"])
     assert max(p["recall"] for p in result["sweep"]) >= 0.95
-    for flag in (["--build-method", "wave"], ["--host-tier"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dataset_benchmark.main(["--n", "100", "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # --host-tier is ported
+        dataset_benchmark.main(["--n", "100", "--device", "cpu", "--build-method", "wave"])
 
 
 def test_dataset_benchmark_pq_sweep(capsys):
@@ -254,18 +253,25 @@ def test_doctor_preserves_pq_kind(tmp_path):
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 def test_doctor_refuses_quantizer_kinds_the_port_cannot_retrain(kind, tmp_path):
+    """The int kinds are retrained now, as their own kind (never repaired
+    as another one); the index then serves "iq_accelerated"."""
+    from diskrag_tpu_torch.pq import IntQuantizer
+
     base, mgr, rag = _grown_collection(tmp_path)
     meta_path = mgr.get_index_dir("c") / "meta.json"
     meta = json.loads(meta_path.read_text())
     meta["pq_kind"] = kind
     meta_path.write_text(json.dumps(meta))
     (mgr.get_index_dir("c") / "pq_codes.npy").unlink()
-    before = sorted(p.name for p in mgr.get_index_dir("c").iterdir())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rag.doctor("c")
-    # not quietly repaired as another kind
-    assert sorted(p.name for p in mgr.get_index_dir("c").iterdir()) == before
-    assert json.loads(meta_path.read_text())["pq_kind"] == kind
+    report = rag.doctor("c")
+    assert f"retrained PQ (kind={kind})" in report["actions"]
+    meta = json.loads(meta_path.read_text())
+    assert meta["pq_kind"] == kind and meta["iq_n_cells"] == (0 if kind == "int8" else 23)
+    assert not (mgr.get_index_dir("c") / "pq_aux.npz").exists()
+    eng = SearchEngine("c", base_dir=base, device="cpu")
+    assert isinstance(eng.pq, IntQuantizer) and eng.codes.shape == (1500, meta["iq_row_width"])
+    q = np.random.default_rng(3).normal(size=(4, 64)).astype(np.float32)
+    assert eng.search_batch(q, k=5)[2]["search_type"] == "iq_accelerated"
 
 
 def test_doctor_healthy_flat_and_missing_cases(tmp_path):

@@ -290,8 +290,9 @@ def test_attach_pq_kinds(data):
     assert isinstance(pq, ProductQuantizer) and codes.shape == (N, 4) and val["passed"]
     rpq, codes, val = attach_pq(pts, n_subvectors=4, pq_kind="residual", device="cpu")
     assert isinstance(rpq, ResidualPQ) and val["coarse_ids"].shape == (N,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attach_pq(pts, n_subvectors=4, pq_kind="int8", device="cpu")
+    iq, rows, val = attach_pq(pts, n_subvectors=4, pq_kind="int8", device="cpu")
+    assert iq.bits == 8 and rows.shape == (N, D + 2) and rows.dtype == np.int8
+    assert val["passed"] and val["encode_consistent"]
 
 
 def test_search_with_debug_reports_both_traversals(data, built):
