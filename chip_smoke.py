@@ -37,7 +37,16 @@ graph, int8 rows, the f32 vectors in the packed record file read by the
 native reader, the rerank on the host; recall@10 gates 0.985 at L = 32 and
 0.99 at L = 48), the default 200k vamana collection in its residual-PQ
 mode (B5 by id once a round; recall within 0.01 of mode "auto"; one HTTP
-/search) and in bf16 mode. Profiled figures are taken per recorded
+/search) and in bf16 mode. Phase `main-ivf` builds the IVF-Flat index
+through `build_index_from_vectors(index_type="ivf")` at 1,000,000 and
+200,000 points and serves it through `SearchEngine.search_batch` at
+n_probe 8 and 16 (recall@10 gated at the JAX package's v5e figures less
+0.01; no kernel may launch), then sweeps it over n_probe 8 to 64 with int8
+and bf16 tiles; phase `main-graph-ivfknn` builds the degree-48 graph at
+1,000,000 with the IVF kNN backend (B1 and B4 must not launch; exact
+traversal recall gated at 0.985) and, at 200,000, twice with one
+checkpoint directory (the second build's kNN stage under a tenth of the
+first's, its adjacency bit-identical). Profiled figures are taken per recorded
 event, so a few dropped events do not bias them, from windows retried
 when they lost many; a null one is printed with its reason. Every phase prints JSON lines; the line before the last is the
 card's name and power limit as nvidia-smi gives them, and the last line is
@@ -51,7 +60,9 @@ imports jax or the JAX package.
     python3 chip_smoke.py --graph-n 1000000
 
 runs the graph phase alone (build, PQ fit, both sweeps, launch counts) at
-that many points instead of 200,000, prints its lines and the card, and
+that many points instead of 200,000 (above 2,000,000 the build's "auto"
+kNN backend is the IVF probe, and B1 / B4 must not launch), prints its
+lines and the card, and
 ends without the last line above: a measurement at another size, not the
 smoke test.
 """
@@ -1423,8 +1434,12 @@ def phase_main_graph(smi: str, pts, q, gt) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = read_counts()
-    require(build_launches["B1"] > 0 and build_launches["B4"] == build_launches["B1"],
-            f"the graph build did not go through B1 and B4: {build_launches}")
+    if len(pts) <= 2_000_000:
+        require(build_launches["B1"] > 0 and build_launches["B4"] == build_launches["B1"],
+                f"the graph build did not go through B1 and B4: {build_launches}")
+    else:  # "auto" takes the ivf kNN backend: no flat scan
+        require(build_launches["B1"] == 0 and build_launches["B4"] == 0,
+                f"the ivf-backend graph build launched B1 / B4: {build_launches}")
     adj = index.adjacency
     n = adj.shape[0]
     require(adj.shape == (n, 48) and int(adj.max()) < n and int(adj.min()) >= -1,
@@ -2166,6 +2181,197 @@ def phase_host_tier_200k(smi: str, base, name: str, pts, q, gt, auto_recall: flo
     return {"b5_launches": b5_launches, "rounds": rounds}
 
 
+# recall@10 gates of the IVF cells: the JAX package's v5e int8-tile figures
+# on the same seeded sets (docs/PERFORMANCE.md) less 0.01, by n_probe
+IVF_RECALL_GATE = {200_000: {8: 0.9527, 16: 0.9864}, 1_000_000: {8: 0.9619, 16: 0.9795}}
+IVF_JAX_RECORDED = {200_000: {8: 0.9627, 16: 0.9964}, 1_000_000: {8: 0.9719, 16: 0.9895}}
+
+
+def phase_ivf(smi: str, base, pts, q, gt) -> dict:
+    """Cells ivf-200k-int8 / ivf-1M-int8: `build_index_from_vectors(
+    index_type="ivf")` with every default (int8 tiles, cap factor 2,
+    4 sqrt(N) cells), `SearchEngine.search_batch` at l_search 16 and 32
+    (n_probe 8 and 16, the engine's rule), the counts set to 0 just before
+    and read just after (the IVF path has no kernel: none may launch); a
+    profiled batch, the bytes the index holds on the card and the build's
+    stages; then `sweep_ivf` over n_probe 8 / 16 / 32 / 64 (two builds,
+    cold and warm), int8 tiles and bf16 tiles, each bf16 probe gated at
+    the int8 recall less 0.01."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k, sweep_ivf
+    from diskrag_tpu_torch.build_index import build_index_from_vectors
+    from diskrag_tpu_torch.engine import SearchEngine
+
+    n = len(pts)
+    cell = f"ivf-{n // 1000}k-int8" if n < MAIN_N else "ivf-1M-int8"
+    name = f"ivf_{n}"
+    index_dir = make_collection(base, name, pts)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    meta = build_index_from_vectors(pts, index_dir, index_type="ivf", device="cuda")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = SearchEngine(name, base_dir=str(base), device="cuda")
+    load_s = time.perf_counter() - t0
+    require(meta["index_type"] == "ivf" and meta["tile_precision"] == "int8"
+            and engine.ivf is not None, f"the defaults did not build an int8 ivf index: {meta}")
+    require(bool(engine.diagnostics and engine.diagnostics["passed"]),
+            f"startup diagnostic failed: {engine.diagnostics}")
+    points = []
+    for l_search in (16, 32):
+        reps = 5
+        dists, ids, all_stats, batch_s, launches = drive(engine, q, reps, l_search=l_search)
+        stats = all_stats[-1]
+        n_probe = max(8, min(l_search // 2, engine.ivf.n_cells))
+        require(stats["search_type"] == "ivf", f"served as {stats['search_type']}")
+        require(not any(launches.values()), f"the IVF path launched a kernel: {launches}")
+        require(ids.shape == (len(q), MAIN_K) and bool(np.isfinite(dists).all())
+                and bool((np.diff(dists, axis=1) >= 0).all()), "ivf distances not finite and ascending")
+        recall = recall_at_k(ids, gt, MAIN_K)
+        gate = IVF_RECALL_GATE[n][n_probe]
+        require(recall >= gate, f"{cell} recall@10 {recall} < {gate} at n_probe {n_probe}")
+        med = float(np.median(batch_s))
+        points.append({"l_search": l_search, "n_probe": n_probe, "recall_at_10": recall,
+                       "recall_gate": gate, "jax_package_recorded_v5e": IVF_JAX_RECORDED[n][n_probe],
+                       "ms_per_batch_median": med * 1e3, "ms_per_batch": [s * 1e3 for s in batch_s],
+                       "qps": len(q) / med, "nodes_visited": stats["nodes_visited"],
+                       "launches": launches})
+    emit({"phase": "main-ivf", "cell": cell, "n": n, "d": pts.shape[1], "queries": len(q),
+          "k": MAIN_K, "n_cells": meta["n_cells"], "cell_capacity": meta["cell_capacity"],
+          "points": points, "build_seconds": build_s, "build_stage_seconds": meta["build_stage_seconds"],
+          "engine_load_and_self_check_seconds": load_s,
+          "device_bytes_index": engine.ivf.device_bytes(),
+          "peak_device_gb_build_and_load": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+    emit(profile_batch(engine, q, steps=3, path=cell, l_search=32, watch=("gemm", "sort", "index")))
+    del engine
+    torch.cuda.empty_cache()
+    shutil.rmtree(base / name, ignore_errors=True)
+    int8_pts, (cold, warm) = sweep_ivf(pts, q, gt, k=MAIN_K, min_seconds=0.3, device="cuda")
+    bf16_pts, (bf_cold, bf_warm) = sweep_ivf(pts, q, gt, k=MAIN_K, min_seconds=0.3,
+                                             tile_precision="bf16", device="cuda")
+    rows = []
+    for a, b in zip(int8_pts, bf16_pts):
+        require(a.search_width == b.search_width and b.recall >= a.recall - 0.01,
+                f"bf16 tiles recall {b.recall} < int8 {a.recall} - 0.01 at n_probe {a.search_width}")
+        rows.append({"n_probe": a.search_width, "recall_int8": a.recall, "recall_bf16": b.recall,
+                     "qps_int8": a.qps, "qps_bf16": b.qps,
+                     "ms_per_1000_queries_int8": a.mean_latency_ms * 1000,
+                     "ms_per_1000_queries_bf16": b.mean_latency_ms * 1000})
+    emit({"phase": "main-ivf", "cell": cell, "step": "sweep_ivf", "points": rows,
+          "build_seconds_int8": {"cold": cold, "warm": warm},
+          "build_seconds_bf16": {"cold": bf_cold, "warm": bf_warm}, "card": smi})
+    torch.cuda.empty_cache()
+    return {"points": points, "sweep": rows}
+
+
+@contextlib.contextmanager
+def _captured_knn_tables():
+    """Wraps `approx_knn_ivf` where `build_vamana_knn` calls it and keeps
+    the tables it returns (the build holds no other handle on them)."""
+    from diskrag_tpu_torch.graph import knn_build as tkb
+
+    real = tkb.approx_knn_ivf
+    got: dict = {}
+
+    def keep(*a, **k):
+        got["ids"], got["dists"] = real(*a, **k)
+        return got["ids"], got["dists"]
+
+    tkb.approx_knn_ivf = keep
+    try:
+        yield got
+    finally:
+        tkb.approx_knn_ivf = real
+
+
+def phase_vamana_ivfknn(smi: str, pts, q, gt) -> dict:
+    """Cell vamana-1M-ivfknn: `build_vamana_knn(degree_bound=48,
+    knn_backend="ivf")`, the call "auto" makes above 2M points (cap factor
+    3.0), with the counts set to 0 just before and read just after: B1 and
+    B4 must not launch (the backend switched). The kNN tables' recall
+    against exact neighbours on 1000 sampled rows, then exact traversal at
+    L = 16 / E = 8, gated at 0.985."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import ground_truth, recall_at_k, sweep_exact
+    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+
+    stages: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _captured_knn_tables() as tables:
+        index = build_vamana_knn(pts, degree_bound=48, alpha=1.2, seed=0, knn_backend="ivf",
+                                 device="cuda", stage_seconds=stages)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = read_counts()
+    require(launches["B1"] == 0 and launches["B4"] == 0,
+            f"the ivf-backend build launched the flat scan's kernels: {launches}")
+    n = index.adjacency.shape[0]
+    adj = index.adjacency
+    require(adj.shape == (n, 48) and int(adj.max()) < n and int(adj.min()) >= -1, "adjacency out of range")
+    require(not bool((adj == torch.arange(n, device=adj.device)[:, None]).any()), "self edges")
+    knn_k = tables["ids"].shape[1]
+    sample = np.random.default_rng(0).choice(n, size=1000, replace=False)
+    exact = ground_truth(pts, pts[sample], knn_k + 1, device="cuda")
+    exact_wo_self = np.array([row[row != s][:knn_k] for row, s in zip(exact, sample)])
+    table_recall = recall_at_k(tables["ids"][sample], exact_wo_self, knn_k)
+    table_recall_10 = recall_at_k(tables["ids"][sample], exact_wo_self, 10)
+    points = sweep_exact(index, q, gt, k=MAIN_K, widths=(16,), expand_widths=(8,), min_seconds=0.5)
+    rec = points[0].recall
+    require(rec >= 0.985, f"ivf-backend graph exact recall@10 L=16/E=8 {rec} < 0.985")
+    emit({"phase": "main-graph-ivfknn", "cell": "vamana-1M-ivfknn", "n": n, "d": pts.shape[1],
+          "degree_bound": 48, "knn_k": knn_k, "build_seconds": build_s, "stage_seconds": stages,
+          "launches": launches, "peak_device_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "knn_table_recall_at_knn_k": table_recall, "knn_table_recall_at_10": table_recall_10,
+          "table_sample_rows": 1000, "exact_L16_E8": {"recall_at_10": rec, "qps": points[0].qps,
+                                                      "rounds_per_pass": points[0].rounds},
+          "recall_gate": 0.985, "flat_backend_graph_pr3": 0.9950, "card": smi})
+    del index, tables
+    torch.cuda.empty_cache()
+    return {"knn_seconds": stages["knn"]}
+
+
+def phase_ivfknn_resume(smi: str, pts) -> None:
+    """Cell vamana-200k-ivfknn-resume: two ivf-backend builds with one
+    `checkpoint_dir`; the second loads the saved "knn" phase: its kNN stage
+    takes under a tenth of the first's, and its adjacency is the first's
+    bit for bit."""
+    import torch
+
+    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+
+    ckpt = ROOT / "build" / "chip_smoke" / "ivfknn_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = []
+    try:
+        for _ in range(2):
+            stages: dict = {}
+            t0 = time.perf_counter()
+            index = build_vamana_knn(pts, degree_bound=48, alpha=1.2, seed=0, knn_backend="ivf",
+                                     device="cuda", stage_seconds=stages, checkpoint_dir=str(ckpt))
+            torch.cuda.synchronize()
+            runs.append((index.adjacency, stages, time.perf_counter() - t0))
+            del index
+        files = sorted(p.name for p in ckpt.iterdir())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    (adj1, st1, s1), (adj2, st2, s2) = runs
+    require(files == ["knn.npz", "tag.json"], f"checkpoint files {files}")
+    require(st2["knn"] < 0.1 * st1["knn"], f"resumed kNN stage {st2['knn']} s >= a tenth of {st1['knn']} s")
+    require(bool(torch.equal(adj1, adj2)), "the resumed build's adjacency differs")
+    emit({"phase": "main-graph-ivfknn", "cell": "vamana-200k-ivfknn-resume", "n": len(pts),
+          "first": {"build_seconds": s1, "stage_seconds": st1},
+          "resumed": {"build_seconds": s2, "stage_seconds": st2},
+          "adjacency": "bit-identical", "checkpoint_files": files, "card": smi})
+    del runs, adj1, adj2
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2215,6 +2421,8 @@ def main() -> int:
         ht1m = phase_host_tier_1m(dev["smi"], base, *sets[MAIN_N])
         for row in out["kernels"][:2]:  # B1, B4: their launches in the 1M host-tier build
             row["launches_host_tier_1m_build"] = ht1m["build_launches"][row["name"][:2]]
+        phase_ivf(dev["smi"], base, *sets[MAIN_N])
+        phase_vamana_ivfknn(dev["smi"], *sets[MAIN_N])
         del sets[MAIN_N]
         build_shapes = phase_build_shape_kernels(sets[CMP_N][0], dev["smi"])
         for row in out["kernels"][:2]:  # B1, B4: their shapes inside the graph build
@@ -2236,6 +2444,8 @@ def main() -> int:
         ht200 = phase_host_tier_200k(dev["smi"], base, "vamana_200k", *sets[CMP_N], auto_recall)
         b5_row["launches_host_tier_200k_pq"] = ht200["b5_launches"]
         b5_row["rounds_host_tier_200k_pq"] = ht200["rounds"]
+        phase_ivf(dev["smi"], base, *sets[CMP_N])
+        phase_ivfknn_resume(dev["smi"], sets[CMP_N][0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

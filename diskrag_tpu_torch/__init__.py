@@ -1,7 +1,7 @@
 """diskrag_tpu_torch — the PyTorch/CUDA port of diskrag_tpu.
 
-Serves the Vamana graph (kNN-based build, exact and PQ-guided traversal)
-and the flat (exhaustive) index on an NVIDIA Hopper card through
+Serves the Vamana graph (kNN-based build, exact and PQ-guided traversal),
+the flat (exhaustive) index and the IVF-Flat index on an NVIDIA Hopper card through
 hand-written CUDA kernels (`csrc/`), from the CLI or over HTTP, with the
 JAX package's on-disk formats, entry points and results. It imports torch, never jax, and
 nothing of `diskrag_tpu`.
@@ -12,8 +12,9 @@ Layer map, mirroring the JAX package:
     orchestration  engine.py, build_index.py, convert.py
     measurement    benchmark.py, tools/, utils/profiling.py
     data           data/
-    index          index/persist.py
-    graph          graph/knn_build.py, graph/prune.py, graph/search.py
+    index          index/persist.py, index/ivf.py, index/host_tier.py
+    graph          graph/knn_build.py, graph/checkpoint.py, graph/prune.py,
+                   graph/search.py
     pq             pq/kmeans.py, pq/product_quantizer.py, pq/residual.py
     ops            ops/distance.py, ops/flat.py, ops/flat_scan.py,
                    ops/topk.py, ops/medoid.py, ops/pq_scan.py,

@@ -1,9 +1,9 @@
 """Benchmark helpers — part of `diskrag_tpu/benchmark.py`: the seeded
 dataset (numpy, byte-identical to the JAX package's), recall@k, an exact
 tiled ground-truth oracle in PyTorch, the graph sweeps (`sweep_exact`,
-`sweep_pq`, `sweep_iq`), the host tier's (`sweep_host_tier`) and the
-flat-index sweep (`sweep_flat`, `adaptive_flat_point`) with their timing
-helper. A test, smoke and
+`sweep_pq`, `sweep_iq`), the host tier's (`sweep_host_tier`), the
+flat-index sweep (`sweep_flat`, `adaptive_flat_point`) and the IVF sweep
+(`sweep_ivf`) with their timing helper. A test, smoke and
 measurement tool, not on the search path.
 """
 
@@ -324,3 +324,40 @@ def adaptive_flat_point(
             lo = mid + 1
     idx.rerank_width = hi
     return _point(idx, q, gt, k, f"flat-packed-rr{hi}-auto", repeats, min_seconds, width=hi)
+
+
+def sweep_ivf(
+    pts: np.ndarray, queries: np.ndarray, gt: np.ndarray, *, k: int,
+    metric: str = "l2", n_probes=(8, 16, 32, 64), n_cells: int | None = None,
+    repeats: int = 3, min_seconds: float = 1.5, tile_precision: str = "int8",
+    device: str = "cuda",
+) -> tuple[list[SweepPoint], tuple[float, float]]:
+    """The IVF-Flat index swept over n_probe (the JAX package's
+    `sweep_ivf`; probes above the cell count are skipped). Returns
+    (points, (build_cold_s, build_warm_s)): two builds of the same index,
+    each closed by a device synchronize; the first also pays the data's
+    upload and the first calls of every operation, the second is the
+    steady-state build. `width` of a point is its n_probe."""
+    from diskrag_tpu_torch.index.ivf import build_ivf
+
+    dev = resolve_device(device)
+
+    def build():
+        t0 = time.perf_counter()
+        idx = build_ivf(pts, n_cells, metric=metric, tile_precision=tile_precision, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return idx, time.perf_counter() - t0
+
+    _, build_cold_s = build()
+    idx, build_s = build()
+    q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
+    points = []
+    for p in n_probes:
+        if p > idx.n_cells:
+            continue
+        dt, (_, ids), _ = _measure(lambda p=p: idx.search(q, k=k, n_probe=p), repeats, dev,
+                                   min_seconds)
+        points.append(SweepPoint(p, recall_at_k(ids.cpu().numpy(), gt, k), len(queries) / dt,
+                                 dt / len(queries) * 1e3, f"ivf-{tile_precision}"))
+    return points, (build_cold_s, build_s)

@@ -1,4 +1,4 @@
-"""Index build orchestration — the flat and Vamana parts of
+"""Index build orchestration — the flat, IVF and Vamana parts of
 `diskrag_tpu/build_index.py`.
 
 Keeps the JAX package's adaptive parameter schedules (R/L by scale and
@@ -8,14 +8,15 @@ chosen device. `build_index_from_vectors` builds and persists
 
   - a flat index for `index_type="flat"`, and for `"auto"` below 100k
     points;
+  - an IVF-Flat index (`index/ivf.py`) for `index_type="ivf"`;
   - a Vamana graph with adaptive PQ for `"vamana"`, and for `"auto"` from
     100k points up, by the kNN-based build; `pq_kind` int8 / int4 trains
     the int quantizer (`pq/intq.py`) instead, and `write_compat` adds the
     packed record file the host tier serves from.
 
-The wave-insertion build, IVF and sharded indexes are later slices of the port (ROADMAP.md, "Modules still to
-port"); asking for one raises `NotImplementedError` rather than building
-something else.
+The wave-insertion build and the sharded index are later slices of the
+port (ROADMAP.md, "Modules still to port"); asking for one raises
+`NotImplementedError` rather than building something else.
 """
 
 from __future__ import annotations
@@ -260,21 +261,25 @@ def build_index_from_vectors(
     checkpoint_dir=None,
     flat_precision: str = "int8",
     flat_rerank_width: int | None = None,
+    ivf_n_cells: int | None = None,
+    ivf_cap_factor: float | None = None,
     device: str = "cuda",
 ) -> dict:
     """Build + persist an index; returns its meta.
 
     index_type: "vamana" (default: graph index + adaptive PQ), "flat"
-    (exhaustive scan, vectors only) or "auto" (flat under 100k points,
-    else vamana). An existing index is kept unless `force_rebuild` (a
+    (exhaustive scan, vectors only), "ivf" (IVF-Flat: `ivf_n_cells` and
+    `ivf_cap_factor`, None for `build_ivf`'s defaults) or "auto" (flat
+    under 100k points, else vamana). An existing index is kept unless `force_rebuild` (a
     request for a different type is logged at WARNING). `device` is
     resolved first, so a run meant for the card fails here when none is
     visible.
 
     `force_pq`: None = the adaptive tuner decides; True = train PQ even
     below the tuner's 1000-point gate (if any legal m divides the
-    dimension); False = never train PQ. `checkpoint_dir` is accepted for
-    the JAX package's signature; only its IVF kNN backend uses it."""
+    dimension); False = never train PQ. `checkpoint_dir`: mid-build
+    checkpoint and resume of the graph build's IVF kNN pass (builds above
+    2M points, `graph/checkpoint.py`); the flat kNN backend ignores it."""
     resolve_device(device)
     if flat_precision not in ("int8", "int8_packed", "bf16"):
         raise ValueError(f"unknown flat_precision: {flat_precision!r}")
@@ -314,7 +319,27 @@ def build_index_from_vectors(
         )
         logger.info("flat index persisted -> %s", store.dir)
         return meta
-    if index_type in ("ivf", "sharded"):
+    if index_type == "ivf":
+        from diskrag_tpu_torch.index.ivf import build_ivf
+        from diskrag_tpu_torch.index.persist import save_ivf_index
+
+        t0 = time.perf_counter()
+        ivf_kwargs = {} if ivf_cap_factor is None else {"cap_factor": ivf_cap_factor}
+        stages: dict = {}
+        ivf = build_ivf(vectors, ivf_n_cells, metric=metric, seed=seed, device=device,
+                        stage_seconds=stages, **ivf_kwargs)
+        meta = save_ivf_index(
+            index_dir, ivf, host_vectors=vectors,
+            meta_extra={
+                "target_quality": target_quality,
+                "build_seconds": time.perf_counter() - t0,
+                "build_stage_seconds": stages,  # fit, assign, place, tiles
+                "vector_stats": _vector_stats(vectors),
+            },
+        )
+        logger.info("ivf index persisted -> %s", store.dir)
+        return meta
+    if index_type == "sharded":
         raise _not_ported(f"index_type={index_type!r}")
     if index_type != "vamana":
         raise ValueError(f"unknown index_type: {index_type}")

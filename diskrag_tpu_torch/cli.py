@@ -1,5 +1,5 @@
 """CLI — counterpart of `diskrag_tpu/cli.py`: the `DiskRAG` facade and
-its eight subcommands (`process`, `index` — vamana, flat or auto, with the
+its eight subcommands (`process`, `index` — vamana, flat, ivf or auto, with the
 config's `index:` block — `search`, `list`, `delete`, `process-dir`,
 `merge`, `doctor`), plus `--device {cuda,cpu}` (default cuda), given
 before the subcommand.
@@ -155,6 +155,7 @@ class DiskRAG:
     def build_index(
         self, collection: str, target_quality: str | None = None,
         force_rebuild: bool = False, index_type: str | None = None,
+        checkpoint_dir: str | None = None,
     ) -> dict:
         from diskrag_tpu_torch.build_index import build_index_from_vectors
 
@@ -184,6 +185,9 @@ class DiskRAG:
             params_override=override or None,
             flat_precision=icfg.flat_precision,
             flat_rerank_width=icfg.flat_rerank_width,
+            ivf_n_cells=icfg.ivf_n_cells,
+            ivf_cap_factor=icfg.ivf_cap_factor,
+            checkpoint_dir=checkpoint_dir,
             device=self.device,
         )
         info = self.manager.get_collection_info(collection)
@@ -386,9 +390,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target-quality", choices=["fast", "balanced", "high"],
                    default=None)
     p.add_argument("--index-type", "--type", dest="index_type",
-                   choices=["vamana", "flat", "auto"], default=None,
+                   choices=["vamana", "flat", "ivf", "auto"], default=None,
                    help="default: config index.type")
     p.add_argument("--force-rebuild", action="store_true")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="mid-build checkpoint/resume dir for long builds (the IVF kNN "
+                        "pass of graph builds above 2M points)")
 
     p = sub.add_parser("search", help="search a collection")
     p.add_argument("collection")
@@ -435,7 +442,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     elif args.command == "index":
         meta = rag.build_index(
             args.collection, args.target_quality, args.force_rebuild,
-            index_type=args.index_type,
+            index_type=args.index_type, checkpoint_dir=args.checkpoint_dir,
         )
         if meta.get("index_type") == "flat":
             detail = f"precision={meta.get('flat_precision')}"

@@ -6,8 +6,11 @@ JAX `diskrag_tpu.ops.flat.FlatIndex` (the scan table is taken as it is,
 not rebuilt); `vamana_index_from_jax` a `VamanaIndex` from a JAX graph's
 arrays; `pq_from_jax` a quantizer from a JAX quantizer's `to_arrays()`,
 with its codes and residual serving arrays moved to the device;
-`iq_from_jax` an `IntQuantizer` from a JAX one's state. Persisted indexes need no conversion: both packages read and write the
-same `index/` layout.
+`iq_from_jax` an `IntQuantizer` from a JAX one's state; `ivf_from_jax` an
+`IVFIndex` from a JAX `IVFIndex` (its cells, tile layout, vectors, metric
+and tile precision; the tiles are rebuilt, bit-identical). Persisted
+indexes need no conversion: both packages read and write the same
+`index/` layout.
 """
 
 from __future__ import annotations
@@ -116,4 +119,24 @@ def iq_from_jax(jax_iq, *, device: str = "cuda"):
 
     return IntQuantizer.from_arrays(
         {k: np.asarray(v) for k, v in jax_iq.to_arrays().items()}, device=device
+    )
+
+
+def ivf_from_jax(ivf, *, device: str = "cuda"):
+    """The port's `IVFIndex` over a JAX `diskrag_tpu.index.ivf.IVFIndex`:
+    its centroids, `tile_ids`, f32 vectors, metric and tile precision,
+    carried across as numpy; the scan tiles, norms and scales are rebuilt
+    by `tiles_from_ids`, bit-identical to the JAX package's."""
+    from diskrag_tpu_torch.index.ivf import IVFIndex, tiles_from_ids
+
+    dev = resolve_device(device)
+    vectors = np.array(ivf.vectors, np.float32)  # a writable copy
+    tile_ids = np.array(ivf.tile_ids, np.int32)
+    precision = "int8" if str(ivf.tiles.dtype) == "int8" else "bf16"
+    master = torch.as_tensor(vectors, device=dev)
+    tiles, norms, scales = tiles_from_ids(vectors, tile_ids, precision, master=master)
+    return IVFIndex(
+        centroids=torch.as_tensor(np.array(ivf.centroids, np.float32), device=dev),
+        tiles=tiles, tile_ids=torch.as_tensor(tile_ids, device=dev), tile_norms=norms,
+        vectors=master, metric=ivf.metric, tile_scales=scales,
     )

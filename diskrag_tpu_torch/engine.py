@@ -13,6 +13,8 @@ Loads a collection's index, runs the startup self-check, and serves
     otherwise;
   - a flat index (`index_type: flat`), served by `ops.flat.FlatIndex`
     with the collection's precision and rerank width;
+  - an IVF-Flat index (`index_type: ivf`), served by `index.ivf.IVFIndex`
+    with n_probe = max(8, min(l_search // 2, cells));
   - no loadable index: brute-force mode, the flat scan over the
     collection's `vectors.npy`.
 
@@ -21,10 +23,10 @@ from `index.host_tier.HostTierIndex`: the graph and a compressed
 traversal form on the device, the f32 vectors in the host record file,
 the exact rerank on the host; batches over one chunk are pipelined. It
 never degrades to brute force: a missing or broken artifact raises
-`ServingConfigError`.
+`ServingConfigError`, as it does on an index other than vamana.
 
-The other index types (ivf, sharded) and serving modes (sharded_flat,
-streaming, host_tier on a sharded index) raise `NotImplementedError`:
+The sharded index and the serving modes sharded_flat and streaming raise
+`NotImplementedError`:
 those are later slices of the port, and serving them by brute force
 would hide that.
 Results come back to the host with one `.cpu()` per output per batch;
@@ -105,6 +107,7 @@ class SearchEngine:
         self.pq_cells_t = None  # residual-PQ aux (pq/residual.py)
         self.pq_bias_t = None
         self.flat = None
+        self.ivf = None         # index_type "ivf"
         self.host_tier = None   # serving_mode "host_tier"
         self.streaming = None   # the mutable tier: a later slice (ROADMAP.md)
         self.meta: dict = {}
@@ -121,7 +124,7 @@ class SearchEngine:
 
     # --- bring-up --------------------------------------------------------
     def _load_artifacts(self) -> None:
-        from diskrag_tpu_torch.index.persist import load_flat_vectors, load_index
+        from diskrag_tpu_torch.index.persist import load_flat_vectors, load_index, load_ivf_index
         from diskrag_tpu_torch.ops.flat import FlatIndex
 
         index_dir = self.manager.get_index_dir(self.collection_name)
@@ -135,10 +138,10 @@ class SearchEngine:
                 metric_hint = peek.get("distance_metric", "l2")
             except ValueError:
                 pass
-        if self.index_type not in ("vamana", "flat"):
+        if self.index_type not in ("vamana", "flat", "ivf"):
             raise NotImplementedError(
                 f"index_type={self.index_type!r} is not ported yet: the port "
-                f"serves vamana and flat indexes (serving_mode={self.serving_mode!r}; "
+                f"serves vamana, flat and ivf indexes (serving_mode={self.serving_mode!r}; "
                 "ROADMAP.md, 'Modules still to port')"
             )
         if self.serving_mode == "host_tier":
@@ -153,6 +156,9 @@ class SearchEngine:
                     rerank_width=self.meta.get("flat_rerank_width"),
                     device=self.device,
                 )
+                return
+            if self.index_type == "ivf":
+                self.ivf, self.meta = load_ivf_index(index_dir, device=self.device)
                 return
             self.index, self.pq, self.codes, self.meta = load_index(
                 index_dir, device=self.device
@@ -204,8 +210,9 @@ class SearchEngine:
         from diskrag_tpu_torch.index.persist import IndexStore
 
         if self.index_type != "vamana":
+            # the JAX package's message (its host tier also serves a sharded index)
             raise ServingConfigError(
-                f"host_tier serving needs a vamana index, got {self.index_type}"
+                f"host_tier serving needs a vamana or sharded index, got {self.index_type}"
             )
         compat = IndexStore(index_dir).compat_path
         if not compat.exists():
@@ -241,7 +248,7 @@ class SearchEngine:
             n = int(self.meta["num_points"])
             ids = np.sort(rng.choice(n, size=min(n_sample, n), replace=False))
             return self.host_tier.reader.get_vectors(ids), ids
-        vectors = self.flat.vectors if self.flat is not None else self.index.vectors
+        vectors = next(x for x in (self.flat, self.ivf, self.index) if x is not None).vectors
         n = vectors.shape[0]
         ids = np.sort(rng.choice(n, size=min(n_sample, n), replace=False))
         vecs = vectors[torch.as_tensor(ids, device=self.device)]
@@ -328,6 +335,8 @@ class SearchEngine:
     def _n_points(self) -> int:
         if self.meta.get("num_points"):
             return int(self.meta["num_points"])
+        if self.ivf is not None:
+            return int(self.ivf.n_points)
         if self.index is not None:
             return int(self.index.n_points)
         return int(self.flat.n_points)
@@ -362,7 +371,7 @@ class SearchEngine:
         """Batched vector search. Returns (dists [B, k] float64, sqrt for
         L2; ids [B, k]; stats). `use_pq_search=False` forces exact
         traversal on a PQ-enabled graph; a flat scan reads neither it nor
-        `l_search`."""
+        `l_search`, an IVF index takes its probe count from `l_search`."""
         t0 = time.perf_counter()
         q = torch.as_tensor(
             np.asarray(query_vectors, np.float32), device=self.device
@@ -420,6 +429,11 @@ class SearchEngine:
 
         if self.host_tier is not None:
             return self._host_tier_branch(q, b, k, l_search)
+        if self.ivf is not None:
+            n_probe = max(8, min(l_search // 2, self.ivf.n_cells))
+            dists, ids = self.ivf.search(q, k=k, n_probe=n_probe)
+            nv = n_probe * self.ivf.tiles.shape[1] * b
+            return dists, ids, None, "ivf", lambda c: (nv, nv, 0), {}
         if self.flat is not None:
             dists, ids = self.flat.search(q, k=k)
             nv = self.flat.n_points * b

@@ -1,8 +1,9 @@
 """Vamana graph: build + search on dense tensors (counterpart of
 `diskrag_tpu/graph/`). The graph is an int32[N, R] padded adjacency (-1
 sentinel); search is a fixed-width masked frontier loop; the build is the
-kNN-based one (`knn_build`). The wave-insertion build, the dynamic
-graph and build checkpoints are not ported yet (ROADMAP.md)."""
+kNN-based one (`knn_build`, with the IVF kNN backend and its checkpoints,
+`checkpoint`). The wave-insertion build and the dynamic graph are not
+ported yet (ROADMAP.md)."""
 
 from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
 from diskrag_tpu_torch.graph.prune import robust_prune_batch

@@ -4,7 +4,9 @@ data-parallel passes.
 
   1. near-exact kNN: top-C neighbors of every point through the fused
      per-row int8 scan (kernel B1), the candidate cut (B4) and an f32
-     rerank (`ops/flat_scan.py`);
+     rerank (`ops/flat_scan.py`); or, above 2M points, approximate kNN by
+     an IVF probe (`approx_knn_ivf`, `index/ivf.py`: no kernel), with
+     checkpoint and resume (`graph/checkpoint.py`);
   2. alpha-prune: vectorized RobustPrune of each point's candidate list
      (top-C plus a few seeded random long-range candidates, which keep
      the graph connected across clusters);
@@ -97,6 +99,93 @@ def exact_knn(
         ids_out.append(torch.gather(ids, 1, take).to(torch.int32))
         dists_out.append(top_d)
     return torch.cat(ids_out), torch.cat(dists_out)
+
+
+def approx_knn_ivf(
+    vectors: torch.Tensor,
+    k: int,
+    *,
+    metric: str = Metric.L2.value,
+    n_probe: int = 8,
+    query_block: int = 8192,
+    seed: int = 0,
+    cap_factor: float = 2.0,
+    n_cells: int | None = None,
+    checkpoint=None,
+    checkpoint_every_s: float = 600.0,
+    host_vectors: np.ndarray | None = None,
+    stage_seconds: dict | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Approximate top-k neighbors of every point (self excluded) by an
+    IVF probe of its `n_probe` nearest cells: O(N * probed cells) instead
+    of O(N^2), the backend for builds past a couple of million points.
+    Table misses are not benign: a true neighbor placed outside the
+    probed cells is absent from every point's candidate pool, so the
+    graph inherits the tables' recall ceiling; `cap_factor` sets it (see
+    `index.ivf.build_ivf`).
+
+    The IVF is built once over `vectors` (a device tensor), which serves
+    as its rerank master: no second device copy. `host_vectors` is a host
+    copy when the caller holds one (the build's placement runs on the
+    host). Results accumulate on the host, block by block. With
+    `checkpoint` (a `BuildCheckpoint`) they are written to
+    `knn_partial.npz` every `checkpoint_every_s` seconds with a resume
+    cursor; a restarted build rebuilds the (seeded, deterministic) IVF and
+    continues from the cursor. The partial is left for the caller to
+    clear once it has saved the completed tables. `stage_seconds`
+    receives the IVF build's stages. Returns (ids int32 [N, k], dists f32
+    [N, k]) as numpy arrays, ascending."""
+    from diskrag_tpu_torch.graph.checkpoint import pack_bf16, unpack_bf16
+    from diskrag_tpu_torch.index.ivf import build_ivf
+
+    n = vectors.shape[0]
+    k = min(k, n - 1)
+    start = 0
+    ids_out, dists_out = [], []
+    if checkpoint is not None:
+        part = checkpoint.load("knn_partial")
+        if part is not None and int(part["k"]) == k:
+            start = int(part["next_i"])
+            if start > 0:
+                ids_out = [part["ids"]]
+                dists_out = [unpack_bf16(part["dists"])]
+            logger.info("resuming kNN pass at row %d/%d from checkpoint", start, n)
+
+    if host_vectors is None:
+        host_vectors = vectors.cpu().numpy()
+    ivf = build_ivf(
+        host_vectors, n_cells, metric=metric, seed=seed, cap_factor=cap_factor,
+        rerank_master=vectors, stage_seconds=stage_seconds,
+    )
+
+    def save_partial(next_i: int) -> None:
+        checkpoint.save(
+            "knn_partial",
+            ids=np.concatenate(ids_out) if ids_out else np.zeros((0, k), np.int32),
+            dists=pack_bf16(
+                np.concatenate(dists_out) if dists_out else np.zeros((0, k), np.float32)
+            ),
+            next_i=np.int64(next_i),
+            k=np.int64(k),
+        )
+
+    last_save = time.perf_counter()
+    for i in range(start, n, query_block):
+        q = vectors[i : i + query_block]
+        d, ids = ivf.search(q, k=k + 1, n_probe=n_probe)
+        gid = torch.arange(i, i + q.shape[0], device=vectors.device)[:, None]
+        d = torch.where(ids == gid, INF, d)
+        top_d, take = topk_smallest(d, k)
+        ids_out.append(torch.gather(ids, 1, take).to(torch.int32).cpu().numpy())
+        dists_out.append(top_d.cpu().numpy())
+        if checkpoint is not None and time.perf_counter() - last_save >= checkpoint_every_s:
+            # consolidate, so the partial holds one array per table
+            ids_out = [np.concatenate(ids_out)]
+            dists_out = [np.concatenate(dists_out)]
+            save_partial(i + query_block)
+            last_save = time.perf_counter()
+    del ivf
+    return np.concatenate(ids_out), np.concatenate(dists_out)
 
 
 def _prune_block(
@@ -234,6 +323,55 @@ def _merge_block(
     return torch.where((n_unique > r)[:, None], pruned, union_ids)
 
 
+def _ivf_knn_tables(vectors, host_vectors, *, knn_k, knn_probe, metric, seed, query_block,
+                    checkpoint_dir, checkpoint_every_s, stage_seconds):
+    """The ivf backend's kNN tables as host tensors (ids int32, dists
+    bf16), from `checkpoint_dir`'s completed "knn" phase when its tag
+    matches, else from `approx_knn_ivf` (then saved, and the partial
+    cleared only after the save landed, so a crash between loses
+    nothing). The distances are rounded to bf16, the JAX package's table
+    precision, whether or not a checkpoint is kept."""
+    from diskrag_tpu_torch.graph.checkpoint import BuildCheckpoint, dataset_fingerprint, pack_bf16
+
+    n = vectors.shape[0]
+    # the cap factor sets the tables' recall ceiling (see build_ivf): 3.0
+    # up to 8M points, 2.5 above, as the JAX package chose
+    cap_factor = 3.0 if n <= 8_000_000 else 2.5
+    ckpt = None
+    if checkpoint_dir is not None:
+        ckpt = BuildCheckpoint(checkpoint_dir, tag={
+            "phase_inputs": "ivf-knn",
+            "n": n, "dim": int(vectors.shape[1]),
+            "knn_k": knn_k, "knn_probe": knn_probe,
+            "metric": metric, "seed": seed,
+            "query_block": query_block,
+            "cap_factor": cap_factor,  # a cap change must invalidate old checkpoints
+            "data": dataset_fingerprint(vectors if host_vectors is None else host_vectors),
+        })
+    done = ckpt.load("knn") if ckpt is not None else None
+    if done is not None:
+        logger.info("kNN tables loaded from checkpoint %s", checkpoint_dir)
+        ids_np, dists16 = done["ids"], done["dists"]
+    else:
+        ivf_stages: dict = {}
+        ids_np, dists_np = approx_knn_ivf(
+            vectors, knn_k, metric=metric, query_block=query_block, seed=seed,
+            n_probe=knn_probe, cap_factor=cap_factor, checkpoint=ckpt,
+            checkpoint_every_s=checkpoint_every_s, host_vectors=host_vectors,
+            stage_seconds=ivf_stages,
+        )
+        if stage_seconds is not None:
+            stage_seconds["knn_ivf_build"] = ivf_stages
+        dists16 = pack_bf16(dists_np)
+        del dists_np
+        if ckpt is not None:
+            ckpt.save("knn", ids=ids_np, dists=dists16)
+            ckpt.clear("knn_partial")
+    ids = torch.from_numpy(np.ascontiguousarray(ids_np, np.int32))
+    dists = torch.from_numpy(np.ascontiguousarray(dists16).view(np.int16)).view(torch.bfloat16)
+    return ids, dists
+
+
 def compute_entry_points(
     vectors: torch.Tensor,
     n_entry: int,
@@ -296,9 +434,11 @@ def build_vamana_knn(
     wave_size: int = 2048,
     n_entry_points: int | None = None,
     knn_backend: str = "auto",
+    knn_probe: int = 8,
     seed: int = 0,
     progress: bool = False,
     checkpoint_dir: str | None = None,
+    checkpoint_every_s: float = 600.0,
     device: str | torch.device = "cuda",
     stage_seconds: dict | None = None,
 ) -> VamanaIndex:
@@ -310,17 +450,26 @@ def build_vamana_knn(
     the graph connected across clusters; `n_entry_points` well-spread
     search seeds (default min(65536, N/64)) are stored on the index:
     searches seed from them plus the medoid. `knn_backend`: "flat" (the
-    fused scans over the whole database) or "auto" (flat up to 2M points);
-    the IVF-probe backend for larger builds is not ported.
-    `checkpoint_dir` is accepted and ignored, as the JAX package's flat
-    backend ignores it. `stage_seconds`, when given, receives the seconds
-    spent per stage (entry_points, knn, prune, reverse, merge), each
-    closed by a device synchronisation."""
+    fused scans over the whole database), "ivf" (`approx_knn_ivf`, probing
+    `knn_probe` cells a point; cap factor 3.0 up to 8M points, 2.5 above)
+    or "auto" (flat up to 2M points, ivf above).
+
+    `checkpoint_dir` enables checkpoint and resume of the ivf kNN pass
+    (the dominant phase of multi-million-point builds): its partial
+    accumulation every `checkpoint_every_s` seconds, then the completed
+    tables, tagged with the build's parameters and a dataset fingerprint
+    so a changed build never resumes stale state; the JAX package writes
+    and reads the same files. The flat backend ignores it. `stage_seconds`,
+    when given, receives the seconds spent per stage (entry_points, knn,
+    prune, reverse, merge; with ivf also `knn_ivf_build`, the IVF's own
+    stages), each closed by a device synchronisation."""
     dev = resolve_device(device)
+    host_vectors = None
     if isinstance(vectors, torch.Tensor):
         vectors = vectors.to(device=dev, dtype=torch.float32)
     else:
-        vectors = torch.as_tensor(np.asarray(vectors, np.float32), device=dev)
+        host_vectors = np.asarray(vectors, np.float32)
+        vectors = torch.as_tensor(host_vectors, device=dev)
     n = vectors.shape[0]
     if n < 2:
         raise ValueError("need at least 2 points")
@@ -337,12 +486,7 @@ def build_vamana_knn(
         n_entry_points = min(65_536, max(n // 64, 0))
     if knn_backend == "auto":
         knn_backend = "flat" if n <= 2_000_000 else "ivf"
-    if knn_backend == "ivf":
-        raise NotImplementedError(
-            "knn_backend='ivf' (and 'auto' above 2M points) needs index/ivf, "
-            "which is not ported yet (ROADMAP.md, 'Modules still to port')"
-        )
-    if knn_backend != "flat":
+    if knn_backend not in ("flat", "ivf"):
         raise ValueError(f"unknown knn_backend: {knn_backend}")
 
     def lap(stage: str, t_start: float) -> float:
@@ -368,7 +512,14 @@ def build_vamana_knn(
             entry_points = torch.as_tensor(eps, dtype=torch.int32, device=dev)
     t = lap("entry_points", t)
 
-    knn_ids, knn_dists = exact_knn(vectors, knn_k, metric=metric, query_block=query_block)
+    if knn_backend == "ivf":
+        knn_ids, knn_dists = _ivf_knn_tables(
+            vectors, host_vectors, knn_k=knn_k, knn_probe=knn_probe, metric=metric,
+            seed=seed, query_block=query_block, checkpoint_dir=checkpoint_dir,
+            checkpoint_every_s=checkpoint_every_s, stage_seconds=stage_seconds,
+        )
+    else:
+        knn_ids, knn_dists = exact_knn(vectors, knn_k, metric=metric, query_block=query_block)
     host_knn = (
         knn_ids.numel() * knn_ids.element_size()
         + knn_dists.numel() * knn_dists.element_size()
@@ -376,6 +527,8 @@ def build_vamana_knn(
     if host_knn:
         knn_ids, knn_dists = knn_ids.cpu(), knn_dists.cpu()
         logger.info("kNN tables stay host-resident; prune blocks slice on demand")
+    else:
+        knn_ids, knn_dists = knn_ids.to(dev), knn_dists.to(dev)
     t = lap("knn", t)
 
     rand_ids = random_long_range_ids(n, n_random, gen, dev)

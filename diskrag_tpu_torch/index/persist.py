@@ -1,4 +1,4 @@
-"""Index persistence — the flat and Vamana parts of
+"""Index persistence — the flat, Vamana and IVF parts of
 `diskrag_tpu/index/persist.py`.
 
 Same artifact layout and `FORMAT_VERSION`, so an index written by either
@@ -13,6 +13,8 @@ package loads in the other:
                          (+ coarse_centroids for a residual PQ)
       pq_aux.npz         point_cell int32[N], point_bias f32[N] (residual PQ)
       index.dat          packed records f32[D] ‖ u32[R]    (write_compat)
+      ivf_centroids.npy  float32[C, D]                     (ivf)
+      ivf_tile_ids.npy   int32[C, cap], -1 padded          (ivf)
 
 `pq_codes.npy` holds an IntQuantizer's int8 rows [N, row_width] instead
 of PQ codes when `pq_kind` is int8 / int4 (self-contained, no aux file).
@@ -351,3 +353,66 @@ def load_flat_vectors(index_dir: str | os.PathLike) -> tuple[np.ndarray, dict]:
     if vectors.shape[0] != meta["num_points"]:
         raise ValueError("meta/num_points mismatch with vectors.npy")
     return vectors, meta
+
+
+def save_ivf_index(
+    index_dir: str | os.PathLike,
+    ivf,
+    *,
+    meta_extra: dict | None = None,
+    host_vectors: np.ndarray | None = None,
+) -> dict:
+    """Persist an IVF-Flat index (`index.ivf.IVFIndex`): vectors,
+    centroids and the tile id layout; the tiles themselves are rebuilt
+    from the vectors at load, in the precision `meta.json` records.
+    `host_vectors`: a host copy of `ivf.vectors`, when the caller holds
+    one (saves the device-to-host copy)."""
+    store = IndexStore(index_dir)
+    store.dir.mkdir(parents=True, exist_ok=True)
+    vectors = np.asarray(_np(ivf.vectors) if host_vectors is None else host_vectors, np.float32)
+    tile_ids = np.asarray(_np(ivf.tile_ids), np.int32)
+    _atomic_save_npy(store.vectors_path, vectors)
+    _atomic_save_npy(store.dir / "ivf_centroids.npy", np.asarray(_np(ivf.centroids), np.float32))
+    _atomic_save_npy(store.dir / "ivf_tile_ids.npy", tile_ids)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "index_type": "ivf",
+        "dimension": int(vectors.shape[1]),
+        "num_points": int(vectors.shape[0]),
+        "n_cells": int(ivf.n_cells),
+        "cell_capacity": int(tile_ids.shape[1]),
+        "distance_metric": ivf.metric,
+        "tile_precision": ivf.tile_precision,
+        "use_pq": False,
+    }
+    if meta_extra:
+        meta.update(meta_extra)
+    _atomic_write_bytes(store.meta_path, json.dumps(meta, indent=2).encode("utf-8"))
+    return meta
+
+
+def load_ivf_index(index_dir: str | os.PathLike, *, device: str | torch.device = "cuda"):
+    """(IVFIndex on `device`, meta) of an index saved by either package's
+    `save_ivf_index`; the scan tiles are rebuilt by `tiles_from_ids` (the
+    padding invariants live there) in the meta's tile precision."""
+    from diskrag_tpu_torch.device import resolve_device
+    from diskrag_tpu_torch.index.ivf import IVFIndex, tiles_from_ids
+
+    dev = resolve_device(device)
+    store = IndexStore(index_dir)
+    meta = json.loads(store.meta_path.read_text())
+    if meta.get("index_type") != "ivf":
+        raise ValueError(f"not an ivf index: {store.dir}")
+    vectors = np.load(store.vectors_path)
+    centroids = np.load(store.dir / "ivf_centroids.npy")
+    tile_ids = np.load(store.dir / "ivf_tile_ids.npy")
+    master = torch.as_tensor(vectors, device=dev)
+    tiles, norms, scales = tiles_from_ids(
+        vectors, tile_ids, meta.get("tile_precision", "int8"), master=master
+    )
+    index = IVFIndex(
+        centroids=torch.as_tensor(centroids, device=dev), tiles=tiles,
+        tile_ids=torch.as_tensor(tile_ids, device=dev), tile_norms=norms, vectors=master,
+        metric=meta.get("distance_metric", "l2"), tile_scales=scales,
+    )
+    return index, meta

@@ -306,16 +306,16 @@ def _hits(data):
     return ids, dists
 
 
-@pytest.mark.parametrize("index_type", ["flat", "vamana"])
+@pytest.mark.parametrize("index_type", ["flat", "vamana", "ivf"])
 def test_both_packages_apps_answer_alike(workspace, index_type):
     """One collection, one index directory (built by the JAX package), both
-    apps: the flat per-row index, and a carried vamana index that both
-    serve by exact traversal (20 points train no PQ)."""
+    apps: the flat per-row index, a carried vamana index that both serve by
+    exact traversal (20 points train no PQ), and an IVF index."""
     rag = JaxRAG("config.yaml")
     rag.process("faq.csv", "faq")
     meta = rag.build_index("faq", index_type=index_type)
     assert meta["index_type"] == index_type and not meta["use_pq"]
-    want_type = "flat" if index_type == "flat" else "exact"
+    want_type = {"vamana": "exact"}.get(index_type, index_type)
 
     async def answers(app):  # one app, one event loop, the requests one after the other
         from aiohttp.test_utils import TestClient, TestServer

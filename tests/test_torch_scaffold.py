@@ -32,6 +32,12 @@ import diskrag_tpu_torch.graph.prune, diskrag_tpu_torch.graph.knn_build
 import diskrag_tpu_torch.pq, diskrag_tpu_torch.pq.kmeans, diskrag_tpu_torch.pq.adaptive
 import diskrag_tpu_torch.pq.product_quantizer, diskrag_tpu_torch.pq.residual
 import diskrag_tpu_torch.pq.intq, diskrag_tpu_torch.native, diskrag_tpu_torch.index.host_tier
+import diskrag_tpu_torch.index.ivf, diskrag_tpu_torch.graph.checkpoint
+from diskrag_tpu_torch.index.ivf import IVFIndex, assign_cells, build_ivf, tiles_from_ids
+from diskrag_tpu_torch.graph.checkpoint import BuildCheckpoint, dataset_fingerprint, pack_bf16
+from diskrag_tpu_torch.graph.knn_build import approx_knn_ivf
+from diskrag_tpu_torch.index.persist import load_ivf_index, save_ivf_index
+from diskrag_tpu_torch.convert import ivf_from_jax
 from diskrag_tpu_torch.graph import (
     VamanaIndex, beam_search, beam_search_pq, beam_search_reranked, build_vamana_knn,
     robust_prune_batch,
@@ -50,7 +56,8 @@ from diskrag_tpu_torch.ops.flat_scan import (
     scan_bucketed_topk_packed, scan_bucketed_topk_packed_ref,
 )
 from diskrag_tpu_torch.benchmark import (
-    SweepPoint, adaptive_flat_point, sweep_exact, sweep_flat, sweep_host_tier, sweep_iq, sweep_pq,
+    SweepPoint, adaptive_flat_point, sweep_exact, sweep_flat, sweep_host_tier, sweep_iq, sweep_ivf,
+    sweep_pq,
 )
 from diskrag_tpu_torch.api import AppState, create_app
 from diskrag_tpu_torch.ops.mm_probe import mm_probe, mm_probe_ref
@@ -58,7 +65,7 @@ from diskrag_tpu_torch.utils.profiling import PhaseTimer, block_and_time, device
 from diskrag_tpu_torch.kernels.launches import launch_counts
 assert set(launch_counts()) == {"B1", "B4", "B2", "B3", "B6", "B5", "M1"}
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "diskrag_tpu."))
+             if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "diskrag_tpu."))
              or m == "diskrag_tpu")
 lazy = sorted(m for m in ("pandas", "yaml", "pyarrow", "httpx", "aiohttp", "pydantic")
               if m in sys.modules)
@@ -280,9 +287,12 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         with pytest.raises(ValueError, match="fused_precision"):
             FlatIndex(pts, fused_precision="int4_packed", device="cpu")
     elif cut == "build":
-        # write_compat and pq_kind int8 / int4 are ported (the host tier
-        # and the int-quantized rows); these are still later slices
-        for kw in (dict(index_type="ivf"), dict(index_type="sharded"),
+        # write_compat, pq_kind int8 / int4 and the ivf index are ported
+        # (the host tier, the int-quantized rows, the IVF slice); these are
+        # still later slices
+        meta = build_index_from_vectors(pts, tmp_path / "ivf", index_type="ivf", device="cpu")
+        assert meta["index_type"] == "ivf" and meta["tile_precision"] == "int8"
+        for kw in (dict(index_type="sharded"),
                    dict(index_type="sharded", write_compat=True),
                    dict(index_type="vamana", build_method="wave")):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -291,15 +301,22 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         with pytest.raises(ValueError, match="index_type"):
             build_index_from_vectors(pts, tmp_path / "i", index_type="hnsw", device="cpu")
     else:
-        from diskrag_tpu_torch.engine import SearchEngine
+        from diskrag_tpu_torch.build_index import build_index_from_vectors
+        from diskrag_tpu_torch.data.collection import CollectionManager
+        from diskrag_tpu_torch.engine import SearchEngine, ServingConfigError
 
-        _tiny_collection(tmp_path, pts, {"index_type": "ivf"})
-        # never served by brute force in place of the requested index
-        with pytest.raises(NotImplementedError, match="ivf"):
-            SearchEngine("c", base_dir=str(tmp_path), device="cpu")
-        # host_tier is served on a vamana index only: on an ivf index the
-        # index type is the missing slice, and the message names the mode
-        for mode in ("host_tier", "sharded_flat", "streaming"):
+        _tiny_collection(tmp_path, pts, None)
+        build_index_from_vectors(pts, CollectionManager(tmp_path).get_index_dir("c"),
+                                 index_type="ivf", device="cpu")
+        # the ivf index is served (ported), not by brute force
+        engine = SearchEngine("c", base_dir=str(tmp_path), device="cpu")
+        assert engine.ivf is not None and not engine.brute_force_mode
+        assert engine.search_batch(pts[:3], k=4)[2]["search_type"] == "ivf"
+        # host_tier is served on a vamana index only (the JAX package's
+        # ServingConfigError); sharded_flat and streaming are later slices
+        with pytest.raises(ServingConfigError, match="vamana or sharded index, got ivf"):
+            SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="host_tier")
+        for mode in ("sharded_flat", "streaming"):
             with pytest.raises(NotImplementedError, match=mode):
                 SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode=mode)
         with pytest.raises(ValueError, match="serving_mode"):
@@ -321,8 +338,10 @@ def test_unported_graph_options_raise_not_implemented(what, tmp_path):
     elif what == "knn_backend":
         from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_vamana_knn(pts, degree_bound=4, knn_backend="ivf", device="cpu")
+        # the ivf backend is ported: it builds a graph (its kNN pass probes
+        # an IVF instead of scanning)
+        index = build_vamana_knn(pts, degree_bound=4, knn_backend="ivf", device="cpu")
+        assert index.adjacency.shape == (64, 4) and int(index.adjacency.max()) < 64
         with pytest.raises(ValueError, match="knn_backend"):
             build_vamana_knn(pts, degree_bound=4, knn_backend="hnsw", device="cpu")
     elif what == "int8_prune":

@@ -120,7 +120,7 @@ def test_verify_index_detects_corruption_as_the_jax_package_does(damage, tmp_pat
 @pytest.mark.parametrize("itype", ["flat", "ivf"])
 def test_verify_index_non_vamana_types(itype, tmp_path):
     """A structured report for flat / ivf index dirs (their metas have no R
-    key). The port builds no ivf index yet; it verifies one all the same."""
+    key); the ivf directory is the JAX package's."""
     vecs = np.random.default_rng(0).normal(size=(1200, 64)).astype(np.float32)
     d = tmp_path / itype
     if itype == "flat":
