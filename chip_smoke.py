@@ -46,7 +46,23 @@ and bf16 tiles; phase `main-graph-ivfknn` builds the degree-48 graph at
 1,000,000 with the IVF kNN backend (B1 and B4 must not launch; exact
 traversal recall gated at 0.985) and, at 200,000, twice with one
 checkpoint directory (the second build's kNN stage under a tenth of the
-first's, its adjacency bit-identical). Profiled figures are taken per recorded
+first's, its adjacency bit-identical). Phase `main-streaming` runs the JAX
+streaming bench's protocol (`diskrag_tpu_torch.tools.streaming_bench`, in
+process): a degree-48 base of 200,000 points, 131,072 more streamed in
+batches of 1024 through `StreamingIndex` (buffer 32,768, kNN merge); it
+gates recall@10 at two mid-stream probes and at the end (the JAX
+package's v5e figures less 0.01), four merges and exactly 8 launches each
+of B1 and B4 a merge, holds B1 and B4 bit for bit at one merge sub-wave's
+operands (L2 with the 1e15 pad rows, cosine with zeroed pad codes), then
+runs one rebuild-path merge (B1 / B4 through `build_vamana_knn`), one
+`merge_method="wave"` merge (no kernel) and a delete of 10% of the live ids
+with `consolidate` (no tombstoned id served; recall within 0.01), beside
+the JAX package's consolidate policy on the same state (printed). Phase
+`main-wave` builds the 200,000-point index with `build_method="wave"` (no
+kernel) and gates exact traversal at L = 48; phase `api-streaming` serves
+the default vamana collection over HTTP in streaming mode (`/insert`,
+`/search`, `/delete`), then flushes the inserted rows and serves them in
+mode "auto". Profiled figures are taken per recorded
 event, so a few dropped events do not bias them, from windows retried
 when they lost many; a null one is printed with its reason. Every phase prints JSON lines; the line before the last is the
 card's name and power limit as nvidia-smi gives them, and the last line is
@@ -64,7 +80,9 @@ that many points instead of 200,000 (above 2,000,000 the build's "auto"
 kNN backend is the IVF probe, and B1 / B4 must not launch), prints its
 lines and the card, and
 ends without the last line above: a measurement at another size, not the
-smoke test.
+smoke test. `python3 chip_smoke.py --streaming-n 1000000` runs the
+streaming phase alone at that base (recall gated at the end at 0.9885, the
+JAX package's 1M figure less 0.01), the same way.
 """
 
 from __future__ import annotations
@@ -957,8 +975,14 @@ def profile_batch(engine, q, steps: int = 3, path: str = "flat-1M-int8",
     CUPTI, through `profiled`, which tolerates a few dropped events and
     retries a window that lost many) and the device's idle share of the
     profiled host time. Null figures carry the reason."""
+    return profile_calls(lambda: engine.search_batch(q, k=MAIN_K, l_search=l_search), steps,
+                         path, watch)
+
+
+def profile_calls(step_fn, steps: int, path: str, watch: tuple[str, ...] = ()) -> dict:
+    """`profile_batch` for any call that serves one batch."""
     by_name, per_batch, recorded, wall, windows, reason = profiled(
-        lambda: engine.search_batch(q, k=MAIN_K, l_search=l_search), steps, what=f"profile {path}")
+        step_fn, steps, what=f"profile {path}")
     by_name = by_name or {}
     wall_ms = sum(wall) / max(len(wall), 1)
     busy = sum(by_name.values())
@@ -2372,6 +2396,401 @@ def phase_ivfknn_resume(smi: str, pts) -> None:
     torch.cuda.empty_cache()
 
 
+# recall@10 gates of the streaming cell (the JAX package's v5e figures less
+# 0.01: 0.9967-0.9969 mid-stream and 0.9982 at the end at a 200k base,
+# `benchmarks/last_streaming_tpu.json`; 0.9985 at the end at 1M,
+# `benchmarks/last_streaming_1m_tpu.json`)
+STREAM_MID_GATE, STREAM_FINAL_GATE = 0.9867, {200_000: 0.9882, 1_000_000: 0.9885}
+STREAM_SUBWAVES = 8  # a 32,768-row buffer in 4096-row sub-waves: one B1 and one B4 each
+
+
+def merge_shape_kernels(idx, smi: str) -> dict:
+    """B1 and B4 on the exact operands of one sub-wave of the kNN merge
+    (`index.streaming.merge_scan_table` over the padded table, the last
+    4096 placed rows as queries, quantized and handed over as
+    `flat_search_fused` hands them: NB = 4096, kk = 4 * 65 = 260), under L2
+    (capacity pads at 1e15: norms ~1.3e32, finite) and under cosine (pads'
+    codes and scales zeroed). Both bit-identical to their plain versions;
+    timed and bounded (all table rows: the scan reads the pads too)."""
+    import torch
+
+    from diskrag_tpu_torch.index.streaming import merge_scan_table
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    vectors, n_used = idx.index.vectors, idx.n_graph
+    rows, d = vectors.shape
+    b, nb, kk = 4096, 4096, 260
+    q = vectors[n_used - b : n_used]
+    out = {}
+    for metric in ("l2", "cosine"):
+        codes, scales, norms = merge_scan_table(vectors, n_used, metric)
+        require(bool(torch.isfinite(norms).all()), f"{metric}: non-finite norms in the merge table")
+        qf = q / (torch.sqrt(torch.sum(q * q, -1, keepdim=True)) + 1e-12) if metric == "cosine" else q
+        qc, qs = fs.quantize_int8(qf)
+        args = (qc, codes, norms)
+        kw = dict(n_buckets=nb, use_norms=metric == "l2", q_scales=qs, db_scales=scales)
+        vals, row = compare_b1(*args, **kw)
+        require(not bool(torch.isnan(vals).any()), f"{metric}: NaN in B1's scores")
+        lk, lr = fs.topk_lanes(vals, kk), fs.topk_lanes_ref(vals, kk)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(lk, lr)), f"B4 differs at the merge shape ({metric})")
+        entry = {"B1": {"b": b, "rows": rows, "n_used": n_used, "nb": nb, "match": row["match"],
+                        "max_abs_err": row["max_abs_err"]},
+                 "B4": {"b": b, "nb": nb, "kk": kk, "match": "bit-identical",
+                        "max_abs_err": float((lk - lr).abs().max())}}
+        if metric == "l2":  # timed once: the cosine call is the same work
+            ops = fs._scan_operands(*args, n_valid=None, **kw)
+            call = lambda: fs.scan_bucketed_topk(*args, **kw)  # noqa: E731
+            b1_bound, b1_by = b1_bound_ms(b, rows, d, nb)
+            b4_bound, b4_by = b4_bound_ms(b, nb, kk)
+            entry["B1"].update(ms=cuda_ms(call, 10), device_ms=kernel_device_ms(call, 5),
+                               plain_ms=cuda_ms(lambda: fs.scan_bucketed_topk_ref(*ops), 1),
+                               library_ms=None, bound_ms=b1_bound, bound_by=b1_by)
+            entry["B4"].update(**b4_timed(vals, kk), bound_ms=b4_bound, bound_by=b4_by)
+        out[metric] = entry
+    emit({"phase": "kernels", "case": "streaming kNN merge sub-wave (NB 4096, kk 260)",
+          "card": smi, **out})
+    return {name: {**out["l2"][name], "cosine": out["cosine"][name]} for name in ("B1", "B4")}
+
+
+def _live_recall(idx, queries, live_ext, live_vecs):
+    """recall@10 of the tier's merged search (L = 32) against the exact
+    answer over the live vectors, in external ids; and the served ids."""
+    from diskrag_tpu_torch.benchmark import ground_truth, recall_at_k
+
+    gt = live_ext[ground_truth(live_vecs, queries, MAIN_K, device="cuda")]
+    ids, _ = idx.search(queries, k=MAIN_K, search_width=32)
+    ids = ids.cpu().numpy()
+    return recall_at_k(ids, gt, MAIN_K), ids
+
+
+def _reference_consolidate(idx, queries, live_ext, live_vecs) -> dict:
+    """The JAX package's consolidate policy on the tier's present state,
+    measured beside the port's: `graph.dynamic.consolidate` refining a
+    random tenth of the rows (`diskrag_tpu/index/streaming.py:777-780`),
+    then exact traversal at L = 32 from the result's entry points. Leaves
+    the tier as it was. Returns seconds, launches, recall@10 and the ids
+    served (external)."""
+    import torch
+
+    from diskrag_tpu_torch.benchmark import ground_truth, recall_at_k
+    from diskrag_tpu_torch.graph import dynamic
+    from diskrag_tpu_torch.graph.search import beam_search
+    from diskrag_tpu_torch.graph.types import VamanaIndex
+
+    n0 = idx.n_graph
+    used = VamanaIndex(vectors=idx.index.vectors[:n0], adjacency=idx.index.adjacency[:n0],
+                       medoid=idx.index.medoid, metric=idx.metric,
+                       entry_points=idx.index.entry_points)
+    reset_counts()
+    t = time.perf_counter()
+    new, old_to_new = dynamic.consolidate(used, idx._graph_deleted[:n0],
+                                          build_width=idx.build_width, alpha=idx.alpha,
+                                          refine_fraction=0.1, seed=idx.seed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    res = beam_search(new.vectors, new.adjacency, new.medoid, queries, search_width=32,
+                      k=MAIN_K, expand_width=8, metric=new.metric, entry_points=new.entry_points)
+    ids = idx._graph_ext[:n0].cpu().numpy()[old_to_new >= 0][res.ids.cpu().numpy()]
+    gt = live_ext[ground_truth(live_vecs, queries, MAIN_K, device="cuda")]
+    return {"refine_fraction": 0.1, "seconds": seconds, "launches": launches,
+            "recall_at_10": recall_at_k(ids, gt, MAIN_K), "ids": ids}
+
+
+def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_072) -> dict:
+    """The streaming tier at the JAX bench's protocol
+    (`diskrag_tpu_torch.tools.streaming_bench`, in process): a degree-48
+    base of `base_n` points, 131,072 more streamed in batches of 1024
+    through `StreamingIndex` with its defaults (buffer 32,768, kNN merge,
+    fraction 0.25; the run's ingest reserved, as the JAX bench does).
+    Gates: recall@10 at both mid-stream probes and at the end; four merges;
+    exactly 8 launches each of B1 and B4 per merge and no other kernel.
+    Then, once each on the same tier: B1 / B4 held at the merge's shape, a
+    profiled merged-search batch, a rebuild-path merge (B1 and B4 through
+    `build_vamana_knn`), a `merge_method="wave"` merge (no kernel), and a
+    delete of 10% of the live ids followed by `consolidate` (no tombstoned
+    id served, recall no more than 0.01 under the pre-delete figure), with
+    the JAX package's consolidate policy measured beside it on the same
+    state (its recall printed, not gated)."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import make_dataset
+    from diskrag_tpu_torch.tools import streaming_bench
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res, idx, queries = streaming_bench.run(base_n=base_n, stream_n=stream_n, batch=1024,
+                                            dim=MAIN_D, n_queries=MAIN_B, seed=42, device="cuda")
+    launches = read_counts()
+    phase_s = time.perf_counter() - t0
+    n_merges = res["n_merges"]
+    per_merge = [m["launches"] for m in res["merges"]]
+    built = res["base_build_launches"]
+    mids = [p["recall"] for p in res["mid_stream_probes"]]
+    final_gate = STREAM_FINAL_GATE[base_n]
+    emit({"phase": "main-streaming", "base_n": base_n, "stream_n": stream_n, "d": MAIN_D,
+          **{k: v for k, v in res.items() if k not in ("merges", "base_n", "stream_n")},
+          "merge_seconds": [m["seconds"] for m in res["merges"]],
+          "merge_stage_seconds": [m["stage_seconds"] for m in res["merges"]],
+          "launches_per_merge": per_merge, "launches": launches,
+          "recall_gates": {"mid": STREAM_MID_GATE, "final": final_gate},
+          "jax_v5e_recall": ("0.9967-0.9969 mid, 0.9982 final" if base_n == 200_000
+                             else "0.9973-0.9978 mid, 0.9985 final"),
+          "graph_rows_padded": idx._graph_capacity,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_seconds": phase_s, "card": smi})
+    require(n_merges == 4, f"{n_merges} merges, expected 4")
+    require(all(m["B1"] == m["B4"] == STREAM_SUBWAVES
+                and not any(v for k, v in m.items() if k not in ("B1", "B4")) for m in per_merge),
+            f"a kNN merge did not launch B1 and B4 {STREAM_SUBWAVES} times each: {per_merge}")
+    require(all(launches[k] == built[k] + (STREAM_SUBWAVES * n_merges if k in ("B1", "B4") else 0)
+                for k in launches),
+            f"the stream launched {launches}: its base build {built}, its merges {per_merge}")
+    require(len(mids) == 2 and min(mids) >= STREAM_MID_GATE,
+            f"mid-stream recall {mids} < {STREAM_MID_GATE}")
+    require(res["final_recall"] >= final_gate, f"final recall {res['final_recall']} < {final_gate}")
+    q_dev = torch.as_tensor(queries, device="cuda")
+    emit(profile_calls(lambda: idx.search(q_dev, k=MAIN_K, search_width=32), 3,
+                       f"streaming-{base_n // 1000}k merged search (L = 32, buffer half full)",
+                       watch=("gemm", "sort", "index")))
+    if base_n != 200_000:
+        return {}
+    kernels = merge_shape_kernels(idx, smi)
+
+    pts, _ = make_dataset(base_n + stream_n, MAIN_D, MAIN_B, seed=42)
+    # the QPS measurement left duplicates of the first half-buffer of the
+    # stream in the buffer (ids are dense: they follow the stream's):
+    # tombstone them, so every live vector is distinct
+    idx.delete(base_n + stream_n + np.arange(idx.n_buffered))
+    live_ext = np.arange(len(pts))
+    out = {}
+
+    # rebuild path: the whole live set through build_vamana_knn
+    idx.merge_insert_max_fraction = 0.0
+    reset_counts()
+    t = time.perf_counter()
+    idx.merge()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t
+    rebuild_launches = read_counts()
+    rec, _ = _live_recall(idx, q_dev, live_ext, pts)
+    checks = [(rebuild_launches["B1"] == rebuild_launches["B4"] > 0,
+               f"the rebuild-path merge did not go through B1 and B4: {rebuild_launches}"),
+              (idx.rows_compacted and idx.n_graph == len(pts), "the rebuild kept tombstoned rows")]
+    out["rebuild"] = {"seconds": rebuild_s, "launches": rebuild_launches, "recall_at_10": rec}
+
+    # wave path: the last 4096 stream points re-inserted under new ids (the
+    # old rows tombstoned), merged by wave_step: no kernel
+    idx.merge_insert_max_fraction, idx.merge_method = 0.25, "wave"
+    moved = live_ext[-4096:]
+    idx.delete(moved)
+    new_ext = idx.insert(pts[moved])
+    live_ext = np.concatenate([live_ext[:-4096], new_ext])
+    reset_counts()
+    t = time.perf_counter()
+    idx.merge()
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t
+    wave_launches = read_counts()
+    rec_wave, _ = _live_recall(idx, q_dev, live_ext, pts)
+    checks.append((not any(wave_launches.values()), f"the wave merge launched {wave_launches}"))
+    out["wave"] = {"seconds": wave_s, "rows": 4096, "launches": wave_launches,
+                   "recall_at_10": rec_wave}
+
+    # delete 10% of the live ids, then consolidate
+    rng = np.random.default_rng(0)
+    gone = rng.choice(len(live_ext), size=len(live_ext) // 10, replace=False)
+    idx.delete(live_ext[gone])
+    keep = np.ones(len(live_ext), bool)
+    keep[gone] = False
+    _, ids = _live_recall(idx, q_dev, live_ext[keep], pts[keep])
+    checks.append((not np.isin(ids, live_ext[gone]).any(),
+                   "a tombstoned id was served before consolidate"))
+    ref = _reference_consolidate(idx, q_dev, live_ext[keep], pts[keep])
+    checks.append((not np.isin(ref.pop("ids"), live_ext[gone]).any(),
+                   "the reference consolidate served a tombstoned id"))
+    reset_counts()
+    t = time.perf_counter()
+    idx.consolidate()
+    torch.cuda.synchronize()
+    cons_s = time.perf_counter() - t
+    cons_launches = read_counts()
+    rec_del, ids = _live_recall(idx, q_dev, live_ext[keep], pts[keep])
+    checks += [(not np.isin(ids, live_ext[gone]).any(), "a tombstoned id was served after consolidate"),
+               (rec_del >= rec_wave - 0.01,
+                f"recall after delete + consolidate {rec_del} < {rec_wave} - 0.01")]
+    out["delete_consolidate"] = {"deleted": len(gone), "consolidate_seconds": cons_s,
+                                 "launches": cons_launches, "recall_at_10": rec_del,
+                                 "recall_before_delete": rec_wave, "n_graph": idx.n_graph,
+                                 "jax_policy": ref}
+    emit({"phase": "main-streaming-paths", **out, "card": smi})
+    for cond, what in checks:
+        require(cond, what)
+    del idx, q_dev
+    torch.cuda.empty_cache()
+    merge_launches = {k: launches[k] - built[k] for k in launches}
+    return {"kernels": kernels, "launches": merge_launches, "n_merges": n_merges}
+
+
+WAVE_RECALL_GATE = 0.972  # the JAX wave graph's 0.982 at L = 48 (docs/PERFORMANCE.md:340-342) less 0.01
+
+
+def phase_main_wave(smi: str, base, pts, q, gt) -> None:
+    """The wave-insertion build through the entry point a user calls:
+    `build_index_from_vectors(index_type="vamana", build_method="wave")`
+    with every other default, served by `SearchEngine` with exact
+    traversal at L = 48 (recall@10 gate). No kernel may launch (the wave
+    build is beam search + prune; the PQ fit and encode run no kernel)."""
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+    from diskrag_tpu_torch.build_index import build_index_from_vectors
+    from diskrag_tpu_torch.engine import SearchEngine
+
+    name = f"wave_{len(pts) // 1000}k"
+    index_dir = make_collection(base, name, pts)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    meta = build_index_from_vectors(pts, index_dir, index_type="vamana", build_method="wave",
+                                    device="cuda")
+    build_s = time.perf_counter() - t0
+    build_launches = read_counts()
+    engine = SearchEngine(name, base_dir=str(base), device="cuda")
+    reset_counts()
+    t = time.perf_counter()
+    _, ids, stats = engine.search_batch(q, k=MAIN_K, l_search=48, use_pq_search=False)
+    batch_s = time.perf_counter() - t
+    launches = read_counts()
+    recall = recall_at_k(ids, gt, MAIN_K)
+    emit({"phase": "main-wave", "n": len(pts), "d": pts.shape[1], "R": meta["R"],
+          "L_build": meta["L"], "alpha": meta["alpha"], "use_pq": meta["use_pq"],
+          "build_seconds_graph": meta["build_seconds"], "build_seconds_total": build_s,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "l_search": 48, "recall_at_10": recall, "recall_gate": WAVE_RECALL_GATE,
+          "rounds": stats["rounds"], "ms_per_batch": batch_s * 1e3,
+          "launches_build": build_launches, "launches_search": launches, "card": smi})
+    require(meta["build_method"] == "wave", f"built {meta.get('build_method')}")
+    require(not any(build_launches.values()), f"the wave build launched {build_launches}")
+    require(stats["search_type"] == "exact", f"served as {stats['search_type']}")
+    require(not any(launches.values()), f"exact traversal launched {launches}")
+    require(recall >= WAVE_RECALL_GATE, f"wave graph recall@10 {recall} < {WAVE_RECALL_GATE} at L=48")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_api_streaming(smi: str, base, name: str, n_rows: int) -> None:
+    """The default 200k vamana collection (with the metadata `phase_api`
+    gave it) behind `create_app` with `serving_mode="streaming"` and the
+    mock embedder, on a socket on 127.0.0.1: `/insert` of a few texts
+    answers 200 with the collection's new row ids, `/search` for an
+    inserted text returns its id at rank 1, `/delete` answers 200 and the
+    deleted id is never served again. Then a fresh streaming engine adopts
+    the inserted rows and takes four more through `insert_texts`,
+    `flush_index` persists them, and a fresh engine in mode "auto" holds
+    them all and finds the four by search. Runs last: it grows the
+    collection."""
+    import asyncio
+
+    import aiohttp
+    import numpy as np
+    import torch
+    from aiohttp import web
+
+    from diskrag_tpu_torch.api import AppState, create_app
+    from diskrag_tpu_torch.data import EmbeddingConfig, EmbeddingGenerator
+    from diskrag_tpu_torch.engine import SearchEngine
+
+    cfg = EmbeddingConfig(provider="mock", model="mock", dimension=MAIN_D)
+    state = AppState(base_dir=str(base), embedding_config=cfg, serving_mode="streaming",
+                     device="cuda")
+    state.embedder = EmbeddingGenerator(cfg, cache_dir=base / ".embeddings")
+    state.prepare()
+    state.get_engine(name)  # bring-up before the counted requests
+    texts = [f"streamed document {i}" for i in range(4)]
+    sent: list = []
+
+    async def exchange() -> None:
+        runner = web.AppRunner(create_app(state))
+        await runner.setup()
+        try:
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            url = f"http://127.0.0.1:{runner.addresses[0][1]}"
+
+            async def post(path, payload):
+                t = time.perf_counter()
+                async with aiohttp.request("POST", url + path, json=payload) as resp:
+                    out = (path, resp.status, await resp.json(), (time.perf_counter() - t) * 1e3)
+                sent.append(out)
+                return out[1], out[2]
+
+            status, ins = await post("/insert", {"collection": name, "texts": texts})
+            require(status == 200 and ins["ids"] == list(range(n_rows, n_rows + 4)),
+                    f"/insert answered {status}: {ins}")
+            for text in texts:
+                status, out = await post("/search", {"collection": name, "query": text, "top_k": 5})
+                require(status == 200 and out["results"][0]["text"] == text,
+                        f"/search for an inserted text: {status} {out['results'][:1]}")
+                require(out["stats"]["search_type"] == "streaming", f"served as {out['stats']}")
+            status, d = await post("/delete", {"collection": name, "ids": [ins["ids"][1]]})
+            require(status == 200 and d["deleted"] == 1, f"/delete answered {status}: {d}")
+            for text in texts:
+                status, out = await post("/search", {"collection": name, "query": text, "top_k": 5})
+                require(status == 200 and all(r["text"] != texts[1] for r in out["results"]),
+                        "a deleted row was served")
+        finally:
+            await runner.cleanup()
+
+    reset_counts()
+    asyncio.run(exchange())
+    launches = read_counts()
+    require(not any(launches.values()), f"the streaming requests launched {launches}")
+    del state
+    # deletions are session-local: a fresh streaming engine adopts the four
+    # inserted rows past the index watermark; four more rows near existing
+    # points (the mock embeddings are unit vectors, ~45 away from every
+    # data point: a graph search cannot reach them once merged, as in the
+    # JAX package) go in through `insert_texts`, then `flush_index`
+    engine = SearchEngine(name, base_dir=str(base), serving_mode="streaming", device="cuda",
+                          run_diagnostics=False)
+    require(engine.streaming.n_buffered == 4, f"adopted {engine.streaming.n_buffered} rows")
+    rng = np.random.default_rng(1)
+    near = np.load(engine.manager.get_vectors_path(name), mmap_mode="r")[:4]
+    near = (near + 0.3 * rng.standard_normal(near.shape)).astype(np.float32)
+    got = engine.insert_texts([f"near document {i}" for i in range(4)], vectors=near)
+    require(got.tolist() == list(range(n_rows + 4, n_rows + 8)), f"insert_texts gave {got}")
+    reset_counts()
+    t = time.perf_counter()
+    flushed = engine.flush_index()
+    flush_s = time.perf_counter() - t
+    flush_launches = read_counts()
+    del engine
+    auto = SearchEngine(name, base_dir=str(base), device="cuda", run_diagnostics=False)
+    embed = EmbeddingGenerator(cfg, cache_dir=base / ".embeddings").generate
+    mock_vecs = np.stack([embed(t) for t in texts]).astype(np.float32)
+    held = auto.index.vectors[n_rows : n_rows + 4].cpu().numpy()
+    _, ids, stats = auto.search_batch(near, k=1, l_search=64)
+    texts_back = [r[0]["text"] for r in auto.search_many(
+        [f"near document {i}" for i in range(4)], k=1,
+        embedding_fn=dict(zip([f"near document {i}" for i in range(4)], near)).__getitem__,
+        l_search=64)["results"]]
+    require(flushed["n_points"] == n_rows + 8 and np.array_equal(held, mock_vecs)
+            and ids[:, 0].tolist() == list(range(n_rows + 4, n_rows + 8))
+            and texts_back == [f"near document {i}" for i in range(4)],
+            f"the flushed index serves {ids[:, 0].tolist()} {texts_back} ({flushed})")
+    emit({"phase": "api-streaming", "collection": name, "n": n_rows,
+          "requests": [{"path": p, "status": st, "ms": ms} for p, st, _, ms in sent],
+          "launches_requests": launches, "flush": flushed, "flush_seconds": flush_s,
+          "launches_flush": flush_launches, "auto_search_type": stats["search_type"],
+          "card": smi})
+    del auto
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2388,11 +2807,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
     dev = phase_device()
-    if sys.argv[1:2] == ["--graph-n"]:
+    if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"]):
         from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
-        pts, q = make_dataset(int(sys.argv[2]), MAIN_D, MAIN_B, seed=42)
-        phase_main_graph(dev["smi"], pts, q, ground_truth(pts, q, MAIN_K, device="cuda"))
+        n = int(sys.argv[2])
+        if sys.argv[1] == "--streaming-n":
+            phase_main_streaming(dev["smi"], base_n=n)
+        else:
+            pts, q = make_dataset(n, MAIN_D, MAIN_B, seed=42)
+            phase_main_graph(dev["smi"], pts, q, ground_truth(pts, q, MAIN_K, device="cuda"))
         emit({"phase": "done", "seconds": time.perf_counter() - t0})
         print(dev["smi"])
         return 0
@@ -2446,6 +2869,14 @@ def main() -> int:
         b5_row["rounds_host_tier_200k_pq"] = ht200["rounds"]
         phase_ivf(dev["smi"], base, *sets[CMP_N])
         phase_ivfknn_resume(dev["smi"], sets[CMP_N][0])
+        streaming = phase_main_streaming(dev["smi"])
+        for row in out["kernels"][:2]:  # B1, B4: the streaming merge's shape and launches
+            kid = row["name"][:2]
+            row["streaming_merge_shape"] = streaming["kernels"][kid]
+            row["launches_main_streaming_merges"] = streaming["launches"][kid]
+            row["launches_per_streaming_merge"] = streaming["launches"][kid] // streaming["n_merges"]
+        phase_main_wave(dev["smi"], base, *sets[CMP_N])
+        phase_api_streaming(dev["smi"], base, "vamana_200k", CMP_N)
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

@@ -14,8 +14,9 @@ endpoints with the same request / response schemas on one device:
 
 On aiohttp, with pydantic request models; both are imported inside
 `create_app` / `main`, so importing this module needs neither. Engines are
-cached per collection. `/insert` and `/delete` answer 409 unless the
-collection is served in streaming mode, which the port does not have yet.
+cached per collection. `/insert` and `/delete` work when the server runs
+in streaming mode (`DISKRAG_SERVING_MODE=streaming`, or `serving_mode=`
+of `AppState`) and answer 409 otherwise.
 
 Threads. Handlers run the engine in worker threads
 (`asyncio.to_thread`). PyTorch's current CUDA device and stream are per

@@ -10,13 +10,14 @@ chosen device. `build_index_from_vectors` builds and persists
     points;
   - an IVF-Flat index (`index/ivf.py`) for `index_type="ivf"`;
   - a Vamana graph with adaptive PQ for `"vamana"`, and for `"auto"` from
-    100k points up, by the kNN-based build; `pq_kind` int8 / int4 trains
-    the int quantizer (`pq/intq.py`) instead, and `write_compat` adds the
-    packed record file the host tier serves from.
+    100k points up, by the kNN-based build (`build_method="knn"`) or the
+    wave-insertion build (`"wave"`, `graph/build.py`); `pq_kind` int8 /
+    int4 trains the int quantizer (`pq/intq.py`) instead, and
+    `write_compat` adds the packed record file the host tier serves from.
 
-The wave-insertion build and the sharded index are later slices of the
-port (ROADMAP.md, "Modules still to port"); asking for one raises
-`NotImplementedError` rather than building something else.
+The sharded index is a later slice of the port (ROADMAP.md, "Modules
+still to port"); asking for it raises `NotImplementedError` rather than
+building something else.
 """
 
 from __future__ import annotations
@@ -343,9 +344,7 @@ def build_index_from_vectors(
         raise _not_ported(f"index_type={index_type!r}")
     if index_type != "vamana":
         raise ValueError(f"unknown index_type: {index_type}")
-    if build_method == "wave":
-        raise _not_ported("build_method='wave' (the insertion build of graph/build)")
-    if build_method != "knn":
+    if build_method not in ("knn", "wave"):
         raise ValueError(f"unknown build_method: {build_method}")
     params = calculate_adaptive_build_params(n, target_quality)
     if params_override:
@@ -370,13 +369,21 @@ def build_index_from_vectors(
         if not pq_validation["passed"]:
             logger.warning("PQ validation failed — keeping PQ but flagging meta")
 
-    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
-
     t0 = time.perf_counter()
-    index = build_vamana_knn(
-        vectors, degree_bound=r, alpha=alpha, metric=metric, seed=seed,
-        progress=True, checkpoint_dir=checkpoint_dir, device=device,
-    )
+    if build_method == "knn":
+        from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+
+        index = build_vamana_knn(
+            vectors, degree_bound=r, alpha=alpha, metric=metric, seed=seed,
+            progress=True, checkpoint_dir=checkpoint_dir, device=device,
+        )
+    else:
+        from diskrag_tpu_torch.graph.build import build_vamana
+
+        index = build_vamana(
+            vectors, degree_bound=r, build_width=l, alpha=alpha, metric=metric, seed=seed,
+            progress=True, device=device,
+        )
     build_seconds = time.perf_counter() - t0
 
     meta = save_index(

@@ -403,11 +403,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", "-k", type=int, default=5)
     p.add_argument("--faq", action="store_true",
                    help="FAQ mode: dedup by qa_id, keep type=='faq' entries")
-    p.add_argument("--serving-mode", default="auto", choices=["auto", "host_tier"],
+    p.add_argument("--serving-mode", default="auto", choices=["auto", "host_tier", "streaming"],
                    help="host_tier: graph and compressed rows on the device, f32 "
                         "vectors in the host record file (needs an index built "
-                        "with write_compat); sharded_flat and streaming are later "
-                        "slices (ROADMAP.md)")
+                        "with write_compat); streaming: mutable tier accepting live "
+                        "inserts/deletes (HTTP POST /insert, /delete); sharded_flat "
+                        "is a later slice (ROADMAP.md)")
 
     p = sub.add_parser("process-dir", help="process a whole directory")
     p.add_argument("directory")

@@ -8,7 +8,10 @@ arrays; `pq_from_jax` a quantizer from a JAX quantizer's `to_arrays()`,
 with its codes and residual serving arrays moved to the device;
 `iq_from_jax` an `IntQuantizer` from a JAX one's state; `ivf_from_jax` an
 `IVFIndex` from a JAX `IVFIndex` (its cells, tile layout, vectors, metric
-and tile precision; the tiles are rebuilt, bit-identical). Persisted
+and tile precision; the tiles are rebuilt, bit-identical);
+`streaming_from_jax` a `StreamingIndex` with a JAX `StreamingIndex`'s
+whole state (its padded graph, buffer and id bookkeeping), so a stream
+begun in the JAX package goes on in the port. Persisted
 indexes need no conversion: both packages read and write the same
 `index/` layout.
 """
@@ -140,3 +143,39 @@ def ivf_from_jax(ivf, *, device: str = "cuda"):
         tiles=tiles, tile_ids=torch.as_tensor(tile_ids, device=dev), tile_norms=norms,
         vectors=master, metric=ivf.metric, tile_scales=scales,
     )
+
+
+def streaming_from_jax(jax_streaming, *, device: str = "cuda"):
+    """The port's `StreamingIndex` with a JAX `diskrag_tpu.index.streaming.
+    StreamingIndex`'s whole state, carried across as numpy: the padded
+    vectors and adjacency, medoid and entry points; the external-id row,
+    the tombstones, the buffer with its ids, live mask and count; the id
+    counter, the tombstone count and set, the merge count, `rows_compacted`,
+    the reserve and the merge settings."""
+    from diskrag_tpu_torch.index.streaming import StreamingIndex
+
+    s = jax_streaming
+    idx = s.index
+    # writable copies: the port updates its adjacency in place, and a CPU
+    # tensor made from a numpy array shares its memory
+    index = vamana_index_from_jax(
+        np.array(idx.vectors), np.array(idx.adjacency), int(np.asarray(idx.medoid)),
+        metric=idx.metric,
+        entry_points=None if idx.entry_points is None else np.array(idx.entry_points),
+        device=device,
+    )
+    state = {
+        "graph_ext": np.asarray(s._graph_ext), "graph_deleted": np.asarray(s._graph_deleted),
+        "buf": np.asarray(s._buf), "buf_ext": np.asarray(s._buf_ext),
+        "buf_live": np.asarray(s._buf_live), "count": s._count, "n_graph": s._n_graph,
+        "next_ext": s._next_ext, "n_deleted": s._n_deleted,
+        "deleted_ext": sorted(s._deleted_ext), "rows_compacted": s.rows_compacted,
+        "n_merges": s.n_merges, "reserve": s._reserve,
+    }
+    params = {
+        "buffer_capacity": s.capacity, "merge_insert_max_fraction": s.merge_insert_max_fraction,
+        "wave_chunk": s._wave_chunk, "merge_method": s.merge_method,
+        "build_width": s.build_width, "alpha": s.alpha, "degree_bound": s.degree_bound,
+        "seed": s.seed,
+    }
+    return StreamingIndex.from_state(index, state, params=params)

@@ -25,10 +25,15 @@ the exact rerank on the host; batches over one chunk are pipelined. It
 never degrades to brute force: a missing or broken artifact raises
 `ServingConfigError`, as it does on an index other than vamana.
 
-The sharded index and the serving modes sharded_flat and streaming raise
-`NotImplementedError`:
-those are later slices of the port, and serving them by brute force
-would hide that.
+Serving mode "streaming" wraps the loaded vamana index in the mutable
+tier (`index.streaming.StreamingIndex`): `insert_texts` appends to the
+collection and the tier together, `delete_ids` tombstones rows, searches
+merge the graph with the exact buffer, and `flush_index` folds the buffer
+in and persists the grown index.
+
+The sharded index and the serving mode sharded_flat raise
+`NotImplementedError`: those are a later slice of the port, and serving
+them by brute force would hide that.
 Results come back to the host with one `.cpu()` per output per batch;
 `search_pipelined` of the JAX package (it hides a remote device's fetch
 latency) is not ported.
@@ -39,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -50,6 +56,11 @@ from diskrag_tpu_torch.data.collection import CollectionManager
 from diskrag_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+def _host(x) -> np.ndarray:
+    """A device tensor or an array as a host numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class ServingConfigError(RuntimeError):
@@ -76,10 +87,11 @@ class SearchEngine:
     ):
         if serving_mode not in ("auto", "host_tier", "sharded_flat", "streaming"):
             raise ValueError(f"unknown serving_mode: {serving_mode}")
-        if serving_mode in ("sharded_flat", "streaming"):
+        if serving_mode == "sharded_flat":
             raise NotImplementedError(
                 f"serving_mode={serving_mode!r} is not ported yet (ROADMAP.md, "
-                "'Modules still to port'); the port serves modes 'auto' and 'host_tier'"
+                "'Modules still to port'); the port serves modes 'auto', 'host_tier' "
+                "and 'streaming'"
             )
         self.device = resolve_device(device)
         self.serving_mode = serving_mode
@@ -109,12 +121,14 @@ class SearchEngine:
         self.flat = None
         self.ivf = None         # index_type "ivf"
         self.host_tier = None   # serving_mode "host_tier"
-        self.streaming = None   # the mutable tier: a later slice (ROADMAP.md)
+        self.streaming = None   # serving_mode "streaming": index/streaming.py
         self.meta: dict = {}
         self.use_pq = False
         self.brute_force_mode = False
         self.recommended_l = 0
         self._load_artifacts()
+        if serving_mode == "streaming":
+            self._init_streaming()
         self.diagnostics: Optional[dict] = None
         if run_diagnostics:
             try:
@@ -429,6 +443,14 @@ class SearchEngine:
 
         if self.host_tier is not None:
             return self._host_tier_branch(q, b, k, l_search)
+        if self.streaming is not None:
+            # graph beam + exact buffer scan; the ids are external ids, which
+            # equal collection vector_index rows by the alignment invariant
+            # (_init_streaming)
+            ids, dists = self.streaming.search(q, k=k, search_width=l_search)
+            nv = b * 2 * l_search  # frontier bound
+            ne = nv * int(self.streaming.index.adjacency.shape[1]) + b * self.streaming.capacity
+            return dists, ids, None, "streaming", lambda c: (nv, ne, 0), {}
         if self.ivf is not None:
             n_probe = max(8, min(l_search // 2, self.ivf.n_cells))
             dists, ids = self.ivf.search(q, k=k, n_probe=n_probe)
@@ -624,18 +646,144 @@ class SearchEngine:
         out["stats"]["k"] = k
         return out
 
-    # --- live mutation (streaming mode only) ------------------------------
-    def insert_texts(self, texts, metadata_list=None, embedding_fn=None, vectors=None):
-        """Live-append texts: streaming mode only, as in the JAX package.
-        The port's engines are never in it (`serving_mode="streaming"` is a
-        later slice, ROADMAP.md), so this answers as a non-streaming engine
-        does."""
-        raise ServingConfigError("insert_texts requires serving_mode='streaming'")
+    # --- streaming serving mode (live insert / delete) ---------------------
+    def _init_streaming(self) -> None:
+        """Wrap the loaded vamana index in the mutable tier.
+
+        Row alignment: graph row i serves collection vector_index i, and
+        the tier hands out external ids from N on, so the collection must
+        hold at least the index's rows. Rows the collection holds past the
+        index (inserts of an earlier session that were never flushed, or a
+        `process` without a reindex) are adopted into the buffer, in order.
+        DISKRAG_STREAMING_RESERVE pre-pads the tier for that many upcoming
+        inserts (a growth event mid-serving reallocates the padded tensors)."""
+        from diskrag_tpu_torch.index.streaming import StreamingIndex
+
+        if self.brute_force_mode or self.index is None:
+            raise ServingConfigError(
+                "streaming serving needs a loaded vamana index "
+                f"(index_type={self.index_type!r}, brute_force={self.brute_force_mode}) — "
+                "build one with index type 'vamana' first"
+            )
+        n_index = int(self.index.adjacency.shape[0])
+        n_coll = int(self.info.num_vectors)
+        if n_coll < n_index:
+            raise ServingConfigError(
+                f"collection has {n_coll} vectors but the index covers {n_index} — the "
+                "collection is behind its index (corrupt or hand-edited); rebuild before serving"
+            )
+        reserve = int(os.environ.get("DISKRAG_STREAMING_RESERVE", "0"))
+        self.streaming = StreamingIndex(self.index, reserve_inserts=reserve)
+        if n_coll > n_index:
+            vecs = np.load(self.manager.get_vectors_path(self.collection_name), mmap_mode="r")
+            got = self.streaming.insert(np.array(vecs[n_index:n_coll], np.float32))
+            logger.info("streaming: adopted %d collection rows past the index watermark (%d..%d)",
+                        len(got), n_index, n_coll - 1)
+
+    def _mutation_lock(self):
+        return self._lock if self._lock else contextlib.nullcontext()
+
+    def insert_texts(self, texts, metadata_list=None, embedding_fn=None, vectors=None) -> np.ndarray:
+        """Live-append texts (streaming mode only): embed, dedup-append to
+        the collection, insert into the serving tier. Returns the assigned
+        vector ids (duplicate texts are skipped, as `update_collection`
+        skips them)."""
+        if self.streaming is None:
+            raise ServingConfigError("insert_texts requires serving_mode='streaming'")
+        if metadata_list is None:
+            metadata_list = [{} for _ in texts]
+        if vectors is None:
+            if embedding_fn is None:
+                raise ValueError("need embedding_fn or precomputed vectors")
+            vectors = np.stack([np.asarray(embedding_fn(t), np.float32) for t in texts])
+        vectors = np.asarray(vectors, np.float32)
+        with self._mutation_lock():
+            info, new_vecs, new_idx = self.manager.update_collection(
+                self.collection_name, vectors, texts, metadata_list, return_rows=True,
+            )
+            self.info = info
+            if len(new_vecs) == 0:
+                return np.empty((0,), np.int32)
+            got = self.streaming.insert(new_vecs)
+            if list(np.asarray(got)) != list(np.asarray(new_idx)):
+                # alignment is the correctness invariant: never serve on
+                raise RuntimeError(
+                    "streaming/collection id divergence: collection assigned "
+                    f"{list(new_idx[:4])}..., serving tier {list(got[:4])}..."
+                )
+        return np.asarray(got)
 
     def delete_ids(self, external_ids) -> int:
-        """Tombstone rows by vector id: streaming mode only (see
-        `insert_texts`)."""
-        raise ServingConfigError("delete_ids requires serving_mode='streaming'")
+        """Tombstone rows in the serving tier by vector id (streaming mode
+        only; idempotent). The collection keeps the rows until a rebuild:
+        deletion is a serving-visibility operation. Returns the count of
+        newly tombstoned ids; unknown ids raise KeyError before anything
+        changes."""
+        if self.streaming is None:
+            raise ServingConfigError("delete_ids requires serving_mode='streaming'")
+        with self._mutation_lock():
+            return self.streaming.delete(external_ids)
+
+    def flush_index(self) -> dict:
+        """Fold the buffered inserts into the graph and persist the grown
+        index over the collection's index artifacts, so a restarted engine
+        (any serving mode) serves every inserted row; PQ codes are
+        re-encoded over all rows. Returns {n_points, n_buffered_before}.
+
+        Refuses with live tombstones (persisting would resurrect them on
+        restart: deletions are serving-session-local) and after rows were
+        compacted (a rebuild-path merge or `consolidate` dropped rows, so
+        graph row i is no longer collection row i); reprocess and rebuild
+        to drop rows from storage."""
+        if self.streaming is None:
+            raise ServingConfigError("flush_index requires serving_mode='streaming'")
+        from diskrag_tpu_torch.graph.types import VamanaIndex
+        from diskrag_tpu_torch.index.persist import save_index
+
+        with self._mutation_lock():
+            if self.streaming._n_deleted:
+                raise ServingConfigError(
+                    "flush_index with live tombstones would resurrect them on restart "
+                    "(deletions are serving-session-local); rebuild the collection + "
+                    "index to persist deletions"
+                )
+            if self.streaming.rows_compacted:
+                raise ServingConfigError(
+                    "flush_index after rows were compacted (a merge or consolidate dropped "
+                    "deleted rows) would persist an index misaligned with the collection's "
+                    "vector_index; rebuild the collection + index instead"
+                )
+            n_buf = self.streaming.n_buffered
+            self.streaming.merge()
+            n = self.streaming.n_graph
+            idx = self.streaming.index
+            exact = VamanaIndex(
+                vectors=idx.vectors[:n], adjacency=idx.adjacency[:n], medoid=idx.medoid,
+                metric=idx.metric, entry_points=idx.entry_points,
+            )
+            # save_index derives these from the index / PQ it is handed and
+            # applies meta_extra last: carrying stale values over would
+            # override the fresh ones
+            derived = {
+                "num_points", "medoid_idx", "entry_points", "R", "dimension", "use_pq",
+                "format_version", "index_type", "distance_metric", "n_subvectors",
+                "pq_centroids", "pq_kind", "pq_n_coarse", "iq_row_width", "iq_n_cells",
+            }
+            meta_extra = {k: v for k, v in self.meta.items() if k not in derived}
+            pq_kwargs = {}
+            if self.use_pq and self.pq is not None:
+                # re-encode, so the persisted codes cover the merged rows
+                from diskrag_tpu_torch.pq.residual import ResidualPQ
+
+                if isinstance(self.pq, ResidualPQ):
+                    codes, cids = self.pq.encode(exact.vectors)
+                    pq_kwargs = {"pq": self.pq, "pq_codes": _host(codes),
+                                 "pq_coarse_ids": _host(cids)}
+                else:
+                    pq_kwargs = {"pq": self.pq, "pq_codes": _host(self.pq.encode(exact.vectors))}
+            save_index(self.manager.get_index_dir(self.collection_name), exact,
+                       meta_extra=meta_extra, **pq_kwargs)
+        return {"n_points": n, "n_buffered_before": n_buf}
 
     def _attach_texts_batch(
         self, ids: np.ndarray, dists: np.ndarray

@@ -10,8 +10,14 @@ masked selection + elimination steered by a host loop; a round run after
 every row is done changes nothing, so the "all done?" check (one
 synchronisation) is taken every `SYNC_EVERY` rounds only.
 
-The int8 variant of the JAX package (`cand_scales`, used by the
-wave-insertion build and the streaming index) is not ported.
+The int8 variant (`cand_scales`, used by the reverse-edge repair of the
+streaming merge) takes the candidate-candidate distances from int8 codes
+with per-row scales (`_pairwise_within_int8`); `gathered_distance_int8` is
+its point-to-candidates companion. CUDA has no batched s8 x s8 -> s32
+product, so the integer cross term is an f32 `bmm` of the codes, exact
+while every partial sum stays below 2^24 (127^2 * D < 2^24, D <= 1040),
+taken over column chunks of at most that width and added in int32 past
+it: the JAX package's integers, bit for bit.
 """
 
 from __future__ import annotations
@@ -39,16 +45,74 @@ def _pairwise_within(cand_vecs: torch.Tensor, metric: str) -> torch.Tensor:
     return -torch.bmm(cand_vecs, cand_vecs.transpose(1, 2))
 
 
-def _int8_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "the int8 prune (cand_scales, gathered_distance_int8) serves the "
-        "wave-insertion build and the streaming index, which are not ported yet "
-        "(ROADMAP.md, 'Modules still to port')"
-    )
+# widest column chunk whose int8 x int8 partial sums stay exact in f32:
+# 127^2 * 1040 < 2^24
+_EXACT_D = 1040
 
 
-gathered_distance_int8 = _int8_not_ported
-_pairwise_within_int8 = _int8_not_ported
+def _int8_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 batched product a [W, C, D] x b [W, E, D]^T -> int32
+    [W, C, E]: f32 `bmm`s over column chunks of at most `_EXACT_D`,
+    converted to int32 and added."""
+    out = None
+    for d0 in range(0, a.shape[-1], _EXACT_D):
+        af = a[..., d0 : d0 + _EXACT_D].to(torch.float32)
+        bf = b[..., d0 : d0 + _EXACT_D].to(torch.float32)
+        part = torch.bmm(af, bf.transpose(1, 2)).to(torch.int32)
+        out = part if out is None else out + part
+    return out
+
+
+def _code_norms(codes: torch.Tensor) -> torch.Tensor:
+    """Squared norms of int8 codes [..., D] as exact f32 integers."""
+    c = codes.to(torch.float32)
+    return torch.sum(c * c, dim=-1)
+
+
+def gathered_distance_int8(
+    q_codes: torch.Tensor,
+    q_scales: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    metric: str,
+) -> torch.Tensor:
+    """Distance from int8 queries [W, D] (+ [W] scales) to per-row gathered
+    int8 candidates [W, C, D] (+ [W, C] scales): the companion of
+    `search._gathered_distance` for callers holding the scan's quantized
+    copy instead of f32 rows."""
+    m = Metric(metric)
+    cross_i = _int8_bmm(codes, q_codes[:, None, :])[..., 0]  # [W, C]
+    cross = cross_i.to(torch.float32) * q_scales[:, None] * scales
+    if m == Metric.L2:
+        qn = (_code_norms(q_codes) * (q_scales * q_scales))[:, None]
+        cn = _code_norms(codes) * (scales * scales)
+        return torch.clamp_min(qn + cn - 2.0 * cross, 0.0)
+    if m == Metric.COSINE:
+        qn = _code_norms(q_codes)
+        cn = _code_norms(codes)
+        return 1.0 - cross_i.to(torch.float32) * (
+            torch.rsqrt(qn + 1e-12)[:, None] * torch.rsqrt(cn + 1e-12)
+        )
+    return -cross
+
+
+def _pairwise_within_int8(
+    codes: torch.Tensor, scales: torch.Tensor, metric: str
+) -> torch.Tensor:
+    """[W, C, D] int8 codes + [W, C] f32 per-row dequant scales -> [W, C, C]
+    pairwise distances; the scales enter as a rank-1 outer product, so the
+    candidates never materialize in f32 rows of their own."""
+    m = Metric(metric)
+    cross_i = _int8_bmm(codes, codes)
+    ss = scales[:, :, None] * scales[:, None, :]  # [W, C, C]
+    cross = cross_i.to(torch.float32) * ss
+    if m == Metric.L2:
+        n = _code_norms(codes) * (scales * scales)  # [W, C]
+        return torch.clamp_min(n[:, :, None] + n[:, None, :] - 2.0 * cross, 0.0)
+    if m == Metric.COSINE:
+        inv = torch.rsqrt(_code_norms(codes) + 1e-12)  # scales cancel in the cosine
+        return 1.0 - cross_i.to(torch.float32) * (inv[:, :, None] * inv[:, None, :])
+    return -cross
 
 
 def robust_prune_batch(
@@ -70,7 +134,9 @@ def robust_prune_batch(
       cand_ids: [W, C] candidate ids, -1 for invalid; duplicates allowed
         (the best occurrence stays).
       cand_vecs: [W, C, D] f32 candidate vectors (garbage rows are fine
-        where id = -1).
+        where id = -1); with `cand_scales` [W, C] given, int8 codes
+        instead, and the pairwise distances come from
+        `_pairwise_within_int8`.
       cand_dists: [W, C] distance from the point to each candidate.
       alpha: pruning relaxation (>= 1.0).
       degree_bound: R, max neighbors kept.
@@ -84,8 +150,6 @@ def robust_prune_batch(
     Returns int32[W, degree_bound] pruned neighbor ids, -1 padded, in
     selection order.
     """
-    if cand_scales is not None:
-        _int8_not_ported()
     w, c = cand_ids.shape
     dev = cand_ids.device
     g = min(block_size, degree_bound)
@@ -93,7 +157,10 @@ def robust_prune_batch(
 
     dists = torch.where(cand_ids == point_ids[:, None], INF, cand_dists)
     active_dists = mask_duplicates(cand_ids, dists)
-    pair = _pairwise_within(cand_vecs, metric)  # [W, C, C]
+    if cand_scales is not None:
+        pair = _pairwise_within_int8(cand_vecs, cand_scales, metric)
+    else:
+        pair = _pairwise_within(cand_vecs, metric)  # [W, C, C]
 
     # Worst case one survivor per round (tight clusters eliminate the other
     # G-1 in-block), so up to `degree_bound` rounds; the loop ends as soon

@@ -9,8 +9,8 @@ chosen device.
     python -m diskrag_tpu_torch.tools.dataset_benchmark --n 100000 --dim 128
     python -m diskrag_tpu_torch.tools.dataset_benchmark --vectors data.npy --queries q.npy
 
-Not ported yet (raises `NotImplementedError` naming ROADMAP.md):
-`--build-method wave` (the insertion build of `graph/build`).
+`--build-method wave` builds the graph by wave insertion (`graph/build.py`,
+build width `--L-build`) instead of from kNN lists.
 """
 
 from __future__ import annotations
@@ -67,10 +67,6 @@ def main(argv: list[str] | None = None) -> int:
     from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
 
     dev = resolve_device(args.device)
-    if args.build_method == "wave":
-        raise NotImplementedError(
-            "--build-method wave (the insertion build of graph/build) is not ported yet "
-            "(ROADMAP.md, 'Modules still to port'); use --build-method knn")
 
     if args.vectors:
         pts = load_vectors(args.vectors)
@@ -89,9 +85,17 @@ def main(argv: list[str] | None = None) -> int:
     expands = tuple(int(x) for x in args.expand.split(","))
 
     t0 = time.perf_counter()
-    index = build_vamana_knn(
-        pts, degree_bound=args.R, alpha=args.alpha, metric=args.metric, device=dev,
-    )
+    if args.build_method == "knn":
+        index = build_vamana_knn(
+            pts, degree_bound=args.R, alpha=args.alpha, metric=args.metric, device=dev,
+        )
+    else:
+        from diskrag_tpu_torch.graph.build import build_vamana
+
+        index = build_vamana(
+            pts, degree_bound=args.R, build_width=args.L_build, alpha=args.alpha,
+            metric=args.metric, device=dev,
+        )
     build_s = time.perf_counter() - t0
     gt = ground_truth(pts, queries, args.k, metric=args.metric, device=args.device)
 

@@ -114,9 +114,10 @@ def test_cli_serving_mode_choices():
     assert args.serving_mode == "auto" and args.device == "cuda"
     args = build_parser().parse_args(["search", "c", "q", "--serving-mode", "host_tier"])
     assert args.serving_mode == "host_tier"
-    for mode in ("sharded_flat", "streaming"):  # later slices: not offered
-        with pytest.raises(SystemExit):
-            build_parser().parse_args(["search", "c", "q", "--serving-mode", mode])
+    args = build_parser().parse_args(["search", "c", "q", "--serving-mode", "streaming"])
+    assert args.serving_mode == "streaming"
+    with pytest.raises(SystemExit):  # a later slice: not offered
+        build_parser().parse_args(["search", "c", "q", "--serving-mode", "sharded_flat"])
 
 
 def test_cli_process_article_csv_and_markdown(workspace, capsys):

@@ -33,6 +33,11 @@ import diskrag_tpu_torch.pq, diskrag_tpu_torch.pq.kmeans, diskrag_tpu_torch.pq.a
 import diskrag_tpu_torch.pq.product_quantizer, diskrag_tpu_torch.pq.residual
 import diskrag_tpu_torch.pq.intq, diskrag_tpu_torch.native, diskrag_tpu_torch.index.host_tier
 import diskrag_tpu_torch.index.ivf, diskrag_tpu_torch.graph.checkpoint
+import diskrag_tpu_torch.graph.build, diskrag_tpu_torch.graph.dynamic
+import diskrag_tpu_torch.index.streaming, diskrag_tpu_torch.tools.streaming_bench
+from diskrag_tpu_torch.index import StreamingIndex
+from diskrag_tpu_torch.graph import build_vamana, random_regular_init
+from diskrag_tpu_torch.convert import streaming_from_jax
 from diskrag_tpu_torch.index.ivf import IVFIndex, assign_cells, build_ivf, tiles_from_ids
 from diskrag_tpu_torch.graph.checkpoint import BuildCheckpoint, dataset_fingerprint, pack_bf16
 from diskrag_tpu_torch.graph.knn_build import approx_knn_ivf
@@ -287,14 +292,16 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         with pytest.raises(ValueError, match="fused_precision"):
             FlatIndex(pts, fused_precision="int4_packed", device="cpu")
     elif cut == "build":
-        # write_compat, pq_kind int8 / int4 and the ivf index are ported
-        # (the host tier, the int-quantized rows, the IVF slice); these are
-        # still later slices
+        # write_compat, pq_kind int8 / int4, the ivf index and the wave
+        # build are ported (the host tier, the int-quantized rows, the IVF
+        # and streaming slices); the sharded index is still a later slice
         meta = build_index_from_vectors(pts, tmp_path / "ivf", index_type="ivf", device="cpu")
         assert meta["index_type"] == "ivf" and meta["tile_precision"] == "int8"
+        meta = build_index_from_vectors(pts, tmp_path / "wave", index_type="vamana",
+                                        build_method="wave", device="cpu")
+        assert meta["build_method"] == "wave" and meta["num_points"] == 64
         for kw in (dict(index_type="sharded"),
-                   dict(index_type="sharded", write_compat=True),
-                   dict(index_type="vamana", build_method="wave")):
+                   dict(index_type="sharded", write_compat=True)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 build_index_from_vectors(pts, tmp_path / "i", device="cpu", **kw)
             assert not (tmp_path / "i").exists()
@@ -312,13 +319,14 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         engine = SearchEngine("c", base_dir=str(tmp_path), device="cpu")
         assert engine.ivf is not None and not engine.brute_force_mode
         assert engine.search_batch(pts[:3], k=4)[2]["search_type"] == "ivf"
-        # host_tier is served on a vamana index only (the JAX package's
-        # ServingConfigError); sharded_flat and streaming are later slices
+        # host_tier and streaming are served on a vamana index only (the JAX
+        # package's ServingConfigErrors); sharded_flat is a later slice
         with pytest.raises(ServingConfigError, match="vamana or sharded index, got ivf"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="host_tier")
-        for mode in ("sharded_flat", "streaming"):
-            with pytest.raises(NotImplementedError, match=mode):
-                SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode=mode)
+        with pytest.raises(ServingConfigError, match="streaming serving needs a loaded vamana"):
+            SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="streaming")
+        with pytest.raises(NotImplementedError, match="sharded_flat"):
+            SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="sharded_flat")
         with pytest.raises(ValueError, match="serving_mode"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="nope")
 
@@ -345,15 +353,23 @@ def test_unported_graph_options_raise_not_implemented(what, tmp_path):
         with pytest.raises(ValueError, match="knn_backend"):
             build_vamana_knn(pts, degree_bound=4, knn_backend="hnsw", device="cpu")
     elif what == "int8_prune":
+        # the int8 prune is ported (the streaming slice): on int8 codes it
+        # keeps what the f32 prune keeps on their dequantized rows here
         from diskrag_tpu_torch.graph import prune
+        from diskrag_tpu_torch.ops.flat_scan import quantize_int8
 
-        ids = torch.zeros((2, 4), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prune.robust_prune_batch(
-                torch.arange(2), ids, torch.zeros((2, 4, 8), dtype=torch.int8),
-                torch.zeros((2, 4)), 1.2, degree_bound=2, cand_scales=torch.ones((2, 4)))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prune.gathered_distance_int8(None, None, None, None, "l2")
+        codes, scales = quantize_int8(torch.from_numpy(pts))
+        ids = torch.from_numpy(rng.integers(0, 64, size=(6, 12)).astype(np.int32))
+        point_ids = torch.arange(6, dtype=torch.int32)
+        d8 = prune.gathered_distance_int8(codes[:6], scales[:6], codes[ids.long()],
+                                          scales[ids.long()], "l2")
+        deq = codes.to(torch.float32) * scales[:, None]
+        d32 = ((deq[ids.long()] - deq[:6, None, :]) ** 2).sum(-1)
+        torch.testing.assert_close(d8, d32, rtol=1e-4, atol=1e-3)
+        got = prune.robust_prune_batch(point_ids, ids, codes[ids.long()], d8, 1.2, degree_bound=4,
+                                       cand_scales=scales[ids.long()])
+        assert got.shape == (6, 4) and bool((got[:, 0] >= 0).all())
+        assert not bool((got == point_ids[:, None]).any())  # self-edges removed
     elif what == "iq":
         # the int-quantized rows are ported; the host tier over a sharded
         # index (the parallel slice) is not

@@ -157,7 +157,8 @@ def test_performance_test_search_engine(tmp_path, clustered_data):
 
 def test_dataset_benchmark_cosine_cli(capsys):
     """--metric cosine runs the full sweep path and skips the L2-only PQ
-    sweep with a note; the parts that wait for a later slice say so."""
+    sweep with a note; --build-method wave builds the graph by wave
+    insertion."""
     argv = ["--n", "2000", "--dim", "16", "--n-queries", "32", "--metric", "cosine",
             "--widths", "16", "--expand", "2", "--pq-m", "4", "--json", "--device", "cpu"]
     assert dataset_benchmark.main(argv) == 0
@@ -167,8 +168,12 @@ def test_dataset_benchmark_cosine_cli(capsys):
     assert result["metric"] == "cosine" and result["device"] == "cpu"
     assert all(p["mode"] != "pq" for p in result["sweep"])
     assert max(p["recall"] for p in result["sweep"]) >= 0.95
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # --host-tier is ported
-        dataset_benchmark.main(["--n", "100", "--device", "cpu", "--build-method", "wave"])
+    argv = ["--n", "600", "--dim", "16", "--n-queries", "16", "--widths", "32", "--expand", "4",
+            "--R", "12", "--L-build", "32", "--json", "--device", "cpu", "--build-method", "wave"]
+    assert dataset_benchmark.main(argv) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["build_method"] == "wave"
+    assert max(p["recall"] for p in result["sweep"]) >= 0.9
 
 
 def test_dataset_benchmark_pq_sweep(capsys):
