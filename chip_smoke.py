@@ -62,7 +62,23 @@ the JAX package's consolidate policy on the same state (printed). Phase
 kernel) and gates exact traversal at L = 48; phase `api-streaming` serves
 the default vamana collection over HTTP in streaming mode (`/insert`,
 `/search`, `/delete`), then flushes the inserted rows and serves them in
-mode "auto". Profiled figures are taken per recorded
+mode "auto". Phase `main-sharded` (before the 1M set is dropped) builds
+the 1M set as a sharded index, `build_index_from_vectors(index_type=
+"sharded", n_shards=4, write_compat=True)` (B1 + B4 once per 4096-row block
+of each 250,000-row shard's kNN pass: 62 each a shard), and serves it on a
+4-slot mesh of the one card (`mesh_devices=["cuda:0"] * 4`): mode "auto"
+(exact traversal per shard, merged; recall@10 gated at 0.95 at l_search 64;
+no kernel), "sharded_flat" (every row scanned in bf16; the ids must be a
+top-10 of an independent bf16 / f32 `torch.matmul` + `torch.topk` over all
+rows, up to near-ties within 1e-5 of the 10th distance; no kernel) and
+"host_tier" (the default residual PQ, m = 4 at 1M: B5 by id once a round
+and shard; recall@10 gated at 0.7317 at l_search 64; bf16 mode beside it),
+one HTTP `/search` in each mode (answered by the engine just measured) and
+the configuration error of a 3-shard index on one card, every step with
+its seconds; then `parallel.dryrun.dryrun_multichip(["cuda:0"] * 8)` and two
+processes over gloo on the card (`tools.multihost_check`, 2 of 4 shards of
+200,000 points each), whose merged ids must equal the single-process
+`sharded_search` byte for byte. Profiled figures are taken per recorded
 event, so a few dropped events do not bias them, from windows retried
 when they lost many; a null one is printed with its reason. Every phase prints JSON lines; the line before the last is the
 card's name and power limit as nvidia-smi gives them, and the last line is
@@ -82,7 +98,11 @@ lines and the card, and
 ends without the last line above: a measurement at another size, not the
 smoke test. `python3 chip_smoke.py --streaming-n 1000000` runs the
 streaming phase alone at that base (recall gated at the end at 0.9885, the
-JAX package's 1M figure less 0.01), the same way.
+JAX package's 1M figure less 0.01), the same way; `python3 chip_smoke.py
+--sharded-n 4000000` builds and serves the sharded cell alone at that many
+points in 4 shards (no recall gates, no HTTP request, no mesh-error case;
+the same graphs also traversed by an m = 16 residual PQ), and `--sharded-n
+1000000 --shards 1` does so over one graph of the whole set.
 """
 
 from __future__ import annotations
@@ -1847,6 +1867,23 @@ def phase_micro(smi: str, sets: dict) -> int:
     return m1_launches
 
 
+def write_metadata(base, name: str, n_rows: int) -> None:
+    """A metadata table for collection `name` (one FAQ row per vector), so
+    results served over HTTP carry texts."""
+    import numpy as np
+    import pandas as pd
+
+    from diskrag_tpu_torch.data import CollectionManager, get_text_hash
+
+    texts = [f"document {i}" for i in range(n_rows)]
+    pd.DataFrame({
+        "text": texts, "text_hash": [get_text_hash(t) for t in texts],
+        "vector_index": np.arange(n_rows, dtype=np.int64),
+        "metadata": [json.dumps({"type": "faq", "qa_id": f"q{i}", "question": t,
+                                 "answer": f"answer {i}"}) for i, t in enumerate(texts)],
+    }).to_parquet(CollectionManager(base).get_metadata_path(name), index=False)
+
+
 def phase_api(smi: str, base, name: str, n_rows: int) -> None:
     """The HTTP API over the vamana collection that `phase_main_vamana`
     built and served, on a socket on 127.0.0.1 (an ephemeral port). The
@@ -1858,23 +1895,12 @@ def phase_api(smi: str, base, name: str, n_rows: int) -> None:
 
     import aiohttp
     import numpy as np
-    import pandas as pd
     from aiohttp import web
 
     from diskrag_tpu_torch.api import AppState, create_app
-    from diskrag_tpu_torch.data import (
-        CollectionManager, EmbeddingConfig, EmbeddingGenerator, get_text_hash,
-    )
+    from diskrag_tpu_torch.data import EmbeddingConfig, EmbeddingGenerator
 
-    mgr = CollectionManager(base)
-    texts = [f"document {i}" for i in range(n_rows)]
-    pd.DataFrame({
-        "text": texts, "text_hash": [get_text_hash(t) for t in texts],
-        "vector_index": np.arange(n_rows, dtype=np.int64),
-        "metadata": [json.dumps({"type": "faq", "qa_id": f"q{i}", "question": t,
-                                 "answer": f"answer {i}"}) for i, t in enumerate(texts)],
-    }).to_parquet(mgr.get_metadata_path(name), index=False)
-
+    write_metadata(base, name, n_rows)
     cfg = EmbeddingConfig(provider="mock", model="mock", dimension=MAIN_D)
     state = AppState(base_dir=str(base), embedding_config=cfg,
                      llm_fn=lambda system, prompt: "smoke answer", device="cuda")
@@ -2791,6 +2817,396 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int) -> None:
     torch.cuda.empty_cache()
 
 
+# recall@10 gates of sharded-1M-4x250k at l_search 64: exact traversal per
+# shard (mode "auto"), and the host tier over the build's own default PQ,
+# m = 4 at 1M, whose floor is what the defaults reach (0.7417 on an H100
+# 80GB HBM3 at 700 W, where one graph of all 1M points over the same
+# quantizer reads 0.462: the quantizer limits it, not the shard merge)
+# less 0.01
+SHARDED_AUTO_GATE = 0.95
+SHARDED_PQ_DEFAULT_GATE = 0.7317
+SHARDED_SHARDS = 4
+SHARDED_SEARCH_TYPE = {"auto": "sharded", "sharded_flat": "sharded_flat",
+                       "host_tier": "sharded_host_tier"}
+
+
+def _placed_bytes(*placed) -> int:
+    """Device bytes of some `PlacedShards` (one copy per shard and device)."""
+    return sum(sum(p.nbytes_by_device().values()) for p in placed if p is not None)
+
+
+def _sharded_drive(engine, q, gt, l_search: int | None, reps: int = 5) -> dict:
+    """One warm-up `search_batch`, then `drive`: recall@10, ms a batch
+    (median of `reps`), rounds, launches; ids and distances checked."""
+    import numpy as np
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+
+    engine.search_batch(q, k=MAIN_K, l_search=l_search)
+    dists, ids, all_stats, batch_s, launches = drive(engine, q, reps, l_search=l_search)
+    require(ids.shape == (len(q), MAIN_K) and bool(np.isfinite(dists).all())
+            and bool((np.diff(dists, axis=1) >= 0).all()), "sharded distances not finite and ascending")
+    med = float(np.median(batch_s))
+    return {"l_search": all_stats[-1]["L_search"], "recall_at_10": recall_at_k(ids, gt, MAIN_K),
+            "ms_per_batch_median": med * 1e3, "ms_per_batch": [s * 1e3 for s in batch_s],
+            "qps": len(q) / med, "rounds_per_batch": sum(s.get("rounds", 0) for s in all_stats) / reps,
+            "rounds": sum(s.get("rounds", 0) for s in all_stats),
+            "search_type": all_stats[-1]["search_type"], "launches": launches,
+            "stage_ms": all_stats[-1].get("stage_ms"), "_ids": ids}
+
+
+def _sharded_http(base, name: str, mode: str, engine, mesh_devices: list) -> dict:
+    """One HTTP /search through `create_app` on 127.0.0.1, answered by
+    `engine` (already serving `name` in `mode`): its status, ms, rounds and
+    launches. B5 must launch once a round in the host tier, no kernel
+    otherwise."""
+    import asyncio
+
+    import aiohttp
+    from aiohttp import web
+
+    from diskrag_tpu_torch.api import AppState, create_app
+    from diskrag_tpu_torch.data import EmbeddingConfig, EmbeddingGenerator
+
+    cfg = EmbeddingConfig(provider="mock", model="mock", dimension=MAIN_D)
+    state = AppState(base_dir=str(base), embedding_config=cfg, serving_mode=mode,
+                     device="cuda", mesh_devices=mesh_devices)
+    state.embedder = EmbeddingGenerator(cfg, cache_dir=base / ".embeddings")
+    state.engines[name] = engine
+    sent: list = []
+
+    async def exchange() -> None:
+        runner = web.AppRunner(create_app(state))
+        await runner.setup()
+        try:
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            url = f"http://127.0.0.1:{runner.addresses[0][1]}/search"
+            t = time.perf_counter()
+            async with aiohttp.request("POST", url, json={
+                    "collection": name, "query": "how do I use feature 3?", "top_k": 5}) as resp:
+                sent.append((resp.status, await resp.json(), (time.perf_counter() - t) * 1e3))
+        finally:
+            await runner.cleanup()
+
+    reset_counts()
+    asyncio.run(exchange())
+    launches = read_counts()
+    status, body, ms = sent[0]
+    require(status == 200 and len(body["results"]) == 5, f"/search under {mode} answered {status}")
+    st = body["stats"]
+    kind = SHARDED_SEARCH_TYPE[mode]
+    b5 = st.get("rounds", 0) if mode == "host_tier" else 0
+    others = {k: v for k, v in launches.items() if k != "B5"}
+    require(st["search_type"] == kind and launches["B5"] == b5 and not any(others.values()),
+            f"/search under {mode}: {st['search_type']}, launches {launches}, rounds {b5}")
+    return {"serving_mode": mode, "status": status, "ms": ms, "search_type": kind,
+            "l_search": st["L_search"], "rounds": st.get("rounds"), "launches": launches}
+
+
+def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SHARDS,
+                       full: bool = True) -> dict:
+    """Cell sharded-<n>-<S>x<n/S>: `build_index_from_vectors(index_type=
+    "sharded", n_shards=S, write_compat=True)` with every other default
+    (B1 + B4 in every shard's kNN pass), served through `SearchEngine` on an
+    S-slot mesh of one card (`mesh_devices=["cuda:0"] * S`): mode "auto"
+    (exact traversal per shard, no kernel) at l_search 64 and at the
+    build's recommended L, "sharded_flat" (held against an independent
+    top-10 over every row on the card, no kernel) and "host_tier" (the
+    default build's residual PQ: B5 by id once a round and shard; bf16
+    mode over the same graphs beside it). With `full` (the default run),
+    the recall gates and the startup diagnostics, one HTTP /search in each
+    mode and the mesh error of a 3-shard index on one card; without it
+    (`--sharded-n`), the same graphs traversed by an m = 16 residual PQ
+    beside the default one. Every step prints its seconds. Returns the build's B1 / B4 launches and the
+    default pq tier's B5 launches and rounds."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+    from diskrag_tpu_torch.build_index import build_index_from_vectors
+    from diskrag_tpu_torch.engine import SearchEngine, ServingConfigError
+    from diskrag_tpu_torch.parallel import ShardedHostTier, load_sharded_index
+    from diskrag_tpu_torch.pq.residual import ResidualPQ
+
+    t_phase = time.perf_counter()
+    n, s = len(pts), n_shards
+    per = -(-n // s)
+    mesh_devices = ["cuda:0"] * s
+
+    def size(m: int) -> str:
+        return f"{m // 1_000_000}M" if m % 1_000_000 == 0 else f"{m // 1000}k"
+
+    cell = f"sharded-{size(n)}-{s}x{size(per)}"
+    name = f"sharded_{n}"
+    index_dir = make_collection(base, name, pts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    meta = build_index_from_vectors(pts, index_dir, index_type="sharded", n_shards=s,
+                                    write_compat=True, device="cuda")
+    build_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = -(-per // 4096)  # one B1 + one B4 per 4096-row block of a shard's kNN pass
+    shards = [{"shard": b["shard"], "rows": b["rows"], "seconds": b["seconds"],
+               "stage_seconds": b["stage_seconds"],
+               "launches": {k: v for k, v in b["launches"].items() if v}}
+              for b in meta["build_shards"]]
+    others = {k: v for k, v in launches.items() if k not in ("B1", "B4")}
+    require(all(b["launches"].get("B1") == b["launches"].get("B4") == expect for b in shards)
+            and launches["B1"] == launches["B4"] == expect * s and not any(others.values()),
+            f"the sharded build launched {launches} ({[b['launches'] for b in shards]}); "
+            f"expected {expect} B1 + B4 a shard")
+    if full:
+        write_metadata(base, name, n)
+    emit({"phase": "main-sharded", "cell": cell, "step": "build", "n": n, "d": pts.shape[1],
+          "n_shards": s, "rows_per_shard": per, "R": meta["R"], "L_build": meta["L"],
+          "pq_kind": meta.get("pq_kind"), "n_subvectors": meta.get("n_subvectors"),
+          "pq_n_coarse": meta.get("pq_n_coarse"),
+          "recommended_search_L": meta["recommended_search_L"], "build_seconds": build_s,
+          "build_stage_seconds": meta["build_stage_seconds"], "shards": shards,
+          "launches": launches, "launches_per_shard_expected": expect,
+          "peak_device_gb": peak_gb, "host_f32_bytes": int(pts.nbytes),
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    out: dict = {"build_launches": {"B1": launches["B1"], "B4": launches["B4"]}}
+    http: list = []
+
+    # mode "auto": exact traversal per shard, merged
+    t_step = t0 = time.perf_counter()
+    engine = SearchEngine(name, base_dir=str(base), device="cuda", mesh_devices=mesh_devices)
+    load_s = time.perf_counter() - t0
+    require(engine.sharded is not None and engine.mesh.shape == {"data": 1, "shard": s},
+            f"mode auto did not serve the sharded index: {engine.mesh}")
+    diagnostic = bool(engine.diagnostics and engine.diagnostics["passed"])
+    require(diagnostic or not full, f"startup diagnostic failed: {engine.diagnostics}")
+    at64 = _sharded_drive(engine, q, gt, 64)
+    at64.pop("_ids")
+    require(not any(at64["launches"].values()), f"exact sharded traversal launched {at64['launches']}")
+    require(at64["search_type"] == "sharded", f"served as {at64['search_type']}")
+    require(at64["recall_at_10"] >= SHARDED_AUTO_GATE or not full,
+            f"sharded auto recall@10 {at64['recall_at_10']} < {SHARDED_AUTO_GATE} at l_search=64")
+    t = time.perf_counter()
+    _, ids_def, st_def = engine.search_batch(q, k=MAIN_K)
+    default_ms = (time.perf_counter() - t) * 1e3
+    sh = engine.sharded
+    prof = with_launches_per_round(profile_batch(engine, q, steps=1, path=f"{cell}-auto",
+                                                 l_search=64, watch=("gather",)),
+                                   at64["rounds_per_batch"])
+    if full:
+        http.append(_sharded_http(base, name, "auto", engine, mesh_devices))
+    emit({"phase": "main-sharded", "cell": cell, "serving_mode": "auto", "queries": len(q),
+          "k": MAIN_K, "load_seconds": load_s, "diagnostic_passed": diagnostic, **at64,
+          "recall_gate": SHARDED_AUTO_GATE if full else None,
+          "recommended_l": {"l_search": st_def["L_search"], "rounds": st_def["rounds"],
+                            "recall_at_10": recall_at_k(ids_def, gt, MAIN_K), "ms": default_ms},
+          "device_bytes": _placed_bytes(sh.vectors, sh.adjacency, sh.medoids, sh.global_ids,
+                                        sh.entry_points),
+          "host_f32_bytes": int(pts.nbytes), "seconds": time.perf_counter() - t_step, "card": smi})
+    emit(prof)
+    del engine, sh
+    torch.cuda.empty_cache()
+
+    # sharded_flat, held against an independent top-10 over every row
+    t_step = time.perf_counter()
+    engine = SearchEngine(name, base_dir=str(base), serving_mode="sharded_flat", device="cuda",
+                          mesh_devices=mesh_devices)
+    diagnostic = bool(engine.diagnostics and engine.diagnostics["passed"])
+    require(diagnostic or not full, f"startup diagnostic failed: {engine.diagnostics}")
+    flat = _sharded_drive(engine, q, gt, None)
+    ids = flat.pop("_ids")
+    require(not any(flat["launches"].values()), f"sharded_flat launched {flat['launches']}")
+    if full:
+        http.append(_sharded_http(base, name, "sharded_flat", engine, mesh_devices))
+    v16, norms, gids, _ = engine.sharded_flat
+    flat_bytes = _placed_bytes(v16, norms, gids)
+    del engine, v16, norms, gids
+    torch.cuda.empty_cache()
+    db = torch.as_tensor(pts, device="cuda")
+    vn = torch.sum(db * db, dim=1)
+    db = db.to(torch.bfloat16).to(torch.float32)
+    q_d = torch.as_tensor(q, device="cuda")
+    ref = torch.matmul(q_d.to(torch.bfloat16).to(torch.float32), db.T)
+    del db
+    ref.mul_(-2.0).add_(vn[None, :]).add_(torch.sum(q_d * q_d, dim=1, keepdim=True))
+    ref_d, ref_i = torch.topk(ref, MAIN_K, dim=1, largest=False)
+    got_d = torch.gather(ref, 1, torch.as_tensor(ids, device="cuda").long())
+    del ref
+    gap = (torch.sort(got_d, dim=1).values - ref_d).abs()
+    tol = 1e-5 * ref_d[:, -1:].abs()
+    mismatched = int((torch.as_tensor(ids, device="cuda") != ref_i.to(torch.int32)).sum())
+    worst = float((gap / ref_d[:, -1:].abs()).max())
+    require(bool((gap <= tol).all()),
+            f"sharded_flat ids are not a top-10 of every row (largest gap {worst} of the k-th "
+            "distance; allowed 1e-5)")
+    emit({"phase": "main-sharded", "cell": cell, "serving_mode": "sharded_flat",
+          "diagnostic_passed": diagnostic, **flat,
+          "reference": "bf16 rows and queries, f32 torch.matmul, torch.topk over all rows",
+          "slots_differing_from_reference": mismatched, "largest_gap_of_kth": worst,
+          "device_bytes": flat_bytes, "host_f32_bytes": int(pts.nbytes),
+          "seconds": time.perf_counter() - t_step, "card": smi})
+    del ref_d, ref_i, got_d, gap, q_d, vn
+    torch.cuda.empty_cache()
+
+    # host tier: the default build's residual PQ (B5 by id once a round
+    # and shard), then bf16 traversal
+    t_step = time.perf_counter()
+    engine = SearchEngine(name, base_dir=str(base), serving_mode="host_tier", device="cuda",
+                          mesh_devices=mesh_devices)
+    ht = engine.host_tier
+    require(ht.mode == "pq" and isinstance(ht.pq, ResidualPQ) and ht.pq_cells is not None,
+            f"the sharded host tier picked {ht.mode} / {type(ht.pq).__name__}")
+    diagnostic = bool(engine.diagnostics and engine.diagnostics["passed"])
+    require(diagnostic or not full, f"startup diagnostic failed: {engine.diagnostics}")
+    pq = _sharded_drive(engine, q, gt, 64)
+    pq.pop("_ids")
+    others = {k: v for k, v in pq["launches"].items() if k != "B5"}
+    require(pq["search_type"] == "sharded_host_tier", f"served as {pq['search_type']}")
+    require(pq["launches"]["B5"] == pq["rounds"] > 0 and not any(others.values()),
+            f"expected {pq['rounds']} launches of B5 (one a round and shard) and no other: "
+            f"{pq['launches']}")
+    require(pq["recall_at_10"] >= SHARDED_PQ_DEFAULT_GATE or not full,
+            f"sharded host-tier pq recall@10 {pq['recall_at_10']} < {SHARDED_PQ_DEFAULT_GATE} at "
+            "l_search=64 (the default PQ)")
+    prof = with_launches_per_round(profile_batch(engine, q, steps=1, path=f"{cell}-host-tier-pq",
+                                                 l_search=64, watch=("adc_lookup_kernel",)),
+                                   pq["rounds_per_batch"])
+    if full:
+        http.append(_sharded_http(base, name, "host_tier", engine, mesh_devices))
+    emit({"phase": "main-sharded", "cell": cell, "serving_mode": "host_tier", "mode": "pq",
+          "n_subvectors": ht.pq.n_subvectors, "n_coarse": ht.pq.n_coarse,
+          "diagnostic_passed": diagnostic, **pq,
+          "recall_gate": SHARDED_PQ_DEFAULT_GATE if full else None,
+          "device_bytes": sum(ht.device_bytes().values()),
+          "host_f32_bytes": int(pts.nbytes), "seconds": time.perf_counter() - t_step, "card": smi})
+    emit(prof)
+    out.update(b5_launches=pq["launches"]["B5"], rounds=pq["rounds"])
+    reader, mesh = ht.reader, engine.mesh
+    del engine, ht
+    torch.cuda.empty_cache()
+
+    def tier_row(tier, mode: str, t_step: float) -> dict:
+        """The tier's pipelined search as the engine calls it (L = 64,
+        E = 4, chunk 500), 5 timed batches after a warm-up, launches
+        counted over them."""
+        kw = dict(search_width=64, k=MAIN_K, chunk=500, expand_width=4)
+        tier.search_pipelined(q, **kw)
+        reset_counts()
+        times, rounds = [], 0
+        for _ in range(5):
+            t = time.perf_counter()
+            _, ids, st = tier.search_pipelined(q, **kw)
+            times.append((time.perf_counter() - t) * 1e3)
+            rounds += st["rounds"]
+        return {"phase": "main-sharded", "cell": cell, "serving_mode": "host_tier", "mode": mode,
+                "l_search": 64, "expand_width": 4, "recall_at_10": recall_at_k(ids, gt, MAIN_K),
+                "ms_per_batch_median": float(np.median(times)), "ms_per_batch": times,
+                "rounds_per_batch": rounds / 5, "rounds": rounds, "stage_ms": st["stage_ms"],
+                "launches": read_counts(), "device_bytes": sum(tier.device_bytes().values()),
+                "host_f32_bytes": int(pts.nbytes), "seconds": time.perf_counter() - t_step,
+                "card": smi}
+
+    if not full:
+        # the same graphs traversed by a residual PQ with m = 16 (the 200k
+        # default cell's quantizer): what the default m = 4 costs in recall
+        t_step = time.perf_counter()
+        rpq16 = ResidualPQ(n_subvectors=16, n_coarse=int(meta["pq_n_coarse"]),
+                           device="cuda").fit(pts, seed=0)
+        codes16, cells16 = rpq16.encode(pts)
+        tier = ShardedHostTier.from_sharded_index(
+            load_sharded_index(index_dir / "sharded"), reader, mesh, mode="pq", pq=rpq16,
+            codes=codes16, pq_cells=cells16, pq_bias=rpq16.point_bias(codes16, cells16))
+        row = tier_row(tier, "pq (m = 16)", t_step)
+        others = {k: v for k, v in row["launches"].items() if k != "B5"}
+        require(row["launches"]["B5"] == row["rounds"] > 0 and not any(others.values()),
+                f"m = 16: expected {row['rounds']} launches of B5 and no other: {row['launches']}")
+        emit(row)
+        del tier, rpq16, codes16, cells16
+        torch.cuda.empty_cache()
+    t_step = time.perf_counter()
+    tier = ShardedHostTier.from_sharded_index(load_sharded_index(index_dir / "sharded"), reader,
+                                              mesh, mode="bf16")
+    row = tier_row(tier, "bf16", t_step)
+    require(not any(row["launches"].values()), f"the bf16 sharded host tier launched {row['launches']}")
+    emit(row)
+    del tier
+    torch.cuda.empty_cache()
+
+    if full:
+        emit({"phase": "main-sharded", "cell": cell, "request": "/search", "requests": http,
+              "card": smi})
+        # a 3-shard index on the default devices of one card: the JAX
+        # engine's configuration error
+        t_step = time.perf_counter()
+        small = make_collection(base, "sharded_3", pts[:3000])
+        build_index_from_vectors(pts[:3000], small, index_type="sharded", n_shards=3,
+                                 device="cuda")
+        try:
+            SearchEngine("sharded_3", base_dir=str(base), device="cuda")
+        except ServingConfigError as e:
+            require("3 shards" in str(e), f"mesh error without the shard count: {e}")
+            emit({"phase": "main-sharded", "cell": "sharded-3000-3x1000", "mesh_error": str(e),
+                  "visible_cards": torch.cuda.device_count(),
+                  "seconds": time.perf_counter() - t_step, "card": smi})
+        else:
+            require(torch.cuda.device_count() % 3 == 0,
+                    "a 3-shard index was served on a device count it does not divide")
+    shutil.rmtree(base / name, ignore_errors=True)
+    emit({"phase": "main-sharded", "cell": cell, "step": "total",
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    return out
+
+
+def phase_sharded_multi(smi: str) -> None:
+    """`parallel.dryrun.dryrun_multichip(["cuda:0"] * 8)` (the 2 x 4 mesh of
+    the JAX dry run), then two processes over gloo on cuda:0, each building
+    and searching 2 of 4 shards of `make_dataset(200_000, 128, 1000, seed=0)`
+    (`tools.multihost_check`): both processes' merged ids must equal, byte
+    for byte, the single-process `sharded_search` over the same shards."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.parallel import make_mesh, sharded_flat_search, sharded_search
+    from diskrag_tpu_torch.parallel.dryrun import dryrun_multichip
+    from diskrag_tpu_torch.tools.multihost_check import run_local, stack_shards
+
+    reset_counts()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(["cuda:0"] * 8)
+    emit({"phase": "main-sharded", "step": "dryrun_multichip", "devices": "cuda:0 x 8", **dry,
+          "seconds": time.perf_counter() - t0, "launches": read_counts(), "card": smi})
+
+    out_dir = ROOT / "build" / "chip_smoke" / "multihost"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n, k, width = 200_000, MAIN_K, 64
+    t0 = time.perf_counter()
+    res = run_local(out_dir, n=n, dim=MAIN_D, queries=MAIN_B, k=k, search_width=width,
+                    processes=2, shards_per_process=2, degree_bound=24, seed=0, device="cuda:0",
+                    timeout=600.0)
+    two_s = time.perf_counter() - t0
+    idx = stack_shards(res)
+    mesh = make_mesh(n_shards=4, devices=["cuda:0"] * 4)
+    ids, dists = sharded_search(idx, res[0]["queries"], mesh, search_width=width, k=k)
+    require(ids.cpu().numpy().tobytes() == res[0]["ids"].astype(np.int32).tobytes()
+            == res[1]["ids"].astype(np.int32).tobytes(),
+            "the two processes' merged ids differ from the single-process sharded_search")
+    v = idx.vectors
+    norms = np.einsum("snd,snd->sn", v, v, dtype=np.float32)
+    fids, _ = sharded_flat_search(torch.as_tensor(v).to(torch.bfloat16), norms, idx.global_ids,
+                                  res[0]["queries"], mesh, k=k)
+    require(bool(np.array_equal(fids.cpu().numpy(), res[0]["flat_ids"])),
+            "the two processes' flat ids differ from the single-process sharded_flat_search")
+    emit({"phase": "main-sharded", "step": "multihost", "processes": 2, "backend": "gloo",
+          "device": "cuda:0", "n": n, "shards": 4, "queries": MAIN_B, "search_width": width,
+          "seconds_both_processes": two_s,
+          "ids": "byte-identical across processes and to the single-process sharded_search",
+          "flat_ids": "equal to the single-process sharded_flat_search", "card": smi})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del idx
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2807,12 +3223,23 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
     dev = phase_device()
-    if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"]):
+    if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"], ["--sharded-n"]):
         from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
         n = int(sys.argv[2])
         if sys.argv[1] == "--streaming-n":
             phase_main_streaming(dev["smi"], base_n=n)
+        elif sys.argv[1] == "--sharded-n":
+            pts, q = make_dataset(n, MAIN_D, MAIN_B, seed=42)
+            base = ROOT / "build" / "chip_smoke" / "collections"
+            shutil.rmtree(base, ignore_errors=True)
+            shards = int(sys.argv[4]) if sys.argv[3:4] == ["--shards"] else SHARDED_SHARDS
+            try:
+                phase_main_sharded(dev["smi"], base, pts, q,
+                                   ground_truth(pts, q, MAIN_K, device="cuda"),
+                                   n_shards=shards, full=False)
+            finally:
+                shutil.rmtree(base, ignore_errors=True)
         else:
             pts, q = make_dataset(n, MAIN_D, MAIN_B, seed=42)
             phase_main_graph(dev["smi"], pts, q, ground_truth(pts, q, MAIN_K, device="cuda"))
@@ -2846,6 +3273,13 @@ def main() -> int:
             row["launches_host_tier_1m_build"] = ht1m["build_launches"][row["name"][:2]]
         phase_ivf(dev["smi"], base, *sets[MAIN_N])
         phase_vamana_ivfknn(dev["smi"], *sets[MAIN_N])
+        t = time.perf_counter()
+        sharded = phase_main_sharded(dev["smi"], base, *sets[MAIN_N])
+        for row in out["kernels"][:2]:  # B1, B4: their launches in the 4 x 250k sharded build
+            row["launches_sharded_build"] = sharded["build_launches"][row["name"][:2]]
+        phase_sharded_multi(dev["smi"])
+        emit({"phase": "main-sharded", "step": "total with dryrun and multihost",
+              "seconds": time.perf_counter() - t})
         del sets[MAIN_N]
         build_shapes = phase_build_shape_kernels(sets[CMP_N][0], dev["smi"])
         for row in out["kernels"][:2]:  # B1, B4: their shapes inside the graph build
@@ -2867,6 +3301,8 @@ def main() -> int:
         ht200 = phase_host_tier_200k(dev["smi"], base, "vamana_200k", *sets[CMP_N], auto_recall)
         b5_row["launches_host_tier_200k_pq"] = ht200["b5_launches"]
         b5_row["rounds_host_tier_200k_pq"] = ht200["rounds"]
+        b5_row["launches_sharded_host_tier_pq"] = sharded["b5_launches"]
+        b5_row["rounds_sharded_host_tier_pq"] = sharded["rounds"]
         phase_ivf(dev["smi"], base, *sets[CMP_N])
         phase_ivfknn_resume(dev["smi"], sets[CMP_N][0])
         streaming = phase_main_streaming(dev["smi"])

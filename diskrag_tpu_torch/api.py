@@ -110,11 +110,14 @@ class AppState:
         serving_mode: Optional[str] = None,
         *,
         device: str = "cuda",
+        mesh_devices: Optional[list] = None,
     ):
-        """`serving_mode` None reads DISKRAG_SERVING_MODE (default "auto",
-        the one mode the port serves). `device` is resolved here, so a
-        server meant for the card fails at start when none is visible."""
+        """`serving_mode` None reads DISKRAG_SERVING_MODE (default "auto").
+        `device` is resolved here, so a server meant for the card fails at
+        start when none is visible. `mesh_devices` is the engines' mesh for
+        a sharded collection (default: every visible card, or the CPU)."""
         self.device = resolve_device(device)
+        self.mesh_devices = mesh_devices
         self.serving_mode = serving_mode or os.environ.get("DISKRAG_SERVING_MODE", "auto")
         self.base_dir = base_dir
         self.manager = CollectionManager(base_dir)
@@ -141,6 +144,7 @@ class AppState:
                 self.engines[collection] = SearchEngine(
                     collection, base_dir=self.base_dir,
                     serving_mode=self.serving_mode, device=str(self.device),
+                    mesh_devices=self.mesh_devices,
                 )
             return self.engines[collection]
 

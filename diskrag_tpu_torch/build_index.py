@@ -13,11 +13,11 @@ chosen device. `build_index_from_vectors` builds and persists
     100k points up, by the kNN-based build (`build_method="knn"`) or the
     wave-insertion build (`"wave"`, `graph/build.py`); `pq_kind` int8 /
     int4 trains the int quantizer (`pq/intq.py`) instead, and
-    `write_compat` adds the packed record file the host tier serves from.
-
-The sharded index is a later slice of the port (ROADMAP.md, "Modules
-still to port"); asking for it raises `NotImplementedError` rather than
-building something else.
+    `write_compat` adds the packed record file the host tier serves from;
+  - a sharded index for `"sharded"` (`parallel/sharded.py`): `n_shards`
+    Vamana sub-indexes under `index/sharded/`, the adaptive PQ over all
+    points beside them, and with `write_compat` a vector-only record file
+    (R = 0) for the sharded host tier.
 """
 
 from __future__ import annotations
@@ -37,12 +37,6 @@ from diskrag_tpu_torch.pq import ProductQuantizer, calculate_adaptive_pq_params
 logger = logging.getLogger(__name__)
 
 AUTO_FLAT_MAX_POINTS = 100_000
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, 'Modules still to port')"
-    )
 
 
 def calculate_adaptive_build_params(n_points: int, target_quality: str = "balanced") -> dict:
@@ -264,14 +258,17 @@ def build_index_from_vectors(
     flat_rerank_width: int | None = None,
     ivf_n_cells: int | None = None,
     ivf_cap_factor: float | None = None,
+    n_shards: int | None = None,
     device: str = "cuda",
 ) -> dict:
     """Build + persist an index; returns its meta.
 
     index_type: "vamana" (default: graph index + adaptive PQ), "flat"
     (exhaustive scan, vectors only), "ivf" (IVF-Flat: `ivf_n_cells` and
-    `ivf_cap_factor`, None for `build_ivf`'s defaults) or "auto" (flat
-    under 100k points, else vamana). An existing index is kept unless `force_rebuild` (a
+    `ivf_cap_factor`, None for `build_ivf`'s defaults), "sharded"
+    (`n_shards` partitioned Vamana sub-indexes; serving needs as many mesh
+    devices as a multiple of it) or "auto" (flat under 100k points, else
+    vamana). An existing index is kept unless `force_rebuild` (a
     request for a different type is logged at WARNING). `device` is
     resolved first, so a run meant for the card fails here when none is
     visible.
@@ -297,6 +294,22 @@ def build_index_from_vectors(
         else:
             logger.info("index already exists at %s (use force_rebuild)", store.dir)
         return prev
+    if not force_rebuild and store.meta_path.exists():
+        prev = json.loads(store.meta_path.read_text())
+        if (prev.get("index_type") == "sharded"
+                and (store.dir / "sharded" / "sharded_meta.json").exists()):
+            if n_shards and int(prev.get("n_shards", 0)) != int(n_shards):
+                logger.warning(
+                    "existing sharded index has %s shards, requested %s — keeping the "
+                    "existing one (use force_rebuild)", prev.get("n_shards"), n_shards,
+                )
+            if write_compat and not prev.get("write_compat"):
+                logger.warning(
+                    "existing sharded index lacks the compat record file needed for "
+                    "host_tier serving (use force_rebuild with write_compat)"
+                )
+            logger.info("sharded index already exists at %s (use force_rebuild)", store.dir)
+            return prev
 
     vectors = np.asarray(vectors)
     if vectors.dtype != np.float32:
@@ -341,7 +354,12 @@ def build_index_from_vectors(
         logger.info("ivf index persisted -> %s", store.dir)
         return meta
     if index_type == "sharded":
-        raise _not_ported(f"index_type={index_type!r}")
+        return _build_sharded(
+            vectors, store, n_shards=int(n_shards or 1), target_quality=target_quality,
+            metric=metric, write_compat=write_compat, seed=seed,
+            params_override=params_override, build_method=build_method, opq_iters=opq_iters,
+            force_pq=force_pq, pq_kind=pq_kind, device=device,
+        )
     if index_type != "vamana":
         raise ValueError(f"unknown index_type: {index_type}")
     if build_method not in ("knn", "wave"):
@@ -402,4 +420,80 @@ def build_index_from_vectors(
         },
     )
     logger.info("index built in %.1fs -> %s", build_seconds, store.dir)
+    return meta
+
+
+def _build_sharded(vectors: np.ndarray, store: IndexStore, *, n_shards: int, target_quality: str,
+                   metric: str, write_compat: bool, seed: int, params_override: dict | None,
+                   build_method: str, opq_iters: int, force_pq: bool | None, pq_kind: str,
+                   device: str) -> dict:
+    """The `index_type="sharded"` branch: per-shard graphs
+    (`parallel.sharded.build_sharded`) saved under `index/sharded/`, the
+    adaptive PQ over all points (the sharded host tier's pq / iq mode),
+    the vector-only record file with `write_compat`, and the JAX package's
+    meta keys. `build_shards` in the meta holds each shard's seconds,
+    stage seconds and kernel launches."""
+    from diskrag_tpu_torch.index.persist import (
+        _atomic_write_bytes,
+        save_pq_artifacts,
+        write_compat_records,
+    )
+    from diskrag_tpu_torch.parallel.sharded import build_sharded, save_sharded_index
+
+    n, dim = vectors.shape
+    params = calculate_adaptive_build_params(n, target_quality)
+    if params_override:
+        params.update(params_override)
+    stages: dict = {}
+    shard_stats: list = []
+    t0 = time.perf_counter()
+    sharded = build_sharded(
+        vectors, n_shards, degree_bound=params["R"], build_width=params["L"],
+        alpha=params["alpha"], metric=metric, seed=seed, build_method=build_method,
+        device=device, shard_stats=shard_stats,
+    )
+    stages["shards"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    save_sharded_index(sharded, store.dir / "sharded")  # makes store.dir
+    stages["save"] = time.perf_counter() - t
+    del sharded
+    use_pq, pq_rec = _resolve_use_pq(n, dim, _pq_target(target_quality), force_pq)
+    pq_meta = {}
+    if use_pq:
+        t = time.perf_counter()
+        pq, pq_codes, pq_cids = _train_pq(
+            vectors, pq_rec.n_subvectors, _resolve_pq_kind(pq_kind, metric), seed=seed,
+            opq_iters=opq_iters, device=device,
+        )
+        pq_meta = save_pq_artifacts(store, pq, pq_codes, coarse_ids=pq_cids)
+        stages["pq"] = time.perf_counter() - t
+    if write_compat:
+        # the f32 master for the sharded host tier's exact rerank; R = 0
+        # records (each shard's adjacency lives in the sharded artifacts)
+        t = time.perf_counter()
+        write_compat_records(store.compat_path, vectors, np.empty((n, 0), np.int32))
+        stages["compat"] = time.perf_counter() - t
+    meta = {
+        "index_type": "sharded",
+        "n_shards": n_shards,
+        "write_compat": bool(write_compat),
+        "compat_R": 0,
+        "use_pq": bool(pq_meta),
+        **pq_meta,
+        "dimension": dim,
+        "num_points": n,
+        "R": params["R"],
+        "L": params["L"],
+        "alpha": params["alpha"],
+        "distance_metric": metric,
+        "target_quality": target_quality,
+        "recommended_search_L": calculate_adaptive_search_L(n, params["target_recall"]),
+        "vector_stats": _vector_stats(vectors),
+        "build_seconds": time.perf_counter() - t0,
+        "build_method": build_method,
+        "build_stage_seconds": stages,
+        "build_shards": shard_stats,
+    }
+    _atomic_write_bytes(store.meta_path, json.dumps(meta, indent=2).encode())
+    logger.info("sharded index (%d shards) persisted -> %s", n_shards, store.dir)
     return meta

@@ -1,6 +1,6 @@
 """CLI — counterpart of `diskrag_tpu/cli.py`: the `DiskRAG` facade and
-its eight subcommands (`process`, `index` — vamana, flat, ivf or auto, with the
-config's `index:` block — `search`, `list`, `delete`, `process-dir`,
+its eight subcommands (`process`, `index` — vamana, flat, ivf, sharded or auto,
+with the config's `index:` block — `search`, `list`, `delete`, `process-dir`,
 `merge`, `doctor`), plus `--device {cuda,cpu}` (default cuda), given
 before the subcommand.
 
@@ -155,7 +155,7 @@ class DiskRAG:
     def build_index(
         self, collection: str, target_quality: str | None = None,
         force_rebuild: bool = False, index_type: str | None = None,
-        checkpoint_dir: str | None = None,
+        checkpoint_dir: str | None = None, n_shards: int | None = None,
     ) -> dict:
         from diskrag_tpu_torch.build_index import build_index_from_vectors
 
@@ -188,6 +188,7 @@ class DiskRAG:
             ivf_n_cells=icfg.ivf_n_cells,
             ivf_cap_factor=icfg.ivf_cap_factor,
             checkpoint_dir=checkpoint_dir,
+            n_shards=n_shards or icfg.n_shards,
             device=self.device,
         )
         info = self.manager.get_collection_info(collection)
@@ -390,12 +391,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target-quality", choices=["fast", "balanced", "high"],
                    default=None)
     p.add_argument("--index-type", "--type", dest="index_type",
-                   choices=["vamana", "flat", "ivf", "auto"], default=None,
+                   choices=["vamana", "flat", "ivf", "sharded", "auto"], default=None,
                    help="default: config index.type")
     p.add_argument("--force-rebuild", action="store_true")
     p.add_argument("--checkpoint-dir", default=None,
                    help="mid-build checkpoint/resume dir for long builds (the IVF kNN "
                         "pass of graph builds above 2M points)")
+    p.add_argument("--shards", type=int, default=None,
+                   help="shard count for --index-type sharded (serving needs the visible "
+                        "device count divisible by it; default: config index.n_shards)")
 
     p = sub.add_parser("search", help="search a collection")
     p.add_argument("collection")
@@ -403,12 +407,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", "-k", type=int, default=5)
     p.add_argument("--faq", action="store_true",
                    help="FAQ mode: dedup by qa_id, keep type=='faq' entries")
-    p.add_argument("--serving-mode", default="auto", choices=["auto", "host_tier", "streaming"],
+    p.add_argument("--serving-mode", default="auto",
+                   choices=["auto", "host_tier", "sharded_flat", "streaming"],
                    help="host_tier: graph and compressed rows on the device, f32 "
                         "vectors in the host record file (needs an index built "
-                        "with write_compat); streaming: mutable tier accepting live "
-                        "inserts/deletes (HTTP POST /insert, /delete); sharded_flat "
-                        "is a later slice (ROADMAP.md)")
+                        "with write_compat); sharded_flat: exhaustive bf16 scan per "
+                        "shard of a sharded index, merged; streaming: mutable tier "
+                        "accepting live inserts/deletes (HTTP POST /insert, /delete)")
 
     p = sub.add_parser("process-dir", help="process a whole directory")
     p.add_argument("directory")
@@ -444,6 +449,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         meta = rag.build_index(
             args.collection, args.target_quality, args.force_rebuild,
             index_type=args.index_type, checkpoint_dir=args.checkpoint_dir,
+            n_shards=args.shards,
         )
         if meta.get("index_type") == "flat":
             detail = f"precision={meta.get('flat_precision')}"

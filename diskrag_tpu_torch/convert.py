@@ -11,7 +11,12 @@ with its codes and residual serving arrays moved to the device;
 and tile precision; the tiles are rebuilt, bit-identical);
 `streaming_from_jax` a `StreamingIndex` with a JAX `StreamingIndex`'s
 whole state (its padded graph, buffer and id bookkeeping), so a stream
-begun in the JAX package goes on in the port. Persisted
+begun in the JAX package goes on in the port;
+`sharded_index_from_jax` a `ShardedIndex` from a JAX `ShardedIndex`'s
+arrays, placed on a mesh; `sharded_host_tier_from_jax` a
+`ShardedHostTier` with a JAX tier's per-shard graph, traversal copy (bf16
+rows, PQ codes with the residual arrays, or int rows, taken as they are)
+and quantizer (through `pq_from_jax` / `iq_from_jax`). Persisted
 indexes need no conversion: both packages read and write the same
 `index/` layout.
 """
@@ -179,3 +184,48 @@ def streaming_from_jax(jax_streaming, *, device: str = "cuda"):
         "seed": s.seed,
     }
     return StreamingIndex.from_state(index, state, params=params)
+
+
+def sharded_index_from_jax(index, *, device: str = "cuda", mesh=None):
+    """The port's `ShardedIndex` with a JAX `diskrag_tpu.parallel.ShardedIndex`'s
+    arrays (vectors, adjacency, medoids, global ids, entry points, metric),
+    carried across as numpy and placed on `mesh` (default: every shard on
+    `device`)."""
+    from diskrag_tpu_torch.parallel import ShardedIndex, make_mesh, shard_to_mesh
+
+    s = int(index.vectors.shape[0])
+    host = ShardedIndex(
+        vectors=np.array(index.vectors, np.float32), adjacency=np.array(index.adjacency, np.int32),
+        medoids=np.array(index.medoids, np.int32), global_ids=np.array(index.global_ids, np.int32),
+        metric=index.metric,
+        entry_points=None if index.entry_points is None else np.array(index.entry_points, np.int32),
+    )
+    return shard_to_mesh(host, mesh if mesh is not None else make_mesh(devices=[device] * s))
+
+
+def sharded_host_tier_from_jax(tier, reader, mesh):
+    """The port's `ShardedHostTier` over a JAX `diskrag_tpu.parallel.ShardedHostTier`:
+    its per-shard adjacency, medoids, global ids and entry points, its
+    traversal copy as it holds it (bf16 rows; uint8 codes with the residual
+    cells and biases; int8 rows, gather pad included) and its quantizer,
+    placed on `mesh`; `reader` is the port's reader of the same record
+    file."""
+    from diskrag_tpu_torch.parallel import ShardedHostTier, place
+
+    dev = mesh.first_device
+
+    def put(a, dtype=None):
+        return None if a is None else place(_tensor(a, torch.device("cpu")), mesh, dtype)
+
+    common = dict(
+        adjacency=put(tier.adjacency), medoids=put(tier.medoids), global_ids=put(tier.global_ids),
+        entry_points=put(tier.entry_points), reader=reader, mesh=mesh, metric=tier.metric,
+    )
+    if tier.mode == "bf16":
+        return ShardedHostTier(vectors_bf16=put(tier.vectors_bf16, torch.bfloat16), **common)
+    if tier.mode == "iq":
+        return ShardedHostTier(vectors_bf16=None, mode="iq", codes=put(tier.codes),
+                               pq=iq_from_jax(tier.pq, device=dev), **common)
+    pq = pq_from_jax(tier.pq.to_arrays(), device=dev)[0]
+    return ShardedHostTier(vectors_bf16=None, mode="pq", codes=put(tier.codes), pq=pq,
+                           pq_cells=put(tier.pq_cells), pq_bias=put(tier.pq_bias), **common)

@@ -31,9 +31,16 @@ collection and the tier together, `delete_ids` tombstones rows, searches
 merge the graph with the exact buffer, and `flush_index` folds the buffer
 in and persists the grown index.
 
-The sharded index and the serving mode sharded_flat raise
-`NotImplementedError`: those are a later slice of the port, and serving
-them by brute force would hide that.
+A sharded index (`index_type: sharded`, `parallel/`) is served over a
+mesh of `mesh_devices` (default: every visible card, or the CPU for
+`device="cpu"`; a list may name one device more than once), which must
+hold a multiple of its shard count: mode "auto" runs exact traversal per
+shard and merges the per-shard top-k ("sharded"); "sharded_flat" scans a
+bf16 copy of every shard exhaustively ("sharded_flat"); "host_tier" keeps
+each shard's graph and a compressed copy (pq, iq or bf16) on the devices
+and reranks on the host against the record file ("sharded_host_tier").
+A mesh that does not fit the shard count, and a sharded_flat request on an
+index that is not sharded, raise `ServingConfigError`.
 Results come back to the host with one `.cpu()` per output per batch;
 `search_pipelined` of the JAX package (it hides a remote device's fetch
 latency) is not ported.
@@ -84,16 +91,12 @@ class SearchEngine:
         serving_mode: str = "auto",
         *,
         device: str = "cuda",
+        mesh_devices: list | None = None,
     ):
         if serving_mode not in ("auto", "host_tier", "sharded_flat", "streaming"):
             raise ValueError(f"unknown serving_mode: {serving_mode}")
-        if serving_mode == "sharded_flat":
-            raise NotImplementedError(
-                f"serving_mode={serving_mode!r} is not ported yet (ROADMAP.md, "
-                "'Modules still to port'); the port serves modes 'auto', 'host_tier' "
-                "and 'streaming'"
-            )
         self.device = resolve_device(device)
+        self.mesh_devices = mesh_devices
         self.serving_mode = serving_mode
         # host-tier batches larger than this are pipelined (the host
         # reranks chunk i while the device traverses chunk i+1)
@@ -122,6 +125,9 @@ class SearchEngine:
         self.ivf = None         # index_type "ivf"
         self.host_tier = None   # serving_mode "host_tier"
         self.streaming = None   # serving_mode "streaming": index/streaming.py
+        self.mesh = None        # index_type "sharded": parallel/mesh.py
+        self.sharded = None     # mode "auto" on a sharded index
+        self.sharded_flat = None  # mode "sharded_flat": (bf16 rows, norms, global ids)
         self.meta: dict = {}
         self.use_pq = False
         self.brute_force_mode = False
@@ -152,12 +158,18 @@ class SearchEngine:
                 metric_hint = peek.get("distance_metric", "l2")
             except ValueError:
                 pass
-        if self.index_type not in ("vamana", "flat", "ivf"):
-            raise NotImplementedError(
-                f"index_type={self.index_type!r} is not ported yet: the port "
-                f"serves vamana, flat and ivf indexes (serving_mode={self.serving_mode!r}; "
-                "ROADMAP.md, 'Modules still to port')"
+        if self.serving_mode == "sharded_flat" and self.index_type != "sharded":
+            raise ServingConfigError(
+                f"sharded_flat serving needs a sharded index, got {self.index_type}"
             )
+        if self.index_type == "sharded":
+            if self.serving_mode == "streaming":  # the mutable tier wraps one vamana graph
+                raise ServingConfigError(
+                    "streaming serving needs a loaded vamana index (index_type='sharded') — "
+                    "build one with index type 'vamana' first"
+                )
+            self._load_sharded(index_dir, meta_path)
+            return
         if self.serving_mode == "host_tier":
             self._load_host_tier(index_dir, meta_path)
             return
@@ -178,13 +190,7 @@ class SearchEngine:
                 index_dir, device=self.device
             )
         except (FileNotFoundError, ValueError) as e:
-            # graceful degradation to brute force over the collection's raw
-            # vectors, keeping its metric
-            logger.warning("index not loadable (%s) — brute-force mode over vectors.npy", e)
-            self.brute_force_mode = True
-            vecs = np.load(self.manager.get_vectors_path(self.collection_name))
-            self.flat = FlatIndex(vecs, metric=metric_hint, device=self.device)
-            self.meta = {"distance_metric": metric_hint}
+            self._brute_force(e, metric_hint)
             return
         self.use_pq = self.pq is not None
         if self.use_pq:
@@ -214,6 +220,17 @@ class SearchEngine:
                 self.pq_bias_t = torch.as_tensor(bias, device=self.device).to(torch.float32)
         self.recommended_l = int(self.meta.get("recommended_search_L", 64))
 
+    def _brute_force(self, why: Exception, metric: str) -> None:
+        """Graceful degradation of mode "auto" to brute force over the
+        collection's raw vectors, keeping its metric."""
+        from diskrag_tpu_torch.ops.flat import FlatIndex
+
+        logger.warning("index not loadable (%s) — brute-force mode over vectors.npy", why)
+        self.brute_force_mode = True
+        vecs = np.load(self.manager.get_vectors_path(self.collection_name))
+        self.flat = FlatIndex(vecs, metric=metric, device=self.device)
+        self.meta = {"distance_metric": metric}
+
     def _load_host_tier(self, index_dir, meta_path) -> None:
         """The single-card host tier over a vamana index with its record
         file. Configuration errors, and artifacts that are missing or
@@ -241,6 +258,94 @@ class SearchEngine:
             raise ServingConfigError(f"host_tier serving could not load its artifacts: {e}") from e
         self.recommended_l = int(self.meta.get("recommended_search_L", 64))
 
+    def _make_mesh(self, n_shards: int):
+        """The serving mesh of a sharded index over `mesh_devices`: a
+        device count that is not a multiple of the shard count is a
+        configuration error, never a reason to serve something else."""
+        from diskrag_tpu_torch.parallel import make_mesh
+
+        devices = self.mesh_devices
+        if devices is None:
+            devices = (["cpu"] if self.device.type == "cpu"
+                       else [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        ndev = len(devices)
+        if ndev % n_shards:
+            raise ServingConfigError(
+                f"sharded index has {n_shards} shards but {ndev} device(s) are given "
+                f"(mesh_devices={[str(d) for d in devices]}) — serving needs "
+                "len(mesh_devices) % n_shards == 0 (one shard per mesh slot; a device "
+                "may be named more than once)"
+            )
+        return make_mesh(n_shards=n_shards, n_data=ndev // n_shards, devices=devices)
+
+    def _load_sharded(self, index_dir, meta_path) -> None:
+        """A sharded index in mode "auto" (placed on the mesh), "sharded_flat"
+        (a bf16 copy and f32 norms per shard) or "host_tier" (compressed
+        copy per shard, f32 rerank from the record file). A missing or
+        broken artifact degrades mode "auto" to brute force, as for every
+        index type, and raises `ServingConfigError` in the other modes."""
+        from diskrag_tpu_torch.parallel import load_sharded_index, place
+
+        try:
+            self.meta = json.loads(meta_path.read_text())
+            self.mesh = self._make_mesh(int(self.meta["n_shards"]))
+            self.recommended_l = int(self.meta.get("recommended_search_L", 64))
+            if self.serving_mode == "host_tier":
+                self._load_sharded_host_tier(index_dir)
+            elif self.serving_mode == "sharded_flat":
+                idx = load_sharded_index(index_dir / "sharded")
+                v = idx.vectors
+                # bf16 scan copy (cast on the host, chunked) + f32 norms summed
+                # from the memory map; pad rows are masked by their -1 global id
+                self.sharded_flat = (
+                    place(v, self.mesh, torch.bfloat16),
+                    place(np.einsum("snd,snd->sn", v, v, dtype=np.float32), self.mesh),
+                    place(np.asarray(idx.global_ids), self.mesh),
+                    idx.metric,
+                )
+            else:
+                self.sharded = load_sharded_index(index_dir / "sharded", mesh=self.mesh)
+        except (FileNotFoundError, ValueError, KeyError) as e:
+            if self.serving_mode != "auto":
+                raise ServingConfigError(
+                    f"{self.serving_mode} serving could not load its artifacts: {e}") from e
+            self.mesh = self.sharded = None
+            self._brute_force(e, self.meta.get("distance_metric", "l2"))
+
+    def _load_sharded_host_tier(self, index_dir) -> None:
+        """The sharded host tier: pq traversal when PQ artifacts exist and
+        the metric is L2 (iq for IntQuantizer rows), else bf16."""
+        from diskrag_tpu_torch.index.persist import IndexStore, load_pq_aux
+        from diskrag_tpu_torch.parallel import ShardedHostTier, load_sharded_index
+
+        store = IndexStore(index_dir)
+        if not store.compat_path.exists():
+            raise ServingConfigError(
+                f"host_tier serving needs the packed record file {store.compat_path} "
+                "(build with write_compat)"
+            )
+        from diskrag_tpu_torch.native import RecordReader
+
+        reader = RecordReader(
+            store.compat_path, int(self.meta["num_points"]), int(self.meta["dimension"]),
+            int(self.meta.get("compat_R", 0)), cache_capacity=65_536,
+        )
+        mode_kwargs: dict = {}
+        if store.pq_model_path.exists() and self.meta.get("distance_metric", "l2") == "l2":
+            from diskrag_tpu_torch.pq.residual import pq_from_arrays
+
+            with np.load(store.pq_model_path) as z:
+                pq = pq_from_arrays(dict(z), device=self.mesh.first_device)
+            codes = np.load(store.pq_codes_path)
+            if str(self.meta.get("pq_kind", "plain")).startswith("int"):
+                mode_kwargs = {"mode": "iq", "pq": pq, "codes": codes}
+            else:
+                cells, bias = load_pq_aux(store, expect_n=int(codes.shape[0]))
+                mode_kwargs = {"mode": "pq", "pq": pq, "codes": codes,
+                               "pq_cells": cells, "pq_bias": bias}
+        self.host_tier = ShardedHostTier.from_sharded_index(
+            load_sharded_index(index_dir / "sharded"), reader, self.mesh, **mode_kwargs)
+
     def _pq_serving_tables(self, q: torch.Tensor) -> tuple:
         """(tables, beam_search_pq aux kwargs) for the active quantizer:
         inner tables + cell / bias operands for a ResidualPQ (its serving
@@ -262,6 +367,17 @@ class SearchEngine:
             n = int(self.meta["num_points"])
             ids = np.sort(rng.choice(n, size=min(n_sample, n), replace=False))
             return self.host_tier.reader.get_vectors(ids), ids
+        if self.mesh is not None:
+            # shard 0's rows (its pad rows, if any, sit at the end)
+            if self.sharded_flat is not None:
+                vectors, gids = self.sharded_flat[0], self.sharded_flat[2]
+            else:
+                vectors, gids = self.sharded.vectors, self.sharded.global_ids
+            g = gids.shard(0).cpu().numpy()
+            local = np.sort(rng.choice(int(np.sum(g >= 0)), size=min(n_sample, int(np.sum(g >= 0))),
+                                       replace=False))
+            vecs = vectors.shard(0)[torch.as_tensor(local, device=vectors.shard(0).device)]
+            return vecs.to(torch.float32).cpu().numpy(), g[local]
         vectors = next(x for x in (self.flat, self.ivf, self.index) if x is not None).vectors
         n = vectors.shape[0]
         ids = np.sort(rng.choice(n, size=min(n_sample, n), replace=False))
@@ -443,6 +559,25 @@ class SearchEngine:
 
         if self.host_tier is not None:
             return self._host_tier_branch(q, b, k, l_search)
+        if self.sharded_flat is not None:
+            from diskrag_tpu_torch.parallel import sharded_flat_search
+
+            v16, norms, gids, metric = self.sharded_flat
+            ids, dists = sharded_flat_search(v16, norms, gids, q, self.mesh, k=k, metric=metric)
+            nv = int(gids.shape[0] * gids.shape[1]) * b
+            return dists, ids, None, "sharded_flat", lambda c: (nv, nv, 0), {}
+        if self.sharded is not None:
+            from diskrag_tpu_torch.parallel import sharded_search
+
+            st: dict = {}
+            ids, dists = sharded_search(self.sharded, q, self.mesh, search_width=l_search, k=k,
+                                        stats=st)
+            # every shard's expansions, summed; a candidate costs R
+            # distances (the JAX package reports the bound 2 L rounds a shard)
+            nv = st["nodes_expanded"]
+            ne = nv * int(self.sharded.adjacency.shape[-1])
+            return dists, ids, None, "sharded", lambda c: (nv, ne, 0), {
+                "rounds": st["rounds"], "n_shards": self.sharded.n_shards}
         if self.streaming is not None:
             # graph beam + exact buffer scan; the ids are external ids, which
             # equal collection vector_index rows by the alignment invariant
@@ -503,7 +638,12 @@ class SearchEngine:
         e = int(self.meta.get("recommended_expand_width", 0) or 4)
         kwargs = {}
         rp = int(self.meta.get("recommended_rerank_pool", 0) or 0)
-        if rp:
+        if self.mesh is not None:
+            # the sharded tier's chunks are split over the data axis; its
+            # pool has no truncation knob
+            n_data = self.mesh.shape["data"]
+            chunk = -(-chunk // n_data) * n_data
+        elif rp:
             kwargs["rerank_pool"] = rp
         dists, ids, ht = self.host_tier.search_pipelined(
             q.cpu().numpy(), search_width=l_search, k=k, chunk=chunk,
@@ -511,12 +651,13 @@ class SearchEngine:
         )
         nv = ht["nodes_visited"]
         ne = ht["host_vectors_fetched"]
-        npq = nv * int(self.host_tier.adjacency.shape[1]) if self.host_tier.mode == "pq" else 0
+        npq = nv * int(self.host_tier.adjacency.shape[-1]) if self.host_tier.mode == "pq" else 0
         extra = {"rounds": ht["rounds"], "stage_ms": ht["stage_ms"], "mode": ht["mode"],
                  "expand_width": e, "host_vectors_fetched": ne, "cache": ht["cache"]}
-        if "pipelined_chunks" in ht:
-            extra["pipelined_chunks"] = ht["pipelined_chunks"]
-        return dists, ids, None, "host_tier", lambda c: (nv, ne, npq), extra
+        for key in ("pipelined_chunks", "n_shards"):
+            if key in ht:
+                extra[key] = ht[key]
+        return dists, ids, None, ht["search_type"], lambda c: (nv, ne, npq), extra
 
     # --- public text API -------------------------------------------------
     def search(

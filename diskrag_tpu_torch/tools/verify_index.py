@@ -58,11 +58,7 @@ def verify_index(index_dir: str | pathlib.Path, *, device: str = "cuda") -> dict
             for name in ("ivf_centroids", "ivf_tile_ids", "vectors"):
                 check(f"{name}_exists", (store.dir / f"{name}.npy").exists())
         elif index_type == "sharded":
-            sdir = store.dir / "sharded"
-            check("sharded_dir_exists", sdir.is_dir())
-            if sdir.is_dir():
-                for name in ("vectors", "adjacency", "medoids", "global_ids"):
-                    check(f"{name}_exists", (sdir / f"{name}.npy").exists())
+            _verify_sharded(store, meta, check)
         return report
     n, dim, r = meta["num_points"], meta["dimension"], meta["R"]
 
@@ -123,6 +119,57 @@ def verify_index(index_dir: str | pathlib.Path, *, device: str = "cuda") -> dict
     except Exception as e:  # noqa: BLE001
         check("self_search", False, f"{type(e).__name__}: {e}")
     return report
+
+
+def _verify_sharded(store, meta: dict, check) -> None:
+    """The files `parallel.sharded.save_sharded_index` writes under
+    `sharded/`: its meta (format, shard count), each array and its shape,
+    local ids in range, the global ids covering every point once, and the
+    vector-only record file (R = 0) of a `write_compat` build."""
+    from diskrag_tpu_torch.parallel.sharded import SHARDED_FORMAT_VERSION
+
+    sdir = store.dir / "sharded"
+    check("sharded_dir_exists", sdir.is_dir())
+    if not sdir.is_dir():
+        return
+    names = ["vectors", "adjacency", "medoids", "global_ids"]
+    smeta_path = sdir / "sharded_meta.json"
+    check("sharded_meta_exists", smeta_path.exists())
+    smeta = json.loads(smeta_path.read_text()) if smeta_path.exists() else {}
+    if smeta:
+        check("sharded_format", smeta.get("format") == SHARDED_FORMAT_VERSION,
+              str(smeta.get("format")))
+        check("n_shards", smeta.get("n_shards") == meta.get("n_shards"),
+              f"{smeta.get('n_shards')} vs {meta.get('n_shards')}")
+        if smeta.get("has_entry_points"):
+            names.append("entry_points")
+    for name in names:
+        check(f"{name}_exists", (sdir / f"{name}.npy").exists())
+    if not smeta or not all((sdir / f"{name}.npy").exists() for name in names):
+        return
+    arr = {name: np.load(sdir / f"{name}.npy", mmap_mode="r") for name in names}
+    s, ns, dim = smeta["n_shards"], smeta["points_per_shard"], smeta["dim"]
+    r = smeta["degree_bound"]
+    check("vectors_shape", arr["vectors"].shape == (s, ns, dim), f"{arr['vectors'].shape}")
+    check("adjacency_shape", arr["adjacency"].shape == (s, ns, r), f"{arr['adjacency'].shape}")
+    check("medoids_shape", arr["medoids"].shape == (s,), f"{arr['medoids'].shape}")
+    check("global_ids_shape", arr["global_ids"].shape == (s, ns), f"{arr['global_ids'].shape}")
+    adj = np.asarray(arr["adjacency"])
+    check("adjacency_ids_in_range", bool(((adj >= -1) & (adj < ns)).all()))
+    med = np.asarray(arr["medoids"])
+    check("medoids_in_range", bool(((med >= 0) & (med < ns)).all()))
+    if "entry_points" in arr:
+        ep = np.asarray(arr["entry_points"])
+        check("entry_points_in_range", ep.shape[0] == s and bool(((ep >= 0) & (ep < ns)).all()))
+    g = np.asarray(arr["global_ids"])
+    valid = np.sort(g[g >= 0])
+    n = int(meta.get("num_points", 0))
+    check("global_ids_cover_points", valid.shape[0] == n and bool((valid == np.arange(n)).all()),
+          f"{valid.shape[0]} valid global ids for {n} points")
+    if meta.get("write_compat"):
+        expect = n * 4 * dim
+        actual = store.compat_path.stat().st_size if store.compat_path.exists() else -1
+        check("record_file_size", actual == expect, f"{actual} vs {expect} (= N * 4*dim, R = 0)")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -116,8 +116,10 @@ def test_cli_serving_mode_choices():
     assert args.serving_mode == "host_tier"
     args = build_parser().parse_args(["search", "c", "q", "--serving-mode", "streaming"])
     assert args.serving_mode == "streaming"
-    with pytest.raises(SystemExit):  # a later slice: not offered
-        build_parser().parse_args(["search", "c", "q", "--serving-mode", "sharded_flat"])
+    args = build_parser().parse_args(["search", "c", "q", "--serving-mode", "sharded_flat"])
+    assert args.serving_mode == "sharded_flat"
+    with pytest.raises(SystemExit):  # not a mode of either package
+        build_parser().parse_args(["search", "c", "q", "--serving-mode", "sharded_host_tier"])
 
 
 def test_cli_process_article_csv_and_markdown(workspace, capsys):

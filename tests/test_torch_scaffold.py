@@ -35,6 +35,10 @@ import diskrag_tpu_torch.pq.intq, diskrag_tpu_torch.native, diskrag_tpu_torch.in
 import diskrag_tpu_torch.index.ivf, diskrag_tpu_torch.graph.checkpoint
 import diskrag_tpu_torch.graph.build, diskrag_tpu_torch.graph.dynamic
 import diskrag_tpu_torch.index.streaming, diskrag_tpu_torch.tools.streaming_bench
+import diskrag_tpu_torch.parallel, diskrag_tpu_torch.parallel.mesh, diskrag_tpu_torch.parallel.sharded
+import diskrag_tpu_torch.parallel.host_tier, diskrag_tpu_torch.parallel.multihost
+import diskrag_tpu_torch.parallel.dryrun, diskrag_tpu_torch.tools.multihost_check
+from diskrag_tpu_torch.convert import sharded_host_tier_from_jax, sharded_index_from_jax
 from diskrag_tpu_torch.index import StreamingIndex
 from diskrag_tpu_torch.graph import build_vamana, random_regular_init
 from diskrag_tpu_torch.convert import streaming_from_jax
@@ -292,19 +296,20 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         with pytest.raises(ValueError, match="fused_precision"):
             FlatIndex(pts, fused_precision="int4_packed", device="cpu")
     elif cut == "build":
-        # write_compat, pq_kind int8 / int4, the ivf index and the wave
-        # build are ported (the host tier, the int-quantized rows, the IVF
-        # and streaming slices); the sharded index is still a later slice
+        # write_compat, pq_kind int8 / int4, the ivf index, the wave build
+        # and the sharded index are ported (the host tier, the int-quantized
+        # rows, the IVF, streaming and parallel slices)
         meta = build_index_from_vectors(pts, tmp_path / "ivf", index_type="ivf", device="cpu")
         assert meta["index_type"] == "ivf" and meta["tile_precision"] == "int8"
         meta = build_index_from_vectors(pts, tmp_path / "wave", index_type="vamana",
                                         build_method="wave", device="cpu")
         assert meta["build_method"] == "wave" and meta["num_points"] == 64
-        for kw in (dict(index_type="sharded"),
-                   dict(index_type="sharded", write_compat=True)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                build_index_from_vectors(pts, tmp_path / "i", device="cpu", **kw)
-            assert not (tmp_path / "i").exists()
+        for i, kw in enumerate((dict(index_type="sharded"),
+                                dict(index_type="sharded", write_compat=True, n_shards=2))):
+            meta = build_index_from_vectors(pts, tmp_path / f"i{i}", device="cpu", **kw)
+            assert meta["index_type"] == "sharded" and meta["n_shards"] == i + 1
+            assert (tmp_path / f"i{i}" / "sharded" / "sharded_meta.json").exists()
+            assert (tmp_path / f"i{i}" / "index.dat").exists() == bool(i)
         with pytest.raises(ValueError, match="index_type"):
             build_index_from_vectors(pts, tmp_path / "i", index_type="hnsw", device="cpu")
     else:
@@ -319,13 +324,14 @@ def test_unported_options_raise_not_implemented(cut, tmp_path):
         engine = SearchEngine("c", base_dir=str(tmp_path), device="cpu")
         assert engine.ivf is not None and not engine.brute_force_mode
         assert engine.search_batch(pts[:3], k=4)[2]["search_type"] == "ivf"
-        # host_tier and streaming are served on a vamana index only (the JAX
-        # package's ServingConfigErrors); sharded_flat is a later slice
+        # host_tier and streaming are served on a vamana (or sharded) index
+        # only, sharded_flat on a sharded one (the JAX package's
+        # ServingConfigErrors)
         with pytest.raises(ServingConfigError, match="vamana or sharded index, got ivf"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="host_tier")
         with pytest.raises(ServingConfigError, match="streaming serving needs a loaded vamana"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="streaming")
-        with pytest.raises(NotImplementedError, match="sharded_flat"):
+        with pytest.raises(ServingConfigError, match="sharded_flat serving needs a sharded index"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="sharded_flat")
         with pytest.raises(ValueError, match="serving_mode"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="nope")
@@ -338,11 +344,16 @@ def test_unported_graph_options_raise_not_implemented(what, tmp_path):
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(64, 8)).astype(np.float32)
     if what == "sharded_meta":
-        from diskrag_tpu_torch.engine import SearchEngine
+        # the sharded index is served (the parallel slice); a meta without
+        # its artifacts degrades mode "auto" to brute force, as any torn
+        # index does, and fails the other modes
+        from diskrag_tpu_torch.engine import SearchEngine, ServingConfigError
 
-        _tiny_collection(tmp_path, pts, {"index_type": "sharded"})
-        with pytest.raises(NotImplementedError, match="sharded"):
-            SearchEngine("c", base_dir=str(tmp_path), device="cpu")
+        _tiny_collection(tmp_path, pts, {"index_type": "sharded", "n_shards": 1})
+        engine = SearchEngine("c", base_dir=str(tmp_path), device="cpu")
+        assert engine.brute_force_mode and engine.sharded is None
+        with pytest.raises(ServingConfigError, match="sharded_flat serving could not load"):
+            SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="sharded_flat")
     elif what == "knn_backend":
         from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
 
@@ -371,19 +382,20 @@ def test_unported_graph_options_raise_not_implemented(what, tmp_path):
         assert got.shape == (6, 4) and bool((got[:, 0] >= 0).all())
         assert not bool((got == point_ids[:, None]).any())  # self-edges removed
     elif what == "iq":
-        # the int-quantized rows are ported; the host tier over a sharded
-        # index (the parallel slice) is not
-        from diskrag_tpu_torch.engine import SearchEngine
+        # the int-quantized rows are ported, and so is the host tier over a
+        # sharded index (the parallel slice): without its record file it
+        # refuses, as the JAX package does
+        from diskrag_tpu_torch.engine import SearchEngine, ServingConfigError
         from diskrag_tpu_torch.pq import IntQuantizer, pq_from_arrays
 
         iq = IntQuantizer(device="cpu").fit(pts)
         assert isinstance(pq_from_arrays(iq.to_arrays(), device="cpu"), IntQuantizer)
-        _tiny_collection(tmp_path, pts, {"index_type": "sharded"})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _tiny_collection(tmp_path, pts, {"index_type": "sharded", "n_shards": 1})
+        with pytest.raises(ServingConfigError, match="packed record file"):
             SearchEngine("c", base_dir=str(tmp_path), device="cpu", serving_mode="host_tier")
     else:
-        # the packed record file is written now; a sharded index, whose
-        # build would write its records, is still a later slice
+        # the packed record file is written, by a vamana build and (the
+        # parallel slice) by a sharded one: vector-only records, R = 0
         from diskrag_tpu_torch.build_index import build_index_from_vectors
         from diskrag_tpu_torch.graph.types import VamanaIndex
         from diskrag_tpu_torch.index.persist import read_compat_records, save_index
@@ -393,10 +405,11 @@ def test_unported_graph_options_raise_not_implemented(what, tmp_path):
         save_index(tmp_path / "i", index, write_compat=True)
         vecs, back = read_compat_records(tmp_path / "i" / "index.dat", 64, 8, 2)
         assert np.array_equal(vecs, pts) and np.array_equal(back, adj)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_index_from_vectors(pts, tmp_path / "s", index_type="sharded",
-                                     write_compat=True, device="cpu")
-        assert not (tmp_path / "s").exists()
+        meta = build_index_from_vectors(pts, tmp_path / "s", index_type="sharded",
+                                        write_compat=True, device="cpu")
+        assert meta["compat_R"] == 0 and meta["write_compat"]
+        vecs, back = read_compat_records(tmp_path / "s" / "index.dat", 64, 8, 0)
+        assert np.array_equal(vecs, pts) and back.shape == (64, 0)
 
 
 def test_f32_products_stay_full_precision():
