@@ -58,6 +58,21 @@ runs one rebuild-path merge (B1 / B4 through `build_vamana_knn`), one
 `merge_method="wave"` merge (no kernel) and a delete of 10% of the live ids
 with `consolidate` (no tombstoned id served; recall within 0.01), beside
 the JAX package's consolidate policy on the same state (printed). Phase
+`pipelined` rows sit in every phase that has an engine live (flat-1M-int8,
+flat-200k-packed and -1M-packed, vamana-200k-default, ivf-1M-int8,
+host-tier-200k-pq, the streaming engine of api-streaming-200k and the
+sharded cell's modes "auto" and "sharded_flat"): `SearchEngine.
+search_pipelined` over 16 batches of 512 text queries (8 in flight; 4
+batches on the sharded cell) beside `search_many` calls of the same
+batches, every batch's ids and distances equal to search_many's, the same
+launches; the overlap witness (a batch's dispatch began before its
+predecessor's event completed) is printed on every row and gated on
+sharded_flat, the one path whose device time a batch outlasts the host's
+embedding, upload and dispatch; `Event.synchronize` must release the GIL
+(on flat-1M-int8); phase `api` also
+sends 8 `/search-batch` requests at once to the vamana and the packed
+flat 200k collections, each response equal to the same request sent
+alone. Phase
 `main-wave` builds the 200,000-point index with `build_method="wave"` (no
 kernel) and gates exact traversal at L = 48; phase `api-streaming` serves
 the default vamana collection over HTTP in streaming mode (`/insert`,
@@ -1090,6 +1105,187 @@ def drive(engine, q, reps: int, l_search: int | None = None):
     return dists, ids, all_stats, batch_s, read_counts()
 
 
+# the JAX serving bench's pipelined shape (`benchmarks/serving_bench.py::
+# measure_pipelined_qps`): batches of 512 text queries, 16 of them, 8 in flight
+PIPE_B, PIPE_BATCHES, PIPE_IN_FLIGHT = 512, 16, 8
+
+
+def event_wait_releases_gil() -> dict:
+    """`torch.cuda.Event.synchronize()` on a worker thread, behind ~50 ms
+    of device sleep, while the main thread counts loop turns: a wait that
+    held the GIL would leave the main thread no turn until it ended."""
+    import threading
+
+    import torch
+
+    torch.cuda.synchronize()
+    event = torch.cuda.Event()
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's ~2 GHz
+    event.record()
+    done = threading.Event()
+    waiter = threading.Thread(target=lambda: (event.synchronize(), done.set()))
+    t = time.perf_counter()
+    waiter.start()
+    turns = 0
+    while not done.is_set():
+        turns += 1
+    wait_ms = (time.perf_counter() - t) * 1e3
+    waiter.join()
+    require(wait_ms >= 10 and turns >= 10_000,
+            f"Event.synchronize held the GIL: {turns} main-thread turns in {wait_ms:.1f} ms")
+    return {"event_wait_ms": wait_ms, "main_thread_turns_during_wait": turns}
+
+
+def _pipe_texts(q, n_batches: int) -> tuple[list, dict]:
+    """`n_batches` batches of PIPE_B text queries and the lookup table that
+    embeds them as the cell's own query vectors, in turn (the JAX serving
+    bench's embedder)."""
+    texts = [[f"q{j * PIPE_B + i}" for i in range(PIPE_B)] for j in range(n_batches)]
+    return texts, {t: q[(j * PIPE_B + i) % len(q)]
+                   for j, batch in enumerate(texts) for i, t in enumerate(batch)}
+
+
+def _result_lists(out: dict):
+    """(ids, distances), one list a query, of a `search_many`-shaped
+    result: compared with ==, the distances as exact floats."""
+    ids = [[r["metadata"]["vector_index"] for r in row] for row in out["results"]]
+    dists = [[r["distance"] for r in row] for row in out["results"]]
+    return ids, dists
+
+
+def pipelined_row(smi: str, engine, q, cell: str, *, expect: dict, l_search: int | None = None,
+                  n_batches: int = PIPE_BATCHES, passes: int = 2, witness_gate: bool = False,
+                  profile_batches: int = 4) -> dict:
+    """`SearchEngine.search_pipelined` over `n_batches` batches of PIPE_B
+    text queries with PIPE_IN_FLIGHT in flight, beside `search_many` on the
+    same batches one after the other, in `passes` turns of each (search_many,
+    pipelined, pipelined, search_many: Python's cyclic collector stops a
+    pass for a while at times, so each side's best pass is taken); the
+    launch counts set to 0 just before each pass and read just after.
+    Gates: every batch's ids and distances equal (as exact values) to
+    `search_many`'s, the same search type, the same launches in every pass,
+    and the ones `expect` names ({kernel: "batches" | "rounds"}; every
+    other kernel 0). The overlap witness: for each batch after the first,
+    whether the previous batch's event was still pending when this batch's
+    dispatch began (its queries already uploaded: a pageable upload would
+    have waited for that batch) and when it returned; the first is gated
+    with `witness_gate`. Prints QPS and ms a batch of both, the text join's,
+    the embedding's and the dispatch's host ms, the row's seconds, and the
+    device idle share of a profiled pipelined window of `profile_batches`
+    batches (0: not profiled)."""
+    import numpy as np
+
+    t_row = time.perf_counter()
+    texts, lut = _pipe_texts(q, n_batches)
+    kw = dict(k=MAIN_K, embedding_fn=lut.__getitem__, l_search=l_search)
+    engine.search_pipelined(texts[:2], max_in_flight=PIPE_IN_FLIGHT, **kw)  # warm-up
+    pending: list = []  # (previous event pending at this dispatch's start, at its end)
+    dispatch_ms: list = []
+    last: list = []
+    dispatch = engine._dispatch_search
+
+    def witnessed(*args, **kwargs):
+        prev = last[0][3] if last else None
+        at_start = prev is not None and not prev.query()
+        t = time.perf_counter()
+        disp = dispatch(*args, **kwargs)
+        dispatch_ms.append((time.perf_counter() - t) * 1e3)
+        if prev is not None:
+            pending.append((at_start, not prev.query()))
+        last[:] = [disp]
+        return disp
+
+    def run_seq():
+        return [engine.search_many(b, **kw) for b in texts]
+
+    def run_piped():
+        last.clear()
+        engine._dispatch_search = witnessed
+        try:
+            return engine.search_pipelined(texts, max_in_flight=PIPE_IN_FLIGHT, **kw)
+        finally:
+            del engine._dispatch_search
+            last.clear()
+
+    runs = {"seq": [], "piped": []}
+    order = ["seq", "piped"] + ["piped", "seq"] * (passes > 1)
+    for which in order:
+        reset_counts()
+        t = time.perf_counter()
+        outs = run_seq() if which == "seq" else run_piped()
+        runs[which].append((outs, time.perf_counter() - t, read_counts()))
+    seq, _, seq_launches = runs["seq"][0]
+    for which, (outs, _, launches) in ((w, r) for w in runs for r in runs[w]):
+        require(len(outs) == n_batches, f"{cell}: {len(outs)} results for {n_batches} batches")
+        for i, (got, want) in enumerate(zip(outs, seq)):
+            (gi, gd), (wi, wd) = _result_lists(got), _result_lists(want)
+            require(len(gi) == PIPE_B and all(len(r) == MAIN_K for r in gi)
+                    and gi == wi and gd == wd,
+                    f"{cell}: {which} batch {i} differs from search_many's first pass")
+            require(got["stats"]["search_type"] == want["stats"]["search_type"],
+                    f"{cell}: {which} batch {i} served as {got['stats']['search_type']}, "
+                    f"search_many as {want['stats']['search_type']}")
+        require(launches == seq_launches,
+                f"{cell}: {which} pass launched {launches}, search_many's first {seq_launches}")
+    rounds = sum(out["stats"].get("rounds", 0) for out in seq)
+    want_launches = {kid: {"batches": n_batches, "rounds": rounds}[how]
+                     for kid, how in expect.items()}
+    require(all(v == want_launches.get(kid, 0) for kid, v in seq_launches.items()) and (
+        not want_launches or min(want_launches.values()) > 0),
+        f"{cell}: launches {seq_launches}, expected {want_launches}")
+    if witness_gate:
+        require(any(a for a, _ in pending),
+                f"{cell}: no batch was dispatched before its predecessor finished: {pending}")
+
+    def join_ms(out):
+        tm = out["timing"]
+        return (tm["total_time"] - tm["embedding_time"] - tm["search_time"]) * 1e3
+
+    seq_s = [sec for _, sec, _ in runs["seq"]]
+    pipe_s = [sec for _, sec, _ in runs["piped"]]
+    piped = runs["piped"][0][0]
+    n_q = PIPE_B * n_batches
+    row = {
+        "phase": "pipelined", "cell": cell, "batch": PIPE_B, "n_batches": n_batches,
+        "max_in_flight": PIPE_IN_FLIGHT, "k": MAIN_K, "l_search": seq[0]["stats"]["L_search"],
+        "search_type": seq[0]["stats"]["search_type"], "passes": passes,
+        "qps_pipelined": n_q / min(pipe_s), "ms_per_batch_pipelined": min(pipe_s) / n_batches * 1e3,
+        "qps_search_many": n_q / min(seq_s), "ms_per_batch_search_many": min(seq_s) / n_batches * 1e3,
+        "pipelined_over_search_many": min(seq_s) / min(pipe_s),
+        "ms_per_batch_every_pass": {"pipelined": [x / n_batches * 1e3 for x in pipe_s],
+                                    "search_many": [x / n_batches * 1e3 for x in seq_s]},
+        "text_join_ms_median_search_many": float(np.median([join_ms(o) for o in seq])),
+        "text_join_ms_median_pipelined": float(np.median([join_ms(o) for o in piped])),
+        "fetch_ms_median_pipelined": float(np.median([o["stats"]["fetch_time"] for o in piped])) * 1e3,
+        "embed_ms_median_pipelined": float(np.median([o["timing"]["embedding_time"]
+                                                      for o in piped])) * 1e3,
+        "dispatch_host_ms_median_pipelined": float(np.median(dispatch_ms)),
+        "ids_equal_to_search_many": "ids and distances equal, every batch of every pass",
+        "launches_per_pass": seq_launches, "rounds_per_pass": rounds,
+        "dispatch_began_before_previous_done": sum(a for a, _ in pending),
+        "dispatch_returned_before_previous_done": sum(b for _, b in pending),
+        "dispatches_witnessed": len(pending), "witness_gated": witness_gate,
+    }
+    if profile_batches:
+        prof = profile_calls(
+            lambda: engine.search_pipelined(texts[:profile_batches], max_in_flight=PIPE_IN_FLIGHT,
+                                            **kw),
+            1, f"{cell} pipelined ({profile_batches} batches of {PIPE_B})")
+        row["profiled_batches"] = profile_batches
+        row["device_idle_share_pipelined"] = prof["device_idle_share"]
+        row["device_busy_ms_profiled_window"] = prof["device_busy_ms_per_batch"]
+        row["wall_ms_profiled_window"] = prof["wall_ms_per_batch"]
+        if prof.get("device_null_reason"):
+            row["device_null_reason"] = prof["device_null_reason"]
+    else:
+        row["device_idle_share_pipelined"] = None
+        row["device_null_reason"] = "not profiled: a window of this cell outlasts the row's time"
+    row["seconds"] = time.perf_counter() - t_row
+    row["card"] = smi
+    emit(row)
+    return row
+
+
 def phase_main(smi: str, base, pts, q, gt) -> dict:
     """The per-row int8 main path at the bench size, plus B1's and B4's
     times at the shapes that path hands them."""
@@ -1130,6 +1326,10 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
     })
 
     emit(profile_batch(engine, q))
+    emit({"phase": "pipelined", "cell": "flat-1M-int8", "check": "event_wait_releases_gil",
+          **event_wait_releases_gil(), "card": smi})
+    write_metadata(base, "bench_1m", MAIN_N)
+    pipelined_row(smi, engine, q, "flat-1M-int8", expect={"B1": "batches", "B4": "batches"})
 
     # kernel times at the main path's shapes (these launches are not
     # counted above: the counts were read before)
@@ -1367,6 +1567,9 @@ def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
             "launches_per_search_batch": {k: v / reps for k, v in launches.items()},
             "setup_seconds": setup_s, "search_type": stats["search_type"], "card": smi,
         })
+        write_metadata(base, f"packed_{n_pts}", n_pts)
+        pipelined_row(smi, engine, q, f"flat-{'1M' if n_pts == MAIN_N else '200k'}-packed",
+                      expect={kernel: "batches"})
         q_d = torch.as_tensor(q, device="cuda")
         rows[kernel] = {"launches": launches[kernel],
                         **packed_kernel_row(kernel, flat, q_d, plan, cut_kk=40, reps=20)}
@@ -1603,6 +1806,9 @@ def phase_main_vamana(smi: str, base, pts, q, gt) -> dict:
         profile_batch(engine, q, path="vamana-200k-rpq16", l_search=64,
                       watch=("adc_lookup_kernel",)), rounds / reps)
     emit(prof)
+    write_metadata(base, "vamana_200k", len(pts))
+    pipelined_row(smi, engine, q, "vamana-200k-default", expect={"B5": "rounds"}, l_search=64,
+                  passes=1, profile_batches=2)
     # B5 at the engine's real operands: one round's ids (the adjacency rows
     # of the first 1000 points, clamped as the traversal clamps them), the
     # engine's code table and residual operands: the by-id form the round
@@ -1869,19 +2075,96 @@ def phase_micro(smi: str, sets: dict) -> int:
 
 def write_metadata(base, name: str, n_rows: int) -> None:
     """A metadata table for collection `name` (one FAQ row per vector), so
-    results served over HTTP carry texts."""
+    results carry texts. The table of a size is written once under `base`
+    and copied to every collection of that size."""
     import numpy as np
     import pandas as pd
 
     from diskrag_tpu_torch.data import CollectionManager, get_text_hash
 
-    texts = [f"document {i}" for i in range(n_rows)]
-    pd.DataFrame({
-        "text": texts, "text_hash": [get_text_hash(t) for t in texts],
-        "vector_index": np.arange(n_rows, dtype=np.int64),
-        "metadata": [json.dumps({"type": "faq", "qa_id": f"q{i}", "question": t,
-                                 "answer": f"answer {i}"}) for i, t in enumerate(texts)],
-    }).to_parquet(CollectionManager(base).get_metadata_path(name), index=False)
+    table = base / ".metadata" / f"{n_rows}.parquet"
+    if not table.exists():
+        table.parent.mkdir(parents=True, exist_ok=True)
+        texts = [f"document {i}" for i in range(n_rows)]
+        pd.DataFrame({
+            "text": texts, "text_hash": [get_text_hash(t) for t in texts],
+            "vector_index": np.arange(n_rows, dtype=np.int64),
+            "metadata": [json.dumps({"type": "faq", "qa_id": f"q{i}", "question": t,
+                                     "answer": f"answer {i}"}) for i, t in enumerate(texts)],
+        }).to_parquet(table, index=False)
+    shutil.copyfile(table, CollectionManager(base).get_metadata_path(name))
+
+
+def concurrent_search_batches(state, name: str, n_requests: int = 8,
+                              queries_each: int = 16) -> dict:
+    """`n_requests` /search-batch requests to collection `name` on a socket
+    on 127.0.0.1, each of its own `queries_each` text queries: first one
+    after the other (each alone), then all at once, the launch counts set
+    to 0 before each and read after. Every concurrent response must carry
+    the ids and distances of the same request sent alone, both ways must
+    launch the same kernels, and a graph collection B5 once per traversal
+    round its responses report. Returns both wall times."""
+    import asyncio
+
+    import aiohttp
+    from aiohttp import web
+
+    from diskrag_tpu_torch.api import create_app
+
+    payloads = [{"collection": name, "top_k": 5,
+                 "queries": [f"concurrent request {j} query {i}" for i in range(queries_each)]}
+                for j in range(n_requests)]
+    got: dict = {}
+
+    async def exchange() -> None:
+        runner = web.AppRunner(create_app(state))
+        await runner.setup()
+        try:
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            url = f"http://127.0.0.1:{runner.addresses[0][1]}/search-batch"
+            async with aiohttp.ClientSession() as session:
+                async def post(payload):
+                    async with session.post(url, json=payload) as resp:
+                        return resp.status, await resp.json()
+
+                reset_counts()
+                t = time.perf_counter()
+                got["alone"] = [await post(p) for p in payloads]
+                got["alone_s"] = time.perf_counter() - t
+                got["alone_launches"] = read_counts()
+                reset_counts()
+                t = time.perf_counter()
+                got["together"] = await asyncio.gather(*(post(p) for p in payloads))
+                got["together_s"] = time.perf_counter() - t
+                got["together_launches"] = read_counts()
+        finally:
+            await runner.cleanup()
+
+    asyncio.run(exchange())
+    rounds = 0
+    for j, ((st_a, alone), (st_t, together)) in enumerate(zip(got["alone"], got["together"])):
+        require(st_a == st_t == 200, f"{name}: request {j} answered {st_a} alone, {st_t} at once")
+        for body in (alone, together):
+            require(len(body["results"]) == queries_each, f"{name}: request {j} lost results")
+        (ai, ad), (ti, td) = _result_lists(alone), _result_lists(together)
+        require(ai == ti and ad == td,
+                f"{name}: request {j} sent with the others differs from it sent alone")
+        require(alone["stats"].get("rounds") == together["stats"].get("rounds"),
+                f"{name}: request {j} took other rounds at once")
+        rounds += alone["stats"].get("rounds", 0)
+    kind = got["alone"][0][1]["stats"]["search_type"]
+    launches = got["alone_launches"]
+    others = {k: v for k, v in launches.items() if k != "B5"}
+    require(got["together_launches"] == launches and any(launches.values())
+            and (not rounds or (launches["B5"] == rounds and not any(others.values()))),
+            f"{name}: the requests launched {launches} alone, {got['together_launches']} at "
+            f"once ({rounds} rounds)")
+    return {"collection": name, "search_type": kind, "requests": n_requests,
+            "queries_each": queries_each, "ids": "each concurrent response equal to it sent alone",
+            "wall_ms_one_after_another": got["alone_s"] * 1e3,
+            "wall_ms_all_at_once": got["together_s"] * 1e3,
+            "rounds_each_way": rounds, "launches_each_way": launches}
 
 
 def phase_api(smi: str, base, name: str, n_rows: int) -> None:
@@ -1962,6 +2245,14 @@ def phase_api(smi: str, base, name: str, n_rows: int) -> None:
         profile_batch(engine, qv, steps=1, path="api-vamana-200k (search_batch of the 64 "
                       "/search-batch queries, default width)", watch=("adc_lookup_kernel",)),
         rounds["/search-batch"]))
+    # concurrent requests: 8 /search-batch at once to this collection and to
+    # the 200k packed flat one (phase_main_packed built it)
+    flat_name = f"packed_{n_rows}"
+    write_metadata(base, flat_name, n_rows)
+    state.get_engine(flat_name)
+    for coll in (name, flat_name):
+        emit({"phase": "api", "step": "concurrent /search-batch",
+              **concurrent_search_batches(state, coll), "card": smi})
     emit({"phase": "api", "collection": name, "n": n_rows, "d": MAIN_D,
           "requests": [{"path": p, "status": st, "ms": ms} for p, st, _, ms in sent],
           "search_batch_queries": len(queries), "search_batch_ids": "equal to the engine's",
@@ -2176,6 +2467,9 @@ def phase_host_tier_200k(smi: str, base, name: str, pts, q, gt, auto_recall: flo
     emit(with_launches_per_round(
         profile_batch(engine, q, steps=2, path="host-tier-200k-pq", l_search=64,
                       watch=("adc_lookup_kernel",)), row["rounds_per_batch"]))
+    # the collection got its metadata table in phase_api
+    pipelined_row(smi, engine, q, "host-tier-200k-pq", expect={"B5": "rounds"}, l_search=64,
+                  passes=1, profile_batches=2)
 
     # one HTTP /search under host_tier (the collection got its metadata
     # table in phase_api)
@@ -2295,6 +2589,9 @@ def phase_ivf(smi: str, base, pts, q, gt) -> dict:
           "device_bytes_index": engine.ivf.device_bytes(),
           "peak_device_gb_build_and_load": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     emit(profile_batch(engine, q, steps=3, path=cell, l_search=32, watch=("gemm", "sort", "index")))
+    if n == MAIN_N:
+        write_metadata(base, name, n)
+        pipelined_row(smi, engine, q, cell, expect={}, l_search=32)
     del engine
     torch.cuda.empty_cache()
     shutil.rmtree(base / name, ignore_errors=True)
@@ -2708,7 +3005,7 @@ def phase_main_wave(smi: str, base, pts, q, gt) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_api_streaming(smi: str, base, name: str, n_rows: int) -> None:
+def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> None:
     """The default 200k vamana collection (with the metadata `phase_api`
     gave it) behind `create_app` with `serving_mode="streaming"` and the
     mock embedder, on a socket on 127.0.0.1: `/insert` of a few texts
@@ -2717,8 +3014,9 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int) -> None:
     deleted id is never served again. Then a fresh streaming engine adopts
     the inserted rows and takes four more through `insert_texts`,
     `flush_index` persists them, and a fresh engine in mode "auto" holds
-    them all and finds the four by search. Runs last: it grows the
-    collection."""
+    them all and finds the four by search. The streaming engine behind the
+    server also takes the pipelined row (the cell's queries, l_search 64)
+    after the requests. Runs last: it grows the collection."""
     import asyncio
 
     import aiohttp
@@ -2775,6 +3073,8 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int) -> None:
     asyncio.run(exchange())
     launches = read_counts()
     require(not any(launches.values()), f"the streaming requests launched {launches}")
+    pipelined_row(smi, state.get_engine(name), q, "api-streaming-200k (streaming engine)",
+                  expect={}, l_search=64)
     del state
     # deletions are session-local: a fresh streaming engine adopts the four
     # inserted rows past the index watermark; four more rows near existing
@@ -2996,6 +3296,8 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
                                    at64["rounds_per_batch"])
     if full:
         http.append(_sharded_http(base, name, "auto", engine, mesh_devices))
+        pipelined_row(smi, engine, q, f"{cell} auto", expect={}, l_search=64, n_batches=4,
+                      passes=1, profile_batches=0)
     emit({"phase": "main-sharded", "cell": cell, "serving_mode": "auto", "queries": len(q),
           "k": MAIN_K, "load_seconds": load_s, "diagnostic_passed": diagnostic, **at64,
           "recall_gate": SHARDED_AUTO_GATE if full else None,
@@ -3019,6 +3321,10 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
     require(not any(flat["launches"].values()), f"sharded_flat launched {flat['launches']}")
     if full:
         http.append(_sharded_http(base, name, "sharded_flat", engine, mesh_devices))
+        # the one served path whose device time a batch outlasts the host's
+        # embedding, upload and dispatch: the overlap witness is gated here
+        pipelined_row(smi, engine, q, f"{cell} sharded_flat", expect={}, n_batches=4,
+                      witness_gate=True, profile_batches=2)
     v16, norms, gids, _ = engine.sharded_flat
     flat_bytes = _placed_bytes(v16, norms, gids)
     del engine, v16, norms, gids
@@ -3312,7 +3618,7 @@ def main() -> int:
             row["launches_main_streaming_merges"] = streaming["launches"][kid]
             row["launches_per_streaming_merge"] = streaming["launches"][kid] // streaming["n_merges"]
         phase_main_wave(dev["smi"], base, *sets[CMP_N])
-        phase_api_streaming(dev["smi"], base, "vamana_200k", CMP_N)
+        phase_api_streaming(dev["smi"], base, "vamana_200k", CMP_N, sets[CMP_N][1])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

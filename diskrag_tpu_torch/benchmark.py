@@ -2,9 +2,9 @@
 dataset (numpy, byte-identical to the JAX package's), recall@k, an exact
 tiled ground-truth oracle in PyTorch, the graph sweeps (`sweep_exact`,
 `sweep_pq`, `sweep_iq`), the host tier's (`sweep_host_tier`), the
-flat-index sweep (`sweep_flat`, `adaptive_flat_point`) and the IVF sweep
-(`sweep_ivf`) with their timing helper. A test, smoke and
-measurement tool, not on the search path.
+flat-index sweep (`sweep_flat`, `adaptive_flat_point`), the IVF sweep
+(`sweep_ivf`) with their timing helper, and `best_qps_at_recall`. A test,
+smoke and measurement tool, not on the search path.
 """
 
 from __future__ import annotations
@@ -361,3 +361,9 @@ def sweep_ivf(
         points.append(SweepPoint(p, recall_at_k(ids.cpu().numpy(), gt, k), len(queries) / dt,
                                  dt / len(queries) * 1e3, f"ivf-{tile_precision}"))
     return points, (build_cold_s, build_s)
+
+
+def best_qps_at_recall(points: list[SweepPoint], min_recall: float) -> SweepPoint | None:
+    """The fastest sweep point whose recall reaches `min_recall`, or None."""
+    ok = [p for p in points if p.recall >= min_recall]
+    return max(ok, key=lambda p: p.qps) if ok else None

@@ -41,9 +41,18 @@ each shard's graph and a compressed copy (pq, iq or bf16) on the devices
 and reranks on the host against the record file ("sharded_host_tier").
 A mesh that does not fit the shard count, and a sharded_flat request on an
 index that is not sharded, raise `ServingConfigError`.
-Results come back to the host with one `.cpu()` per output per batch;
-`search_pipelined` of the JAX package (it hides a remote device's fetch
-latency) is not ported.
+
+`search_batch` is `_prep_queries` (the queries go up through a pinned
+buffer, without waiting) -> `_dispatch_search` (every device operation of
+the batch enqueued, then its results packed into one int32 [B, 2k + 2]
+tensor: ids, the f32 distances' bits, the summed expansion counter and the
+rounds executed, copied into a pinned host buffer of its own behind one
+CUDA event) -> `_finish_search` (waits on that event, decodes, takes the
+sqrt for L2, counts the stats). `search_pipelined` runs the same three
+steps over a stream of text batches: the main thread embeds and
+dispatches batch i + 1 while worker threads wait on, decode and join the
+texts of earlier batches; the workers launch nothing on the device.
+Searches in streaming mode do not take the mutation lock, in either call.
 """
 
 from __future__ import annotations
@@ -68,6 +77,52 @@ logger = logging.getLogger(__name__)
 def _host(x) -> np.ndarray:
     """A device tensor or an array as a host numpy array."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _pack(dists: torch.Tensor, ids: torch.Tensor, n_expanded: Optional[torch.Tensor],
+          n_steps: Optional[torch.Tensor]) -> torch.Tensor:
+    """One int32 [B, 2k + 2] tensor on the results' device: the ids, the
+    f32 distances bit-viewed as int32, then the summed `n_expanded` and
+    `n_steps` (0 and 0 without a graph traversal) in every row."""
+    b = ids.shape[0]
+    if n_expanded is None:
+        counters = torch.zeros((2,), dtype=torch.int32, device=ids.device)
+    else:
+        counters = torch.stack([torch.sum(n_expanded).to(torch.int32),
+                                n_steps.reshape(()).to(torch.int32)])
+    return torch.cat([
+        ids.to(torch.int32),
+        dists.to(torch.float32).contiguous().view(torch.int32),
+        counters[None, :].expand(b, 2),
+    ], dim=1)
+
+
+def _enqueue_packed(dists, ids, n_expanded=None, n_steps=None):
+    """Pack a batch's device results and start their one transfer to the
+    host without waiting: (host int32 [B, 2k + 2] tensor, event). On CUDA
+    the pack is copied with `non_blocking=True` into a pinned tensor
+    allocated for this batch alone (the caching host allocator does not
+    hand it out again before the copy's stream has passed it) and the event
+    is recorded on the current stream after the copy; read the tensor only
+    after `event.synchronize()`. On the CPU the pack is already on the host
+    and the event is None."""
+    packed = _pack(dists, ids, n_expanded, n_steps)
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(packed.device))
+    return host, event
+
+
+def _decode_packed(buf: np.ndarray, k: int):
+    """(dists float64 [B, k], ids int32 [B, k], summed n_expanded, n_steps)
+    of a packed [B, 2k + 2] host buffer; the arrays are copies, so the
+    buffer may be released."""
+    ids = np.array(buf[:, :k])
+    dists = np.ascontiguousarray(buf[:, k : 2 * k]).view(np.float32).astype(np.float64)
+    return dists, ids, int(buf[0, 2 * k]), int(buf[0, 2 * k + 1])
 
 
 class ServingConfigError(RuntimeError):
@@ -503,28 +558,75 @@ class SearchEngine:
         traversal on a PQ-enabled graph; a flat scan reads neither it nor
         `l_search`, an IVF index takes its probe count from `l_search`."""
         t0 = time.perf_counter()
-        q = torch.as_tensor(
-            np.asarray(query_vectors, np.float32), device=self.device
-        )
-        if q.ndim == 1:
-            q = q[None, :]
-        b = q.shape[0]
+        q, b, l_search = self._prep_queries(query_vectors, k, l_search)
+        disp = self._dispatch_search(q, b, k, l_search, use_pq_search)
+        return self._finish_search(disp, b=b, k=k, l_search=l_search, t0=t0)
+
+    def _prep_queries(self, query_vectors, k: int, l_search: Optional[int]):
+        """(queries [B, D] f32 on the device, B, l_search). On CUDA the
+        queries go up through a pinned host tensor with `non_blocking=True`:
+        a copy from pageable memory would hold the host until the stream's
+        earlier work is done."""
+        qv = np.ascontiguousarray(query_vectors, np.float32)
+        if qv.ndim == 1:
+            qv = qv[None, :]
+        if self.device.type == "cuda":
+            q = torch.from_numpy(qv).pin_memory().to(self.device, non_blocking=True)
+        else:
+            q = torch.as_tensor(qv, device=self.device)
         if l_search is None:
             # the tuned value of the build is the default floor; an
             # explicit l_search overrides it either way
             l_search = max(2 * k, 20, self.recommended_l)
-        l_search = max(l_search, k)
-        dists_t, ids_t, res, search_type, counts, extra = self._dispatch_branches(
+        return q, q.shape[0], max(l_search, k)
+
+    def _dispatch_search(self, q: torch.Tensor, b: int, k: int, l_search: int,
+                         use_pq_search: bool):
+        """The active mode's search, enqueued and not waited for:
+        ("packed", host buffer, k, event, meta) for device results (the
+        batch's one packed transfer is on its way, `_enqueue_packed`), or
+        ("host", (dists, ids), None, None, meta) for the host tier's numpy
+        results. meta holds the search type, `counts`, the extra stats and
+        whether a graph traversal ran (its rounds ride in the pack). Nothing
+        here waits on the device after `_dispatch_branches` returns."""
+        dists, ids, res, search_type, counts, extra = self._dispatch_branches(
             q, b, k, l_search, use_pq_search
         )
+        meta = {"search_type": search_type, "counts": counts, "extra": extra,
+                "graph": res is not None}
+        if not isinstance(ids, torch.Tensor):
+            return "host", (dists, ids), None, None, meta
+        # every id served is a collection row (the text join reads it), so
+        # the collection's size bounds them: the pack carries them as int32
+        if self.info.num_vectors >= 2**31:
+            raise OverflowError(
+                f"{self.info.num_vectors} vectors: result ids do not fit the int32 pack")
+        if res is None:
+            buf, event = _enqueue_packed(dists, ids)
+        else:
+            buf, event = _enqueue_packed(dists, ids, res.n_expanded, res.n_steps)
+        return "packed", buf, ids.shape[1], event, meta
+
+    def _finish_search(self, disp, *, b: int, k: int, l_search: int,
+                       t0: float) -> tuple[np.ndarray, np.ndarray, dict]:
+        """Drain a `_dispatch_search` result: wait on the batch's event
+        (which releases the GIL), decode, sqrt for L2, count the stats under
+        the engine lock. Touches nothing on the device, so
+        `search_pipelined` runs it on worker threads."""
+        kind, payload, kk, event, meta = disp
         t_fetch = time.perf_counter()
-        ids = np.asarray(ids_t.cpu() if isinstance(ids_t, torch.Tensor) else ids_t)
-        dists = np.asarray(
-            dists_t.cpu() if isinstance(dists_t, torch.Tensor) else dists_t
-        ).astype(np.float64)
-        counter = 0 if res is None else int(torch.sum(res.n_expanded))
+        n_steps = 0
+        if kind == "packed":
+            if event is not None:
+                event.synchronize()
+            dists, ids, counter, n_steps = _decode_packed(payload.numpy(), kk)
+        else:
+            dists, ids = payload
+            ids = np.asarray(ids)
+            dists = np.asarray(dists, np.float64)
+            counter = 0
         fetch_time = time.perf_counter() - t_fetch
-        nodes_visited, n_exact, n_pq = counts(counter)
+        nodes_visited, n_exact, n_pq = meta["counts"](counter)
         if self.meta.get("distance_metric", "l2") == "l2":
             dists = np.sqrt(np.maximum(dists, 0.0))  # reference returns sqrt
         dt = time.perf_counter() - t0
@@ -536,16 +638,16 @@ class SearchEngine:
             total_pq_computations=n_pq,
         )
         stats = {
-            "search_type": search_type,
+            "search_type": meta["search_type"],
             "nodes_visited": nodes_visited,
             "search_time": dt,
             "fetch_time": fetch_time,
             "k": k,
             "L_search": l_search,
         }
-        if res is not None:
-            stats["rounds"] = int(res.n_steps)  # traversal rounds executed
-        stats.update(extra)
+        if meta["graph"]:
+            stats["rounds"] = n_steps  # traversal rounds executed
+        stats.update(meta["extra"])
         return dists, ids, stats
 
     def _dispatch_branches(self, q: torch.Tensor, b: int, k: int, l_search: int,
@@ -708,6 +810,73 @@ class SearchEngine:
             },
             "stats": stats,
         }
+
+    def search_pipelined(
+        self,
+        query_batches: list[list[str]],
+        k: int = 5,
+        embedding_fn: Optional[Callable[[str], np.ndarray]] = None,
+        l_search: Optional[int] = None,
+        use_pq_search: bool = True,
+        max_in_flight: int = 8,
+    ) -> list[dict[str, Any]]:
+        """Sustained-throughput serving over a stream of query batches:
+        one `search_many`-shaped dict per batch, in order.
+
+        The main thread embeds, prepares and dispatches batch i + 1 before
+        batch i is drained; a pool of `max_in_flight` worker threads waits
+        on each batch's event, decodes its packed result and joins its
+        texts, and the oldest batch is drained once more than
+        `max_in_flight` are pending. The workers launch nothing on the
+        device (a worker's current stream is its own thread's default, not
+        the one the main thread enqueued on, so a device call there would
+        race or serialise). Graph
+        modes wait on the device once a traversal round inside the
+        dispatch, so there the overlap is only the drain and the join.
+        An error in a dispatch raises here; one in a worker re-raises from
+        its future."""
+        import concurrent.futures as cf
+        from collections import deque
+
+        if embedding_fn is None:
+            raise ValueError("embedding_fn is required to embed the queries")
+        if not query_batches or any(not qs for qs in query_batches):
+            raise ValueError("query_batches must be non-empty batches")
+        out: list[Any] = [None] * len(query_batches)
+
+        def finish_and_join(disp, b, ls, t_start, t_emb):
+            dists, ids, stats = self._finish_search(disp, b=b, k=k, l_search=ls, t0=t_start)
+            return {
+                "results": self._attach_texts_batch(ids, dists),
+                "timing": {
+                    "embedding_time": t_emb,
+                    "search_time": stats["search_time"],
+                    "total_time": time.perf_counter() - t_start,
+                },
+                "stats": stats,
+            }
+
+        pending: deque = deque()
+        with cf.ThreadPoolExecutor(max_workers=max(1, max_in_flight)) as ex:
+            for bi, texts in enumerate(query_batches):
+                t_start = time.perf_counter()
+                qv = np.stack([np.asarray(embedding_fn(t), np.float32) for t in texts])
+                t_emb = time.perf_counter() - t_start
+                if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
+                    raise ValueError(
+                        f"query vector dimension mismatch: expected "
+                        f"{self.info.dimension}, got {qv.shape}"
+                    )
+                q, b, ls = self._prep_queries(qv, k, l_search)
+                disp = self._dispatch_search(q, b, k, ls, use_pq_search)
+                pending.append((bi, ex.submit(finish_and_join, disp, b, ls, t_start, t_emb)))
+                while len(pending) > max_in_flight:
+                    bj, fut = pending.popleft()
+                    out[bj] = fut.result()
+            while pending:
+                bj, fut = pending.popleft()
+                out[bj] = fut.result()
+        return out
 
     def search_with_debug(
         self,
@@ -925,6 +1094,10 @@ class SearchEngine:
             save_index(self.manager.get_index_dir(self.collection_name), exact,
                        meta_extra=meta_extra, **pq_kwargs)
         return {"n_points": n, "n_buffered_before": n_buf}
+
+    def _attach_texts(self, ids: np.ndarray, dists: np.ndarray) -> list[dict]:
+        """The text join of one result row."""
+        return self._attach_texts_batch(np.asarray(ids)[None, :], np.asarray(dists)[None, :])[0]
 
     def _attach_texts_batch(
         self, ids: np.ndarray, dists: np.ndarray
