@@ -11,8 +11,9 @@ on wgmma, holds each kernel against its plain PyTorch version on the card
 blocks, on ties with signed zeros and -inf rows, at NB = 32768 and with kk >
 NB; B2 / B3 / B6 at row widths 16 to 192 bytes, 1 to 4096 queries and more
 than 256 segments, B6 also against B3; B5 in both its forms, gathered and by
-id with and without the residual terms, both ways of reading the tables),
-then serves the flat index end to end at
+id with and without the residual terms, both ways of reading the tables;
+by id also at the capacity ladder's rpq64 round over code tables of 1M and
+10M rows), then serves the flat index end to end at
 the benchmark's sizes (1,000,000 x 128 and 200,000 x 128 vectors, 1000
 queries, k = 10)
 through `build_index_from_vectors` and `SearchEngine.search_batch` — with
@@ -37,7 +38,19 @@ graph, int8 rows, the f32 vectors in the packed record file read by the
 native reader, the rerank on the host; recall@10 gates 0.985 at L = 32 and
 0.99 at L = 48), the default 200k vamana collection in its residual-PQ
 mode (B5 by id once a round; recall within 0.01 of mode "auto"; one HTTP
-/search) and in bf16 mode. Phase `main-ivf` builds the IVF-Flat index
+/search) and in bf16 mode. Phase `main-host-tier-ladder` serves the JAX
+package's capacity ladder (`benchmarks/host_tier_multi.py`) at 1,000,000
+points through the port's modules: one R = 32 graph
+(`build_vamana_knn(degree_bound=32, knn_probe=8)`, B1 + B4 once a 4096-row
+block, each stage's seconds and peak device bytes) with the record file,
+then iq8, iq4c1024 and rpq64 trained in turn and swapped in
+(`persist.replace_pq_artifacts`), each served by
+`HostTierIndex.from_store(mode=...).search` at the JAX bench's widths, E =
+8 (recall@10 gated at the JAX package's 1M figures less 0.01; B5 launches
+equal to the rounds in the rpq64 rows, no kernel in the iq rows), and B5 by
+id held bit for bit at one rpq64 round's real operands (m = 64, 256
+candidates a query, 1024 cells), also lifted onto a 10,000,000-row code
+table. Phase `main-ivf` builds the IVF-Flat index
 through `build_index_from_vectors(index_type="ivf")` at 1,000,000 and
 200,000 points and serves it through `SearchEngine.search_batch` at
 n_probe 8 and 16 (recall@10 gated at the JAX package's v5e figures less
@@ -118,6 +131,10 @@ JAX package's 1M figure less 0.01), the same way; `python3 chip_smoke.py
 points in 4 shards (no recall gates, no HTTP request, no mesh-error case;
 the same graphs also traversed by an m = 16 residual PQ), and `--sharded-n
 1000000 --shards 1` does so over one graph of the whole set.
+`python3 chip_smoke.py --host-tier-n 10000000` runs the ladder phase alone
+at that many points (the IVF kNN backend above 2,000,000, 65,536 random
+entry points, a checkpoint directory under `build/`; iq8 and rpq64, gated
+at the JAX package's 10M figures less 0.01), the same way.
 """
 
 from __future__ import annotations
@@ -445,6 +462,13 @@ def b5_ids_row(tables, code_table, ids, aux: dict, reps: int = 50) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
+def _b5_compact(row: dict) -> dict:
+    """The keys of a `b5_ids_row` the kernels line carries."""
+    keys = ("b", "c", "m", "residual", "max_abs_err", "match", "ms", "timed_by", "plain_ms",
+            "replaced_ops_ms", "ms_launch_to_launch", "bound_ms", "bound_by")
+    return {k: row[k] for k in keys}
+
+
 # B1 int8 beyond the comparison set: (rows, D, B, NBs). D = 36 is zero-padded
 # to 48-byte rows; 960 and 1536 loop over 128-byte K boxes
 ROWSCAN_CASES = ((3001, 36, 37, (128, 512)), (50_017, 128, 1, (512,)),
@@ -498,10 +522,18 @@ def b5_row(tables, codes, reps: int = 50) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
-def phase_b5_kernels() -> None:
+# B5 by id at the capacity ladder's rpq64 round (`phase_host_tier_ladder`):
+# 1000 queries x E * R = 256 candidates at m = 64, 1024 coarse cells, over
+# code tables of 1M and 10M rows
+B5_LADDER_SHAPES = ((1000, 256, 64, 1_000_000), (1000, 256, 64, 10_000_000))
+B5_LADDER_CELLS = 1024
+
+
+def phase_b5_kernels() -> dict:
     """B5 against its plain version at `B5_SHAPES`: the gathered form,
     then the by-id form over a 200,000-row code table without and with the
-    residual operands (256 cells)."""
+    residual operands (256 cells); then by id at `B5_LADDER_SHAPES`, whose
+    rows it returns by table size."""
     import torch
 
     dev = torch.device("cuda", 0)
@@ -519,6 +551,22 @@ def phase_b5_kernels() -> None:
                "cell_tables": torch.rand((b, 256), generator=g, device=dev) * -50.0}
         for a in ({}, aux):
             emit({"phase": "kernels", "kernel": "B5", **b5_ids_row(tables, code_table, ids, a)})
+    ladder = {}
+    for b, c, m, n_rows in B5_LADDER_SHAPES:
+        tables = torch.rand((b, m, 256), generator=g, device=dev) * 40.0
+        code_table = torch.randint(0, 256, (n_rows, m), generator=g, device=dev, dtype=torch.uint8)
+        ids = torch.randint(0, n_rows, (b, c), generator=g, device=dev)
+        aux = {"point_cell": torch.randint(0, B5_LADDER_CELLS, (n_rows,), generator=g, device=dev,
+                                           dtype=torch.int32),
+               "point_bias": torch.rand((n_rows,), generator=g, device=dev) * 100.0,
+               "cell_tables": torch.rand((b, B5_LADDER_CELLS), generator=g, device=dev) * -50.0}
+        row = {"rows": n_rows, "cells": B5_LADDER_CELLS,
+               **_b5_compact(b5_ids_row(tables, code_table, ids, aux))}
+        emit({"phase": "kernels", "kernel": "B5", "shape": "capacity ladder rpq64 round", **row})
+        ladder[f"random_{n_rows // 1_000_000}m_rows"] = row
+        del code_table, aux
+    torch.cuda.empty_cache()
+    return ladder
 
 
 def b4_timed(vals, kk: int) -> dict:
@@ -1077,6 +1125,17 @@ def serve(base, name: str, pts, precision: str | None):
     require(bool(engine.diagnostics and engine.diagnostics["passed"]),
             f"startup diagnostic failed: {engine.diagnostics}")
     return engine, meta
+
+
+def build_peak_bytes(*stage_dicts) -> int:
+    """The peak device bytes of a build and what followed it: the largest
+    of its stages' peaks (`build_vamana_knn` records each stage's and
+    resets the allocator's peak at each stage's start) and the allocator's
+    peak since the last of those resets."""
+    import torch
+
+    peaks = [v for st in stage_dicts for v in st.get("peak_device_bytes", {}).values()]
+    return max([*peaks, torch.cuda.max_memory_allocated()])
 
 
 def reset_counts() -> None:
@@ -1696,7 +1755,7 @@ def phase_main_graph(smi: str, pts, q, gt) -> dict:
           "alpha": 1.2, "build_seconds": build_s, "stage_seconds": stages,
           "launches": build_launches, "mean_degree": float(index.degrees().float().mean()),
           "entry_points": int(index.entry_points.shape[0]),
-          "peak_device_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+          "peak_device_gb": build_peak_bytes(stages) / 2**30, "card": smi})
 
     points = sweep_exact(index, q, gt, k=MAIN_K, widths=(16,), expand_widths=(8, 12),
                          min_seconds=0.5)
@@ -2428,6 +2487,257 @@ def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
     return {"build_launches": build_launches}
 
 
+# The JAX package's capacity ladder (`benchmarks/host_tier_multi.py`): each
+# quantizer's traversal mode and search widths (its QUANT_SPECS), served at
+# E = 8 over one R = 32 graph built with the record file
+LADDER_SPECS = {"iq8": ("iq", (24, 32, 48)), "iq4c1024": ("iq", (32, 48, 64, 96)),
+                "rpq64": ("pq", (48, 64, 96, 128))}
+# recall@10 the JAX package recorded on the same data
+# (`benchmarks/last_host_tier_multi_{1000000,10000000}.json`, E = 8): the
+# gates are these less 0.01; at 10M the ladder serves iq8 and rpq64, as there
+LADDER_JAX_RECALL = {
+    1_000_000: {"iq8": {24: 0.9891, 32: 0.9916, 48: 0.9940},
+                "iq4c1024": {32: 0.7971, 48: 0.8759, 64: 0.9184, 96: 0.9631},
+                "rpq64": {48: 0.9899, 64: 0.9941, 96: 0.9965, 128: 0.9980}},
+    10_000_000: {"iq8": {24: 0.9765, 32: 0.9822, 48: 0.9862},
+                 "rpq64": {48: 0.9634, 64: 0.9787, 96: 0.9887, 128: 0.9919}},
+}
+LADDER_TEN_M = 10_000_000
+
+
+def _ladder_quantizer(tag: str):
+    """An unfitted quantizer of the ladder, as `host_tier_multi.py::
+    train_quantizer` makes it."""
+    from diskrag_tpu_torch.pq import IntQuantizer, ResidualPQ
+
+    if tag == "iq8":
+        return IntQuantizer(bits=8, device="cuda")
+    if tag == "iq4c1024":
+        return IntQuantizer(bits=4, n_cells=1024, device="cuda")
+    return ResidualPQ(n_subvectors=int(tag[3:]), device="cuda")
+
+
+@contextlib.contextmanager
+def _captured_b5_round(round_index: int):
+    """The operands of the `round_index`-th call of B5 by id made inside
+    the block (a traversal round's real tables, code table, ids and
+    residual operands), kept as the wrapper received them."""
+    from diskrag_tpu_torch.ops import pq_scan
+
+    real = pq_scan.adc_lookup_ids_kernel
+    got: dict = {}
+    calls = [0]
+
+    def keep(tables, code_table, ids, **aux):
+        if calls[0] == round_index:
+            got.update(tables=tables, code_table=code_table, ids=ids.clone(), aux=dict(aux))
+        calls[0] += 1
+        return real(tables, code_table, ids, **aux)
+
+    pq_scan.adc_lookup_ids_kernel = keep
+    try:
+        yield got
+    finally:
+        pq_scan.adc_lookup_ids_kernel = real
+
+
+def ladder_b5_rows(op: dict, smi: str, cell: str) -> dict:
+    """B5 by id at one rpq64 round's real operands, bit for bit against its
+    plain version and timed beside its bound; below 10M rows also the same
+    round lifted onto a code table of 10M rows (the round's table repeated,
+    each id moved to a random copy of its row): the plain version's values,
+    and the values of the round at its own table, bit for bit."""
+    import torch
+
+    from diskrag_tpu_torch.ops import pq_scan
+
+    tables, codes, ids, aux = op["tables"], op["code_table"], op["ids"], op["aux"]
+    n = codes.shape[0]
+    out = {"real_round": {"rows": n, **_b5_compact(b5_ids_row(tables, codes, ids, aux))}}
+    emit({"phase": "main-host-tier-ladder", "cell": cell, "kernel": "B5", "operands": "one rpq64 round",
+          **out["real_round"], "card": smi})
+    if n < LADDER_TEN_M and LADDER_TEN_M % n == 0:
+        reps = LADDER_TEN_M // n
+        g = torch.Generator(device=ids.device).manual_seed(7)
+        ids10 = ids + n * torch.randint(0, reps, tuple(ids.shape), generator=g, device=ids.device)
+        codes10 = codes.repeat(reps, 1)
+        aux10 = {"point_cell": aux["point_cell"].repeat(reps),
+                 "point_bias": aux["point_bias"].repeat(reps), "cell_tables": aux["cell_tables"]}
+        same = torch.equal(pq_scan.adc_lookup_ids_kernel(tables, codes10, ids10, **aux10),
+                           pq_scan.adc_lookup_ids_kernel(tables, codes, ids, **aux))
+        require(same, f"B5 over a {LADDER_TEN_M}-row table differs from the same rows at {n}")
+        out["lifted_10m"] = {"rows": LADDER_TEN_M, "max_id": int(ids10.max()),
+                             "equal_to_own_table": True,
+                             **_b5_compact(b5_ids_row(tables, codes10, ids10, aux10))}
+        emit({"phase": "main-host-tier-ladder", "cell": cell, "kernel": "B5",
+              "operands": "one rpq64 round lifted onto a 10M-row code table",
+              **out["lifted_10m"], "card": smi})
+        del codes10, aux10, ids10
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_host_tier_ladder(smi: str, base, pts, q, gt) -> dict:
+    """Cell host-tier-1M-R32-ladder (at 10M, host-tier-10M): the JAX
+    package's capacity ladder (`benchmarks/host_tier_multi.py`) through the
+    port's own modules. `build_vamana_knn(degree_bound=32, knn_probe=8)`
+    (the flat kNN backend, B1 + B4, up to 2M points; above, the IVF
+    backend with 65,536 random entry points and no kernel), with a
+    checkpoint directory; `save_index(write_compat=True)`; then each
+    quantizer trained, swapped in (`persist.replace_pq_artifacts`: the pq
+    family's meta keys replaced, not merged), opened by
+    `HostTierIndex.from_store(mode=...)` and searched on the whole query
+    batch at its widths, E = 8, 3 timed calls after a warm-up (the JAX
+    bench's repeats; the fastest is reported, as there), with
+    the launch counts set to 0 just before and read just after: B5 once a
+    round in the rpq64 rows, no kernel in the iq rows. Recall@10 is gated
+    at the JAX package's figure less 0.01 where it recorded one at this N.
+    B5 is held at one rpq64 round's real operands (`ladder_b5_rows`)."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+    from diskrag_tpu_torch.index.host_tier import HostTierIndex
+    from diskrag_tpu_torch.index.persist import replace_pq_artifacts, save_index
+
+    n = len(pts)
+    reps = 3
+    recorded = LADDER_JAX_RECALL.get(n, {})
+    quantizers = tuple(recorded) or tuple(LADDER_SPECS)
+    cell = "host-tier-1M-R32-ladder" if n == 1_000_000 else (
+        "host-tier-10M" if n == LADDER_TEN_M else f"host-tier-{n}-R32-ladder")
+    t_phase = time.perf_counter()
+    index_dir = base / "host_tier_ladder" / "index"
+    ckpt = ROOT / "build" / "chip_smoke" / f"ladder_checkpoint_{n}"
+    index_dir.mkdir(parents=True, exist_ok=True)
+    seconds: dict = {}
+    stages: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    index = build_vamana_knn(pts, degree_bound=32, knn_probe=8, seed=0, device="cuda",
+                             checkpoint_dir=str(ckpt), stage_seconds=stages)
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - t0
+    build_launches = read_counts()
+    if n <= 2_000_000:
+        require(build_launches["B1"] == build_launches["B4"] == -(-n // 4096),
+                f"the R = 32 build did not go through B1 and B4 once a block: {build_launches}")
+    else:
+        require(build_launches["B1"] == build_launches["B4"] == 0,
+                f"the IVF-backend R = 32 build launched B1 / B4: {build_launches}")
+    n_entry = 0 if index.entry_points is None else int(index.entry_points.shape[0])
+    t0 = time.perf_counter()
+    save_index(index_dir, index, write_compat=True, host_vectors=pts)
+    seconds["save"] = time.perf_counter() - t0
+    del index
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    record_bytes = (index_dir / "index.dat").stat().st_size
+    peaks = stages.pop("peak_device_bytes", {})
+    emit({"phase": "main-host-tier-ladder", "cell": cell, "step": "build", "n": n,
+          "d": pts.shape[1], "degree_bound": 32, "knn_probe": 8,
+          "knn_backend": "flat" if n <= 2_000_000 else "ivf", "entry_points": n_entry,
+          "seconds": seconds, "stage_seconds": stages, "peak_device_bytes_by_stage": peaks,
+          "launches": build_launches, "record_file_bytes": record_bytes,
+          "host_f32_bytes": int(pts.nbytes), "card": smi})
+
+    rows, quant, b5_rows = [], {}, None
+    for tag in quantizers:
+        mode, widths = LADDER_SPECS[tag]
+        qs: dict = {}
+        pq = _ladder_quantizer(tag)
+        t0 = time.perf_counter()
+        pq.fit(pts, seed=0)
+        torch.cuda.synchronize()
+        qs["fit_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc = pq.encode(pts)
+        torch.cuda.synchronize()
+        qs["encode_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if mode == "pq":
+            meta = replace_pq_artifacts(index_dir, pq, enc[0], coarse_ids=enc[1])
+        else:
+            meta = replace_pq_artifacts(index_dir, pq, enc)
+        qs["swap_seconds"] = time.perf_counter() - t0
+        stale = sorted(set(meta) & ({"n_subvectors", "pq_centroids", "pq_n_coarse"} if mode == "iq"
+                                    else {"iq_row_width", "iq_n_cells"}))
+        require(not stale and (index_dir / "pq_aux.npz").exists() == (mode == "pq"),
+                f"{tag}: stale meta keys {stale} after the swap")
+        del pq, enc
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ht = HostTierIndex.from_store(index_dir, mode=mode, device="cuda")
+        qs["open_seconds"] = time.perf_counter() - t0
+        require(ht.mode == mode and ht.reader.is_native,
+                f"{tag}: served mode {ht.mode}, native reader {ht.reader.is_native}")
+        # the payload a point, as the JAX bench counts it: the int row's
+        # own width (not the 256-byte gather pad); the codes and the
+        # residual PQ's cell id and bias
+        bpp = int(ht.pq.row_width) if mode == "iq" else (
+            int(ht.codes.shape[1]) + (8 if ht.pq_cells is not None else 0))
+        qs.update(device_bytes_tier=ht.device_bytes(),
+                  device_allocated_bytes=torch.cuda.memory_allocated(),
+                  bytes_per_point=bpp, meta_kind=meta["pq_kind"])
+        quant[tag] = qs
+        for width in widths:
+            kw = dict(search_width=width, k=MAIN_K, expand_width=8)
+            ht.search(q, **kw)
+            reset_counts()
+            times, rounds, out = [], 0, None
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                dists, ids, st = ht.search(q, **kw)
+                times.append((time.perf_counter() - t0) * 1e3)
+                rounds += st["rounds"]
+                if out is None or times[-1] == min(times):
+                    out = st
+            launches = read_counts()
+            require(ids.shape == (len(q), MAIN_K) and bool(np.isfinite(dists).all())
+                    and bool((np.diff(dists, axis=1) >= 0).all()),
+                    f"{tag} L={width}: distances not finite and ascending")
+            others = {k: v for k, v in launches.items() if k != "B5"}
+            if mode == "pq":
+                require(launches["B5"] == rounds > 0 and not any(others.values()),
+                        f"{tag} L={width}: expected {rounds} B5 launches (one a round), got {launches}")
+            else:
+                require(not any(launches.values()), f"{tag} L={width}: the iq traversal launched {launches}")
+            rec = recall_at_k(ids, gt, MAIN_K)
+            row = {"quantizer": tag, "mode": mode, "R": 32, "L": width, "E": 8,
+                   "bytes_per_point": bpp, "recall_at_10": rec,
+                   "ms_per_batch_min": min(times), "ms_per_batch_median": float(np.median(times)),
+                   "ms_per_batch": times, "qps": len(q) * 1e3 / min(times),
+                   "stage_ms": out["stage_ms"], "rounds_per_batch": rounds / reps,
+                   "nodes_visited": out["nodes_visited"],
+                   "host_vectors_fetched": out["host_vectors_fetched"], "launches": launches,
+                   "device_bytes_tier": qs["device_bytes_tier"], "host_f32_bytes": int(pts.nbytes)}
+            if tag in recorded:
+                gate = round(recorded[tag][width] - 0.01, 4)
+                require(rec >= gate, f"{cell} {tag} recall@10 {rec} < {gate} at L={width}")
+                row.update(recall_gate=gate, jax_package_recorded=recorded[tag][width])
+            rows.append(row)
+            emit({"phase": "main-host-tier-ladder", "cell": cell, **row, "card": smi})
+        if mode == "pq":
+            # one round's real operands (the third round of a search at the
+            # narrowest width: 1000 queries x E * R = 256 candidates)
+            with _captured_b5_round(2) as op:
+                ht.search(q, search_width=widths[0], k=MAIN_K, expand_width=8)
+            require(tuple(op["ids"].shape) == (len(q), 8 * 32), f"captured round {op['ids'].shape}")
+            b5_rows = ladder_b5_rows(op, smi, cell)
+            del op
+        del ht
+        torch.cuda.empty_cache()
+    shutil.rmtree(index_dir.parent, ignore_errors=True)
+    pq_rows = [r for r in rows if r["mode"] == "pq"]
+    summary = {"phase": "main-host-tier-ladder", "cell": cell, "n": n, "quantizers": quant,
+               "points": len(rows), "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(summary)
+    return {"build_launches": {"B1": build_launches["B1"], "B4": build_launches["B4"]},
+            "b5": b5_rows, "b5_launches": sum(r["launches"]["B5"] for r in pq_rows),
+            "rounds": int(round(sum(r["rounds_per_batch"] * reps for r in pq_rows)))}
+
+
 def phase_host_tier_200k(smi: str, base, name: str, pts, q, gt, auto_recall: float) -> dict:
     """Cells host-tier-200k-pq and host-tier-200k-bf16 over the default
     vamana collection (`phase_main_vamana` built it with its record file):
@@ -2673,7 +2983,8 @@ def phase_vamana_ivfknn(smi: str, pts, q, gt) -> dict:
     require(rec >= 0.985, f"ivf-backend graph exact recall@10 L=16/E=8 {rec} < 0.985")
     emit({"phase": "main-graph-ivfknn", "cell": "vamana-1M-ivfknn", "n": n, "d": pts.shape[1],
           "degree_bound": 48, "knn_k": knn_k, "build_seconds": build_s, "stage_seconds": stages,
-          "launches": launches, "peak_device_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": launches, "peak_device_gb": build_peak_bytes(stages) / 2**30,
+          "peak_device_bytes_by_stage": stages.pop("peak_device_bytes"),
           "knn_table_recall_at_knn_k": table_recall, "knn_table_recall_at_10": table_recall_10,
           "table_sample_rows": 1000, "exact_L16_E8": {"recall_at_10": rec, "qps": points[0].qps,
                                                       "rounds_per_pass": points[0].rounds},
@@ -3248,7 +3559,7 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
                                     write_compat=True, device="cuda")
     build_s = time.perf_counter() - t0
     launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = build_peak_bytes(*(b["stage_seconds"] for b in meta["build_shards"])) / 1e9
     expect = -(-per // 4096)  # one B1 + one B4 per 4096-row block of a shard's kNN pass
     shards = [{"shard": b["shard"], "rows": b["rows"], "seconds": b["seconds"],
                "stage_seconds": b["stage_seconds"],
@@ -3529,12 +3840,24 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
     dev = phase_device()
-    if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"], ["--sharded-n"]):
+    if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"], ["--sharded-n"], ["--host-tier-n"]):
         from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
         n = int(sys.argv[2])
         if sys.argv[1] == "--streaming-n":
             phase_main_streaming(dev["smi"], base_n=n)
+        elif sys.argv[1] == "--host-tier-n":
+            t = time.perf_counter()
+            pts, q = make_dataset(n, MAIN_D, MAIN_B, seed=42)
+            gt = ground_truth(pts, q, MAIN_K, device="cuda")
+            emit({"phase": "data", "n": n, "d": MAIN_D, "queries": MAIN_B,
+                  "seconds_with_ground_truth": time.perf_counter() - t})
+            base = ROOT / "build" / "chip_smoke" / "collections"
+            shutil.rmtree(base, ignore_errors=True)
+            try:
+                phase_host_tier_ladder(dev["smi"], base, pts, q, gt)
+            finally:
+                shutil.rmtree(base, ignore_errors=True)
         elif sys.argv[1] == "--sharded-n":
             pts, q = make_dataset(n, MAIN_D, MAIN_B, seed=42)
             base = ROOT / "build" / "chip_smoke" / "collections"
@@ -3554,7 +3877,7 @@ def main() -> int:
         return 0
     phase_kernels()
     phase_packed_kernels()
-    phase_b5_kernels()
+    b5_ladder_shapes = phase_b5_kernels()
 
     from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
@@ -3577,6 +3900,9 @@ def main() -> int:
         ht1m = phase_host_tier_1m(dev["smi"], base, *sets[MAIN_N])
         for row in out["kernels"][:2]:  # B1, B4: their launches in the 1M host-tier build
             row["launches_host_tier_1m_build"] = ht1m["build_launches"][row["name"][:2]]
+        ladder = phase_host_tier_ladder(dev["smi"], base, *sets[MAIN_N])
+        for row in out["kernels"][:2]:  # B1, B4: their launches in the ladder's R = 32 build
+            row["launches_host_tier_ladder_build"] = ladder["build_launches"][row["name"][:2]]
         phase_ivf(dev["smi"], base, *sets[MAIN_N])
         phase_vamana_ivfknn(dev["smi"], *sets[MAIN_N])
         t = time.perf_counter()
@@ -3608,6 +3934,9 @@ def main() -> int:
         b5_row["launches_host_tier_200k_pq"] = ht200["b5_launches"]
         b5_row["rounds_host_tier_200k_pq"] = ht200["rounds"]
         b5_row["launches_sharded_host_tier_pq"] = sharded["b5_launches"]
+        b5_row["ladder_shape"] = {**b5_ladder_shapes, **ladder["b5"]}
+        b5_row["launches_host_tier_ladder_rpq64"] = ladder["b5_launches"]
+        b5_row["rounds_host_tier_ladder_rpq64"] = ladder["rounds"]
         b5_row["rounds_sharded_host_tier_pq"] = sharded["rounds"]
         phase_ivf(dev["smi"], base, *sets[CMP_N])
         phase_ivfknn_resume(dev["smi"], sets[CMP_N][0])

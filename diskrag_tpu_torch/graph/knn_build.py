@@ -462,7 +462,10 @@ def build_vamana_knn(
     and reads the same files. The flat backend ignores it. `stage_seconds`,
     when given, receives the seconds spent per stage (entry_points, knn,
     prune, reverse, merge; with ivf also `knn_ivf_build`, the IVF's own
-    stages), each closed by a device synchronisation."""
+    stages), each closed by a device synchronisation; on a CUDA device also
+    `peak_device_bytes`, each stage's peak of allocated device bytes (the
+    allocator's peak statistic is reset at every stage's start, so a
+    caller's own reading after the build covers the last stage only)."""
     dev = resolve_device(device)
     host_vectors = None
     if isinstance(vectors, torch.Tensor):
@@ -489,16 +492,27 @@ def build_vamana_knn(
     if knn_backend not in ("flat", "ivf"):
         raise ValueError(f"unknown knn_backend: {knn_backend}")
 
+    # on the card, the peak device bytes of each stage, beside its seconds:
+    # the allocator's peak is reset at every stage's start
+    peaks = stage_seconds is not None and dev.type == "cuda"
+    if peaks:
+        stage_seconds["peak_device_bytes"] = {}
+
     def lap(stage: str, t_start: float) -> float:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         now = time.perf_counter()
         if stage_seconds is not None:
             stage_seconds[stage] = now - t_start
+        if peaks:
+            stage_seconds["peak_device_bytes"][stage] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         if progress:
             logger.info("%s done (%.1fs)", stage, now - t0)
         return now
 
+    if peaks:
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = t = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     medoid = approximate_medoid(

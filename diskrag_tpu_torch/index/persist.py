@@ -149,6 +149,27 @@ def save_pq_artifacts(
     return meta
 
 
+def replace_pq_artifacts(index_dir: str | os.PathLike, pq, pq_codes, coarse_ids=None) -> dict:
+    """Swap the quantizer of a persisted index: `save_pq_artifacts`, then
+    the meta's pq-family keys (every `pq_*` and `iq_*` key, `n_subvectors`
+    and `use_pq`) replaced by the new quantizer's, not merged, so no key of
+    the previous kind is left to mislead the serving mode's auto-detection;
+    a `pq_aux.npz` left by a residual PQ goes when the new one is not
+    residual. The JAX package's host-tier bench swaps its quantizers the
+    same way (`benchmarks/host_tier_multi.py::train_quantizer`). Returns
+    the meta written."""
+    store = IndexStore(index_dir)
+    extra = save_pq_artifacts(store, pq, pq_codes, coarse_ids=coarse_ids)
+    if "pq_n_coarse" not in extra:
+        store.pq_aux_path.unlink(missing_ok=True)
+    meta = json.loads(store.meta_path.read_text())
+    meta = {k: v for k, v in meta.items()
+            if not k.startswith(("pq_", "iq_")) and k not in ("n_subvectors", "use_pq")}
+    meta.update(extra)
+    _atomic_write_bytes(store.meta_path, json.dumps(meta, indent=2).encode("utf-8"))
+    return meta
+
+
 def load_pq_aux(
     store: IndexStore, expect_n: int | None = None
 ) -> tuple[np.ndarray | None, np.ndarray | None]:

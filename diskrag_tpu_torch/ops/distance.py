@@ -59,6 +59,13 @@ def pairwise_distance(
     return pairwise_dot_distance(x, y)
 
 
+def query_point_distance(
+    query: torch.Tensor, points: torch.Tensor, metric: Metric | str = Metric.L2
+) -> torch.Tensor:
+    """Distances from one query [D] to points [K, D] -> [K]."""
+    return pairwise_distance(query[None, :], points, metric)[0]
+
+
 def smallest_k(
     d: torch.Tensor, k: int, ids: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:

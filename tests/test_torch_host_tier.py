@@ -1,6 +1,9 @@
 """The port's host tier (`diskrag_tpu_torch/index/host_tier.py`) against
 the JAX package's, on the CPU: the host rerank bit for bit, the search in
-all three modes on JAX-built index directories (equal ids), the pipelined
+all three modes on JAX-built index directories (equal ids; also over the
+capacity ladder's quantizers, swapped in by the JAX package: a residual PQ
+at m = 64 and int4 rows with cells), the quantizer swap of the port's
+`persist.replace_pq_artifacts` opened by both packages, the pipelined
 search against the sequential one, the guards, the engine's "host_tier"
 and "iq_accelerated" modes, cross-loading both ways, the CLI, the
 dataset benchmark's `--host-tier` sweep and the launch counters' lock."""
@@ -33,7 +36,14 @@ from diskrag_tpu_torch.index.host_tier import HostTierIndex, exact_rerank_pool
 from diskrag_tpu_torch.native import RecordReader
 
 PARAMS = {"R": 32, "L": 64, "alpha": 1.2}
-KINDS = {"iq": dict(pq_kind="int8"), "pq": dict(pq_kind="residual")}
+# "iq" / "pq": built by the JAX package with that pq_kind. "rpq64" / "iq4c":
+# the capacity ladder's residual PQ at m = 64 and int4 rows with cells
+# (`benchmarks/host_tier_multi.py`), swapped by the JAX package into a copy
+# of the "iq" index, the cell count scaled to the fixture as the JAX
+# package scales it (`default_iq_cells`)
+KINDS = {"iq": dict(pq_kind="int8"), "pq": dict(pq_kind="residual"),
+         "rpq64": dict(swap="rpq64"), "iq4c": dict(swap="iq4c")}
+MODES = {"iq": "iq", "pq": "pq", "bf16": "bf16", "rpq64": "pq", "iq4c": "iq"}
 
 
 def _collection(base, name, pts):
@@ -47,16 +57,48 @@ def _collection(base, name, pts):
     return mgr.get_index_dir(name)
 
 
+def _pq_family_removed(meta: dict) -> dict:
+    return {k: v for k, v in meta.items()
+            if not k.startswith(("pq_", "iq_")) and k not in ("n_subvectors", "use_pq")}
+
+
+def _jax_swap(index_dir, tag: str, pts) -> None:
+    """The JAX package trains `tag`'s quantizer and swaps it into the index
+    directory as its host-tier bench does (`host_tier_multi.py::
+    train_quantizer`): the artifacts, then the pq family's meta keys
+    replaced, not merged."""
+    from diskrag_tpu.index.persist import IndexStore, save_pq_artifacts
+    from diskrag_tpu.pq import IntQuantizer, ResidualPQ, default_iq_cells
+
+    store = IndexStore(index_dir)
+    if tag == "rpq64":
+        quant = ResidualPQ(n_subvectors=64).fit(pts, seed=0)
+        codes, cids = quant.encode(pts)
+        extra = save_pq_artifacts(store, quant, np.asarray(codes), coarse_ids=np.asarray(cids))
+    else:
+        quant = IntQuantizer(bits=4, n_cells=default_iq_cells(len(pts), 4)).fit(pts, seed=0)
+        extra = save_pq_artifacts(store, quant, np.asarray(quant.encode(pts)))
+    meta = _pq_family_removed(json.loads(store.meta_path.read_text()))
+    store.meta_path.write_text(json.dumps({**meta, **extra}))
+
+
 @pytest.fixture(scope="module")
 def jax_dirs(clustered_data, tmp_path_factory):
     """{kind: (collections base, index dir)} built by the JAX package with
-    the record file: int8 rows ("iq") and a residual PQ ("pq")."""
+    the record file: int8 rows ("iq"), a residual PQ ("pq"), and copies of
+    the int8 index with the ladder's quantizers swapped in ("rpq64",
+    "iq4c")."""
     out = {}
     for kind, kw in KINDS.items():
         base = tmp_path_factory.mktemp(f"jax_{kind}")
-        index_dir = _collection(base, "c", clustered_data)
-        jax_build(clustered_data, index_dir, write_compat=True, force_pq=True,
-                  params_override=PARAMS, **kw)
+        if "swap" in kw:
+            shutil.copytree(out["iq"][0] / "c", base / "c")
+            index_dir = base / "c" / "index"
+            _jax_swap(index_dir, kw["swap"], clustered_data)
+        else:
+            index_dir = _collection(base, "c", clustered_data)
+            jax_build(clustered_data, index_dir, write_compat=True, force_pq=True,
+                      params_override=PARAMS, **kw)
         out[kind] = base, index_dir
     return out
 
@@ -93,12 +135,17 @@ def test_exact_rerank_pool_matches_jax_bit_for_bit(metric, jax_dirs, clustered_d
     assert i_small.shape == (len(queries), 10) and (i_small[:, 4:] == -1).all()
 
 
-@pytest.mark.parametrize("mode", ["iq", "pq", "bf16"])
+@pytest.mark.parametrize("mode", ["iq", "pq", "bf16", "rpq64", "iq4c"])
 def test_search_on_a_jax_built_index_matches_jax(mode, jax_dirs, queries, gt):
     index_dir = jax_dirs["pq" if mode == "bf16" else mode][1]
     kw = dict(search_width=48, k=10, expand_width=4)
     ours = HostTierIndex.from_store(index_dir, mode=None if mode != "bf16" else mode, device="cpu")
     theirs = JaxHostTier.from_store(index_dir, mode=None if mode != "bf16" else mode)
+    kind, mode = mode, MODES[mode]
+    if kind == "rpq64":
+        assert ours.codes.shape[1] == 64 and ours.pq_cells is not None
+    if kind == "iq4c":
+        assert ours.pq.bits == theirs.pq.bits == 4 and ours.pq.n_cells == theirs.pq.n_cells > 0
     assert ours.mode == theirs.mode == mode and ours.reader.is_native
     d1, i1, s1 = ours.search(queries, **kw)
     d2, i2, s2 = theirs.search(queries, **kw)
@@ -111,6 +158,35 @@ def test_search_on_a_jax_built_index_matches_jax(mode, jax_dirs, queries, gt):
     if mode == "iq":  # the 256-byte gather pad, as the JAX tier holds it
         assert ours.codes.shape[1] == np.asarray(theirs.codes).shape[1] == 256
     assert ours.device_bytes() > 0
+
+
+def test_quantizer_swap_opens_in_both_packages(jax_dirs, clustered_data, queries, tmp_path):
+    """The port's swap (`persist.replace_pq_artifacts`) retrains a JAX-built
+    int8 index as the capacity ladder does, iq8 -> rpq64 -> iq8: each time
+    both packages open it in the same mode (auto-detected from the meta)
+    with equal ids, no key of the previous kind is left, and the meta's
+    keys are those the JAX package's own swap leaves."""
+    from diskrag_tpu_torch.index.persist import replace_pq_artifacts
+    from diskrag_tpu_torch.pq import IntQuantizer, ResidualPQ
+
+    index_dir = _copy(jax_dirs["iq"][1], tmp_path / "swap")
+    kw = dict(search_width=48, k=10, expand_width=4)
+    rpq = ResidualPQ(n_subvectors=64, device="cpu").fit(clustered_data, seed=0)
+    codes, cids = rpq.encode(clustered_data)
+    iq8 = IntQuantizer(bits=8, device="cpu").fit(clustered_data, seed=0)
+    for quant, args, mode, jax_dir in ((rpq, (codes, cids), "pq", jax_dirs["rpq64"][1]),
+                                       (iq8, (iq8.encode(clustered_data), None), "iq", None)):
+        meta = replace_pq_artifacts(index_dir, quant, args[0], coarse_ids=args[1])
+        assert meta == json.loads((index_dir / "meta.json").read_text())
+        stale = {"iq_row_width", "iq_n_cells"} if mode == "pq" else {"n_subvectors", "pq_n_coarse"}
+        assert not stale & set(meta) and "use_pq" not in meta
+        assert (index_dir / "pq_aux.npz").exists() == (mode == "pq")
+        if jax_dir is not None:
+            assert set(meta) == set(json.loads((jax_dir / "meta.json").read_text()))
+        ours = HostTierIndex.from_store(index_dir, device="cpu")
+        theirs = JaxHostTier.from_store(index_dir)
+        assert ours.mode == theirs.mode == mode
+        np.testing.assert_array_equal(ours.search(queries, **kw)[1], theirs.search(queries, **kw)[1])
 
 
 @pytest.mark.parametrize("mode", ["iq", "bf16"])

@@ -73,6 +73,14 @@ from diskrag_tpu_torch.ops.mm_probe import mm_probe, mm_probe_ref
 from diskrag_tpu_torch.utils.profiling import PhaseTimer, block_and_time, device_trace
 from diskrag_tpu_torch.kernels.launches import launch_counts
 assert set(launch_counts()) == {"B1", "B4", "B2", "B3", "B6", "B5", "M1"}
+from diskrag_tpu_torch.ops import (
+    Metric, approximate_medoid, brute_force_topk, mask_duplicates, merge_topk,
+    pairwise_cosine_distance, pairwise_distance, pairwise_l2_sq, query_point_distance,
+    squared_norms, topk_smallest,
+)
+from diskrag_tpu_torch.index.persist import replace_pq_artifacts
+import diskrag_tpu_torch.kernels._build as kernel_build
+assert not kernel_build._libs  # importing the package built and loaded no kernel
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "diskrag_tpu."))
              or m == "diskrag_tpu")
