@@ -19,8 +19,13 @@ queries, k = 10)
 through `build_index_from_vectors` and `SearchEngine.search_batch` — with
 the per-row int8 scan (kernels B1, B4), with `flat_precision:
 int8_packed` (kernels B2, B3) and, at 1,000,000, with `flat_precision:
-bf16` (B1's bf16 form, B4) — runs the pipelined fold (B6) through its
-wrapper at the 1M shape, builds the Vamana graph at 200,000 x 128 on the
+bf16` (B1's bf16 form, B4) — serves the bench's headline point (2048
+queries, the batch tiled, at rerank width 20 over the 200k packed index:
+one B3 launch a batch, NB 512, the cut fused at kk 20; recall@10 gate 0.96
+over the leading 1000 rows) and holds B3 bit for bit at that shape, serves
+one 1M batch of `FlatIndex(use_fused=False)` (the bf16 path a caller
+chooses; no kernel may launch; recall@10 gate 0.97), runs the pipelined
+fold (B6) through its wrapper at the 1M shape, builds the Vamana graph at 200,000 x 128 on the
 card (B1 and B4 inside its kNN pass), sweeps exact and PQ-guided
 traversal over it (the ADC lookup by id, kernel B5, once a round), serves
 the default vamana configuration through the same entry points (with the
@@ -159,6 +164,10 @@ PEAK_BYTES = 3.35e12
 
 MAIN_N, MAIN_D, MAIN_B, MAIN_K = 1_000_000, 128, 1000, 10
 CMP_N = 200_000
+# the bench's headline point (`bench_cuda.py`, `sweep_flat(big_batch=2048)`):
+# the 1000 queries tiled to 2048 rows, packed at rerank width 20; at 200k
+# it routes to the hierarchical fold B3 at NB 512, the cut fused at kk 20
+BIG_B, BIG_RW = 2048, 20
 
 
 class SmokeFailure(RuntimeError):
@@ -952,6 +961,36 @@ def packed_inputs(pts_d, q_d, metric: str):
     return qc, qs, table, unpadded
 
 
+def headline_b3_cases(pts_d, q_d, metric: str) -> dict:
+    """B3 at the bench headline's shape: `BIG_B` queries (the batch tiled,
+    one global query scale over all of them) over the 200k table, at the
+    geometry `plan_packed_search` gives that batch (NB 512), with the cut
+    fused at kk `BIG_RW` and without a cut, both contracts, bit for bit
+    against its plain version."""
+    import torch
+
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    qb = q_d[torch.arange(BIG_B, device=q_d.device) % q_d.shape[0]]
+    qc, qs, table, unpadded = packed_inputs(pts_d, qb, metric)
+    plan = fs.plan_packed_search(table[0].shape[0], table[3], qc.shape[1], BIG_B, 512, BIG_RW)
+    require((plan.fold, plan.nb, plan.cut_kk) == ("hier", 512, BIG_RW),
+            f"the headline shape routed to {plan}")
+    cases, worst = 0, 0
+    for db, norms, scale, n_valid in (table, unpadded):
+        for cut in (BIG_RW, None):
+            _, measured = compare_packed("B3", qc, qs, db, norms, scale, n_buckets=512,
+                                         n_valid=n_valid, cut_kk=cut, db_tile=plan.db_tile,
+                                         query_block=plan.query_block)
+            worst = max(worst, measured["id_mismatches"])
+            cases += 1
+    return {"case": f"bench headline: B3 at {BIG_B} x {pts_d.shape[0]}", "b": BIG_B,
+            "nb": plan.nb, "n_scan": plan.n_scan, "query_block": plan.query_block,
+            "db_tile": plan.db_tile, "cut_kk": [BIG_RW, None],
+            "contracts": ["table", "unpadded"], "comparisons": cases,
+            "id_mismatches": worst, "match": "bit-identical"}
+
+
 # B2 / B3 at every row width class the partial kernel takes (2, 4 or 6
 # k-steps: one 128-byte K box at 16 to 64 bytes, two at 144 and 192) and at
 # batches whose last 64-query block is nearly empty (1, 37, 65, 193) or full,
@@ -1009,6 +1048,9 @@ def phase_packed_kernels() -> None:
             emit({"phase": "kernels", "kernel": "B2+B3+B6", "n": n_pts, "d": d,
                   "metric": metric, "contracts": ["table", "unpadded"], "nb": [512, 8192],
                   "cut_kk": [None, 20, 40], "comparisons": cases, "match": "bit-identical"})
+            if n_pts == CMP_N:
+                emit({"phase": "kernels", "kernel": "B2+B3+B6", "metric": metric,
+                      **headline_b3_cases(pts_d, q_d, metric)})
         del pts_d, q_d
     # ties and exhaustion: every row twice (equal packed scores in two
     # segments), and a table with 30 valid rows under a cut of 40
@@ -1429,7 +1471,42 @@ def phase_main(smi: str, base, pts, q, gt) -> dict:
     ]
     del engine, flat, pts_d, q_d, vals
     torch.cuda.empty_cache()
+    unfused_batch(smi, pts, q, gt)
     return {"kernels": kernels}
+
+
+def unfused_batch(smi: str, pts, q, gt) -> None:
+    """`FlatIndex(use_fused=False)` at 1M: the path a caller chooses
+    instead of the scans (bf16 products and exact top-k over the whole
+    table in query blocks, then the f32 rerank), which launches no
+    kernel. One batch after a first call (that builds `vectors_bf16`),
+    counts set to 0 just before and read just after; recall gate 0.97."""
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+    from diskrag_tpu_torch.ops.flat import FlatIndex, bf16_query_block
+
+    idx = FlatIndex(pts, use_fused=False, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    idx.search(q, k=MAIN_K)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    dists, ids = idx.search(q, k=MAIN_K)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = read_counts()
+    require(not any(launches.values()), f"FlatIndex(use_fused=False) launched {launches}")
+    require(ids.shape == (MAIN_B, MAIN_K) and bool(torch.isfinite(dists).all()),
+            "FlatIndex(use_fused=False): result shape or non-finite distances")
+    recall = recall_at_k(ids.cpu().numpy(), gt, MAIN_K)
+    require(recall >= 0.97, f"FlatIndex(use_fused=False) recall@10 {recall} < 0.97")
+    emit({"phase": "main", "path": "FlatIndex(use_fused=False)", "n": MAIN_N, "d": MAIN_D,
+          "queries": MAIN_B, "k": MAIN_K, "query_block": bf16_query_block(MAIN_B, MAIN_N),
+          "recall_at_10": recall, "ms_per_batch": ms, "launches": launches,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(), "card": smi})
+    del idx, dists, ids
+    torch.cuda.empty_cache()
 
 
 def b1_bf16_row(q_d, db, norms, reps: int) -> dict:
@@ -1632,6 +1709,8 @@ def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
         q_d = torch.as_tensor(q, device="cuda")
         rows[kernel] = {"launches": launches[kernel],
                         **packed_kernel_row(kernel, flat, q_d, plan, cut_kk=40, reps=20)}
+        if n_pts == CMP_N:
+            headline = headline_point(smi, engine, q, gt)
         if n_pts == MAIN_N:
             emit(profile_batch(engine, q, path="flat-1M-packed"))
             # B6: its entry point is the wrapper with pipelined=True (no engine
@@ -1676,8 +1755,52 @@ def phase_main_packed(smi: str, base, sets: dict) -> list[dict]:
                "product runs)",
                "diskrag_tpu_torch/csrc/pingpong_wgmma.cuh", "diskrag_tpu/ops/flat_scan_pallas.py:468"),
     }
+    rows["B3"]["bench_headline_shape"] = headline
     return [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
              "replaces": meta[k][2], **rows[k]} for k in ("B2", "B3", "B6")]
+
+
+def headline_point(smi: str, engine, q, gt) -> dict:
+    """The bench's headline point through the 200k packed engine: one
+    `search_batch` of `BIG_B` queries (the batch tiled) at rerank width
+    `BIG_RW`, counts set to 0 just before and read just after (one B3
+    launch, nothing else; recall over the leading rows, gate 0.96); then
+    B3 at that batch's shapes against its plain version, timed and
+    bounded."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    flat = engine.flat
+    qb = np.asarray(q)[np.arange(BIG_B) % len(q)]
+    plan = fs.plan_packed_search(flat._fused_db.shape[0], flat._fused_n_valid, MAIN_D, BIG_B,
+                                 512, BIG_RW)
+    require((plan.fold, plan.nb, plan.cut_kk) == ("hier", 512, BIG_RW),
+            f"the headline batch routed to {plan}")
+    flat.rerank_width = BIG_RW
+    try:
+        engine.search_batch(qb, k=MAIN_K)  # this batch shape's first call
+        dists, ids, all_stats, batch_s, launches = drive(engine, qb, 3)
+    finally:
+        flat.rerank_width = None
+    others = {k: v for k, v in launches.items() if k != "B3"}
+    require(launches["B3"] == 3 and not any(others.values()),
+            f"the headline batch did not launch B3 once a batch and nothing else: {launches}")
+    require(ids.shape == (BIG_B, MAIN_K) and bool(np.isfinite(dists).all()),
+            "headline batch: result shape or non-finite distances")
+    recall = recall_at_k(ids[: len(q)], gt, MAIN_K)
+    require(recall >= 0.96, f"headline recall@10 {recall} < 0.96")
+    med = float(np.median(batch_s))
+    emit({"phase": "main-packed", "cell": "flat-200k-packed-b2048", "n": CMP_N, "queries": BIG_B,
+          "rerank_width": BIG_RW, "fold": plan.fold, "nb": plan.nb, "n_scan": plan.n_scan,
+          "recall_at_10": recall, "jax_package_recorded": 0.9699, "qps": BIG_B / med,
+          "ms_per_batch_median": med * 1e3, "ms_per_batch": [s * 1e3 for s in batch_s],
+          "launches": launches, "card": smi})
+    q_d = torch.as_tensor(qb, device="cuda")
+    return {"b": BIG_B, "n": CMP_N, "launches": launches["B3"], "recall_at_10": recall,
+            **packed_kernel_row("B3", flat, q_d, plan, cut_kk=BIG_RW, reps=20)}
 
 # recall@10 that the JAX package records on this dataset (200,000 x 128,
 # seed 42) for a graph of degree 48, alpha 1.2 (benchmarks/last_bench_tpu.json):

@@ -255,20 +255,27 @@ def _point(idx, q, gt, k, mode, repeats, min_seconds, width=0) -> SweepPoint:
 def sweep_flat(
     pts: np.ndarray, queries: np.ndarray, gt: np.ndarray, *, k: int,
     metric: str = "l2", repeats: int = 3, adaptive_target: float = 0.96,
-    min_seconds: float = 1.5, device: str = "cuda",
+    big_batch: int = 0, min_seconds: float = 1.5, device: str = "cuda",
 ) -> list[SweepPoint]:
     """Exhaustive-scan sweep (the JAX package's `sweep_flat`): the default
-    per-row int8 scan ("flat"), its narrow-rerank point ("flat-rr24") and,
-    for l2 and cosine, the packed scan at the default width
-    ("flat-packed") and at 24 ("flat-packed-rr24"), and the
-    recall-targeted adaptive width point. (The reference's bigger-batch
-    point comes with the port's bench script.) Variants of one precision share
-    one index: only `rerank_width` changes."""
+    per-row int8 scan ("flat") and, where the index is fused, its
+    narrow-rerank point ("flat-rr24"), for l2 and cosine the packed scan
+    at the default width ("flat-packed") and at 24 ("flat-packed-rr24"),
+    and the recall-targeted adaptive width point. Variants of one
+    precision share one index: only `rerank_width` changes.
+
+    `big_batch` > 0 adds, for l2 and cosine, a packed point at that batch
+    size, "flat-packed-b{big_batch}", at rerank width 20: the protocol
+    queries tiled to `big_batch` rows and searched as one batch (its
+    query scale is taken over all of them), QPS over `big_batch` queries,
+    recall over the leading `len(queries)` rows."""
     from diskrag_tpu_torch.ops.flat import FlatIndex
 
     idx = FlatIndex(pts, metric=metric, device=device)
     q = torch.as_tensor(np.asarray(queries, np.float32), device=idx.device)
     points = [_point(idx, q, gt, k, "flat", repeats, min_seconds)]
+    if not idx.use_fused:
+        return points
     variants = [("flat-rr24", "int8", 24)]
     if metric != "dot":
         variants += [("flat-packed", "int8_packed", None),
@@ -279,6 +286,15 @@ def sweep_flat(
             indexes[prec] = FlatIndex(pts, metric=metric, fused_precision=prec, device=device)
         indexes[prec].rerank_width = rw
         points.append(_point(indexes[prec], q, gt, k, mode, repeats, min_seconds))
+    if big_batch and metric != "dot":
+        packed = indexes["int8_packed"]
+        packed.rerank_width = 20
+        qb = q[torch.as_tensor(np.arange(big_batch) % len(queries), device=idx.device)]
+        dt, (_, ids), _ = _measure(lambda: packed.search(qb, k=k), repeats, idx.device,
+                                   min_seconds)
+        rec = recall_at_k(ids[: len(queries)].cpu().numpy(), gt, k)
+        points.append(SweepPoint(0, rec, big_batch / dt, dt / big_batch * 1e3,
+                                 f"flat-packed-b{big_batch}"))
     idx.rerank_width = None
     if metric != "dot":
         p = adaptive_flat_point(
@@ -300,11 +316,14 @@ def adaptive_flat_point(
     the narrowest `rerank_width` whose recall@k on the first half of the
     queries clears `target_recall` (recall is monotone in the width), then
     measure QPS at that width on all queries. None when even `max_width`
-    misses the target. `idx` shares an already-built packed index."""
+    misses the target, or when `idx` is not fused. `idx` shares an
+    already-built packed index."""
     from diskrag_tpu_torch.ops.flat import FlatIndex
 
     if idx is None:
         idx = FlatIndex(pts, metric=metric, fused_precision="int8_packed", device=device)
+    if not idx.use_fused:
+        return None
     q = torch.as_tensor(np.asarray(queries, np.float32), device=idx.device)
     n_sel = max(1, q.shape[0] // 2)
 

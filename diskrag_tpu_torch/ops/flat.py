@@ -6,8 +6,9 @@ the cut B4; with `fused_precision="int8_packed"` the packed folds (B2 or
 B3, with the cut fused in); or the per-row scan on a bf16 copy. On a card
 the scans and cuts are the hand-written CUDA kernels; with `device="cpu"`
 their plain PyTorch versions.
-`flat_search` is the chunked path with an exact per-chunk top-k, used
-when a caller passes `chunk`.
+`flat_search` is the bf16 path with an exact per-chunk top-k (no kernel):
+`search(chunk=)` takes it, and so does every search of an index built
+with `use_fused=False`, in query blocks over one whole-table chunk.
 """
 
 from __future__ import annotations
@@ -73,10 +74,24 @@ def flat_search(
     return rerank_exact_topk(queries, vectors_f32, best_i, k, m)
 
 
+def bf16_query_block(b: int, n: int) -> int:
+    """Queries a block of `FlatIndex`'s bf16 path over `n` rows: the JAX
+    package's rule, which keeps the [block, n] f32 distance block under
+    2 GiB."""
+    return max(16, min(b, 2**29 // max(n, 1)))
+
+
 class FlatIndex:
     """On-device exhaustive index: f32 master vectors, their squared
     norms and the scan copy (per-row int8 table, packed int8 table or
     bf16).
+
+    `use_fused=False` builds no scan table: every search takes the plain
+    bf16 path (`flat_search` over `vectors_bf16`), which launches no
+    kernel. It is a path the caller chooses; `use_fused=None` means True
+    on every device (the JAX package's default is False on a CPU backend;
+    here the CPU runs the kernels' plain versions instead), and a fused
+    index on a card launches its kernels or raises.
 
     A request for `int8_packed` is served per-row int8 instead, as in the
     JAX package, where the packed fold cannot run: the dot metric (the
@@ -88,6 +103,7 @@ class FlatIndex:
         self,
         vectors: np.ndarray | torch.Tensor,
         metric: str = "l2",
+        use_fused: bool | None = None,
         fused_precision: str = "int8",
         rerank_width: int | None = None,
         *,
@@ -98,15 +114,20 @@ class FlatIndex:
         self.device = resolve_device(device)
         self.rerank_width = rerank_width
         self.metric = Metric(metric).value
+        self.use_fused = True if use_fused is None else bool(use_fused)
         self.vectors = torch.as_tensor(
             np.asarray(vectors, np.float32), device=self.device
         )
         self.norms_sq = torch.sum(self.vectors * self.vectors, dim=-1)
+        self._vectors_bf16 = None
+        self._fused_db = None
         self._fused_db_norms = None
         self._fused_db_scales = None
         self._fused_db_scale_global = None
         self._fused_nf = None
         self._fused_n_valid = None
+        if not self.use_fused:
+            return
         if fused_precision == "int8_packed":
             from diskrag_tpu_torch.ops.flat_scan import _PACKED_MAX_DIM, _packed_layout
 
@@ -144,6 +165,11 @@ class FlatIndex:
         else:
             self._fused_db = scan_src.to(torch.bfloat16)
         self._fused_db = align_code_rows(self._fused_db)
+        if fused_precision == "bf16" and self.metric != Metric.COSINE.value:
+            # the bf16 path's copy is this scan copy's leading D columns (the
+            # aligned copy only appends zero columns): share it, as the JAX
+            # package does, through a view rather than a third table
+            self._vectors_bf16 = self._fused_db[:, : self.vectors.shape[1]]
 
     @classmethod
     def from_state(
@@ -167,7 +193,9 @@ class FlatIndex:
         self.device = vectors.device
         self.rerank_width = rerank_width
         self.metric = Metric(metric).value
+        self.use_fused = True
         self.vectors = vectors.to(torch.float32)
+        self._vectors_bf16 = None
         if norms_sq is None:
             norms_sq = torch.sum(self.vectors * self.vectors, dim=-1)
         self.norms_sq = norms_sq
@@ -180,23 +208,41 @@ class FlatIndex:
         return self
 
     @property
+    def vectors_bf16(self) -> torch.Tensor:
+        """bf16 copy of the vectors for the `flat_search` path, built at
+        first use and kept, so a fused index holds no unused third copy."""
+        if self._vectors_bf16 is None:
+            self._vectors_bf16 = self.vectors.to(torch.bfloat16)
+        return self._vectors_bf16
+
+    @property
     def n_points(self) -> int:
         return self.vectors.shape[0]
 
     def search(self, queries, k: int = 10, chunk: int | None = None):
         """(dists [B, k] ascending, ids [B, k]) as tensors on the index's
-        device. `chunk` selects the chunked exact path."""
-        from diskrag_tpu_torch.ops.flat_scan import flat_search_fused
-
+        device. `chunk` selects the chunked bf16 path; without it an index
+        built with `use_fused=False` takes the same path over one
+        whole-table chunk, in query blocks (`bf16_query_block`)."""
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         if q.ndim == 1:
             q = q[None, :]
-        if chunk is not None:
+        b, n = q.shape[0], self.n_points
+
+        def bf16_path(rows: torch.Tensor, tile: int):
             return flat_search(
-                q, self.vectors.to(torch.bfloat16), self.norms_sq,
-                self.vectors, k=k, metric=self.metric,
-                chunk=min(chunk, self.n_points), rerank_width=self.rerank_width,
+                rows, self.vectors_bf16, self.norms_sq, self.vectors, k=k,
+                metric=self.metric, chunk=tile, rerank_width=self.rerank_width,
             )
+
+        if chunk is not None:
+            return bf16_path(q, min(chunk, n))
+        if not self.use_fused:
+            q_block = bf16_query_block(b, n)
+            outs = [bf16_path(q[i : i + q_block], n) for i in range(0, b, q_block)]
+            return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+        from diskrag_tpu_torch.ops.flat_scan import flat_search_fused
+
         return flat_search_fused(
             q,
             self._fused_db,

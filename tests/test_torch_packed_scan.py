@@ -321,6 +321,7 @@ def _jax_route(n_phys, n, d, b, n_buckets, kk):
     "n,b,kk,want",
     [(200_000, 1000, 40, ("packed", 1024)),  # the 200k bench point
      (200_000, 2048, 40, ("hier", 512)),     # two query blocks starve the flat fold
+     (200_000, 2048, 20, ("hier", 512)),     # the bench's B = 2048 headline point
      (1_000_000, 1000, 40, ("hier", 512)),   # flat layout NB = 4096, qb 288 < 1000
      (1_000_000, 1000, 80, ("hier", 512)),
      (200_000, 1000, 20, ("packed", 1024)),

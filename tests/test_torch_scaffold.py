@@ -38,6 +38,15 @@ import diskrag_tpu_torch.index.streaming, diskrag_tpu_torch.tools.streaming_benc
 import diskrag_tpu_torch.parallel, diskrag_tpu_torch.parallel.mesh, diskrag_tpu_torch.parallel.sharded
 import diskrag_tpu_torch.parallel.host_tier, diskrag_tpu_torch.parallel.multihost
 import diskrag_tpu_torch.parallel.dryrun, diskrag_tpu_torch.tools.multihost_check
+import diskrag_tpu_torch.tools.serving_bench
+import importlib.util
+_spec = importlib.util.spec_from_file_location("bench_cuda", "bench_cuda.py")
+bench_cuda = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(bench_cuda)
+from diskrag_tpu_torch.tools.serving_bench import (
+    make_collection, measure_engine_qps, measure_http_qps, measure_pipelined_qps, measure_serving,
+)
+from diskrag_tpu_torch.ops.flat import bf16_query_block
 from diskrag_tpu_torch.convert import sharded_host_tier_from_jax, sharded_index_from_jax
 from diskrag_tpu_torch.index import StreamingIndex
 from diskrag_tpu_torch.graph import build_vamana, random_regular_init
@@ -83,7 +92,7 @@ import diskrag_tpu_torch.kernels._build as kernel_build
 assert not kernel_build._libs  # importing the package built and loaded no kernel
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "diskrag_tpu."))
-             or m == "diskrag_tpu")
+             or m in ("diskrag_tpu", "benchmarks", "bench") or m.startswith("benchmarks."))
 lazy = sorted(m for m in ("pandas", "yaml", "pyarrow", "httpx", "aiohttp", "pydantic")
               if m in sys.modules)
 print(json.dumps({"bad": bad, "lazy": lazy}))
@@ -102,12 +111,48 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_port_source_never_names_jax_modules():
-    for path in (REPO / "diskrag_tpu_torch").rglob("*.py"):
+    for path in [*(REPO / "diskrag_tpu_torch").rglob("*.py"), REPO / "bench_cuda.py"]:
         for line in path.read_text(encoding="utf-8").splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 assert not s.split()[1].startswith(("jax", "diskrag_tpu.")), (path, s)
                 assert s.split()[1] != "diskrag_tpu", (path, s)
+                assert s.split()[1].split(".")[0] not in ("benchmarks", "bench"), (path, s)
+
+
+def test_bench_cuda_imports_torch_numpy_and_the_port_only():
+    import ast
+
+    tree = ast.parse((REPO / "bench_cuda.py").read_text(encoding="utf-8"))
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    third_party = {m.split(".")[0] for m in names} - set(sys.stdlib_module_names)
+    assert third_party == {"torch", "numpy", "diskrag_tpu_torch"}
+
+
+def test_bench_cuda_raises_without_a_card_unless_asked_for_the_cpu(monkeypatch, capsys,
+                                                                   tmp_path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench_cuda", REPO / "bench_cuda.py")
+    bench_cuda = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_cuda)
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_cuda.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_cuda.main(["--device", "cuda"])
+    with pytest.raises(SystemExit):
+        bench_cuda.main(["--device", "tpu"])
+    assert capsys.readouterr().out == ""  # no line printed
+    from diskrag_tpu_torch.tools import serving_bench
+
+    pts = np.zeros((16, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_bench.measure_serving(pts, pts, tmp_dir=str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_bench.main(["--n", "100"])
+    assert not (tmp_path / "s").exists()
 
 
 def _no_card(monkeypatch):
