@@ -55,7 +55,23 @@ then iq8, iq4c1024 and rpq64 trained in turn and swapped in
 equal to the rounds in the rpq64 rows, no kernel in the iq rows), and B5 by
 id held bit for bit at one rpq64 round's real operands (m = 64, 256
 candidates a query, 1024 cells), also lifted onto a 10,000,000-row code
-table. Phase `main-ivf` builds the IVF-Flat index
+table. Phase `main-angular` runs the JAX package's angular configuration
+(`benchmarks/angular_bench.py`, through `diskrag_tpu_torch.tools.
+angular_bench.run` in process): 1,200,000 unit-normalized x 128 points,
+the R = 32 graph (B1 + B4 once a 4096-row block, 293 each), exact and
+iq8 traversal at L = 16 / 32, rpq32 at L = 32 / 64 and rpq64 with 2048
+cells at L = 64 / 96 (recall@10 gated at the JAX package's figures less
+0.01, rpq32 less 0.03; B5 launches equal to the rpq rows' rounds, no
+kernel in the exact and iq8 rows), exact traversal at L = 48, B5 by id bit
+for bit at one real rpq64 round (1000 x 128 candidates, m = 64, 2048
+cells), B1's norm-free form and B4 bit for bit at the cosine build's shape
+(4096 x 1.2M, NB 4096, kk 260), then the native cosine build through
+`build_index_from_vectors(metric="cosine")` (293 B1 launches, each
+norm-free as its operands show, and 293 B4) served by `SearchEngine.
+search_batch` at l_search 32 and 48 (exact traversal, no kernel; recall@10
+gated at the documented native-cosine figures less 0.01 and within 0.01 of
+the L2-on-normalized rows; the distances 1 - cos, in [0, 2]); both builds'
+share of points without an in-edge is printed. Phase `main-ivf` builds the IVF-Flat index
 through `build_index_from_vectors(index_type="ivf")` at 1,000,000 and
 200,000 points and serves it through `SearchEngine.search_batch` at
 n_probe 8 and 16 (recall@10 gated at the JAX package's v5e figures less
@@ -139,7 +155,9 @@ the same graphs also traversed by an m = 16 residual PQ), and `--sharded-n
 `python3 chip_smoke.py --host-tier-n 10000000` runs the ladder phase alone
 at that many points (the IVF kNN backend above 2,000,000, 65,536 random
 entry points, a checkpoint directory under `build/`; iq8 and rpq64, gated
-at the JAX package's 10M figures less 0.01), the same way.
+at the JAX package's 10M figures less 0.01), the same way; `python3
+chip_smoke.py --angular-n 1200000` runs the angular phase alone (its
+gates apply at 1,200,000 only).
 """
 
 from __future__ import annotations
@@ -599,31 +617,42 @@ def b4_timed(vals, kk: int) -> dict:
     return out
 
 
-def phase_build_shape_kernels(pts, smi: str) -> dict:
+def phase_build_shape_kernels(pts, smi: str, *, metric: str = "l2") -> dict:
     """B1 and B4 at the shapes the graph build's kNN pass hands them: a
-    block of 4096 database rows as queries over the 200k table at
-    NB = 4096, then the cut to kk = 4 * 65 = 260 lanes. Both bit-identical
-    to their plain versions; timed and bounded."""
+    block of 4096 database rows as queries over the whole table at
+    NB = 4096, then the cut to kk = 4 * 65 = 260 lanes. The operands are
+    made as `exact_knn` and `flat_search_fused` make them: for cosine the
+    table is built from the rows normalized with `rsqrt(norms + 1e-12)`,
+    the queries are normalized again before they are quantized, and B1
+    runs its norm-free form. Both bit-identical to their plain versions on
+    those operands; timed and bounded."""
     import torch
 
     from diskrag_tpu_torch.ops import flat_scan as fs
 
     dev = torch.device("cuda", 0)
     pts_d = torch.as_tensor(pts, device=dev)
-    codes, block, _, n = fs.build_rowscan_table(pts_d)
+    l2 = metric == "l2"
+    src = pts_d if l2 else pts_d * torch.rsqrt(torch.sum(pts_d * pts_d, -1) + 1e-12)[:, None]
+    codes, block, _, n = fs.build_rowscan_table(src, metric=metric)
     codes = fs.align_code_rows(codes)
+    del src
     b, nb, kk = 4096, 4096, 260
-    qc, qs = fs.quantize_int8(pts_d[:b])
-    args, kw = (qc, codes, block), dict(n_buckets=nb, use_norms=True, q_scales=qs, n_valid=n)
+    q = pts_d[:b]
+    if not l2:
+        q = q / (torch.sqrt(torch.sum(q * q, -1, keepdim=True)) + 1e-12)
+    qc, qs = fs.quantize_int8(q)
+    args, kw = (qc, codes, block), dict(n_buckets=nb, use_norms=l2, q_scales=qs, n_valid=n)
     vals, row = compare_b1(*args, **kw)
     ops = fs._scan_operands(*args, db_scales=None, **kw)
     lk, lr = fs.topk_lanes(vals, kk), fs.topk_lanes_ref(vals, kk)
     torch.cuda.synchronize()
-    require(bool(torch.equal(lk, lr)), f"B4 differs at NB={nb} kk={kk}")
+    require(bool(torch.equal(lk, lr)), f"B4 differs at NB={nb} kk={kk} ({metric})")
     b1_bound, b1_by = b1_bound_ms(b, n, pts.shape[1], nb)
     b4_bound, b4_by = b4_bound_ms(b, nb, kk)
     out = {
-        "B1": {"b": b, "n": n, "nb": nb, "match": row["match"], "max_abs_err": row["max_abs_err"],
+        "B1": {"b": b, "n": n, "nb": nb, "metric": metric, "use_norms": l2,
+               "match": row["match"], "max_abs_err": row["max_abs_err"],
                "ms": cuda_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 10),
                "device_ms": kernel_device_ms(lambda: fs.scan_bucketed_topk(*args, **kw), 5),
                "plain_ms": cuda_ms(lambda: fs.scan_bucketed_topk_ref(*ops), 1),
@@ -634,7 +663,8 @@ def phase_build_shape_kernels(pts, smi: str) -> dict:
                "max_abs_err": float((lk - lr).abs().max()), **b4_timed(vals, kk),
                "bound_ms": b4_bound, "bound_by": b4_by, "plan": str(fs.plan_cut(nb, kk))},
     }
-    emit({"phase": "kernels", "case": "graph-build shapes", "card": smi, **out})
+    emit({"phase": "kernels", "case": f"graph-build shapes ({metric}, {n} rows)", "card": smi,
+          **out})
     del pts_d, codes, vals
     torch.cuda.empty_cache()
     return out
@@ -3947,6 +3977,257 @@ def phase_sharded_multi(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+ANGULAR_N = 1_200_000
+# recall@10 the JAX package recorded on this configuration
+# (`benchmarks/last_angular_tpu.json`; exact L = 48 from
+# `docs/PERFORMANCE.md:547`): the gates are these less ANGULAR_SLACK, the
+# rpq32 rows less ANGULAR_RPQ32_SLACK (they sit on the ADC ordering's
+# collapse on unit vectors, `docs/PERFORMANCE.md:560-567`, where the figure
+# follows the codebook's random draw)
+ANGULAR_JAX_RECALL = {
+    ("exact", 16, 8): 0.9783, ("exact", 32, 8): 0.9913, ("exact", 48, 8): 0.9951,
+    ("iq8", 16, 8): 0.9770, ("iq8", 32, 8): 0.9917,
+    ("rpq32+rerank", 32, 4): 0.7363, ("rpq32+rerank", 64, 4): 0.8464,
+    ("rpq64+rerank", 64, 4): 0.9964, ("rpq64+rerank", 96, 4): 0.9973,
+}
+# the native `--metric cosine` build served by the engine
+# (`docs/PERFORMANCE.md:546, :548`)
+ANGULAR_COSINE_JAX_RECALL = {32: 0.9908, 48: 0.9951}
+ANGULAR_SLACK, ANGULAR_RPQ32_SLACK = 0.01, 0.03
+
+
+@contextlib.contextmanager
+def _b1_forms_and_build_stages():
+    """While active, B1's launcher records the operands of each launch as
+    the wrapper hands them over (use_norms, queries, rows, NB), and every
+    `build_vamana_knn` call records its stage seconds (with each stage's
+    peak device bytes): for a build reached through
+    `build_index_from_vectors`, which keeps neither."""
+    from diskrag_tpu_torch.graph import knn_build
+    from diskrag_tpu_torch.ops import flat_scan as fs
+
+    real_scan, real_build = fs._scan_cuda, knn_build.build_vamana_knn
+    got: dict = {"b1": [], "stages": []}
+
+    def scan(q, db, norm_block, nb, use_norms, q_scales, n):
+        got["b1"].append({"use_norms": bool(use_norms), "b": q.shape[0], "n": n, "nb": nb})
+        return real_scan(q, db, norm_block, nb, use_norms, q_scales, n)
+
+    def build(*a, **kw):
+        got["stages"].append(kw.setdefault("stage_seconds", {}))
+        return real_build(*a, **kw)
+
+    fs._scan_cuda, knn_build.build_vamana_knn = scan, build
+    try:
+        yield got
+    finally:
+        fs._scan_cuda, knn_build.build_vamana_knn = real_scan, real_build
+
+
+def _angular_gate(key, rec: float, at_cell: bool) -> dict:
+    """The row's JAX figure and gate (at the cell's size only); fails the
+    run below the gate."""
+    ref = ANGULAR_JAX_RECALL.get(key)
+    if ref is None or not at_cell:
+        return {"jax_package_recorded": ref}
+    gate = round(ref - (ANGULAR_RPQ32_SLACK if key[0] == "rpq32+rerank" else ANGULAR_SLACK), 4)
+    require(rec >= gate, f"angular {key} recall@10 {rec} < {gate}")
+    return {"jax_package_recorded": ref, "recall_gate": gate}
+
+
+def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
+    """Cell angular-1.2M-R32: BASELINE config 3, the JAX package's angular
+    configuration (`benchmarks/angular_bench.py`), through the port's
+    `tools.angular_bench.run` in process on the card: 1.2M unit-normalized
+    x 128 (`make_angular_dataset`), the R = 32 kNN build (B1 + B4 once a
+    4096-row block), then exact, iq8, rpq32 and rpq64 (2048 cells) over
+    that graph at the JAX protocol's widths. The launch counts are read
+    around the build and around each quantizer's sweep: B5 once a round in
+    the rpq rows, no kernel in the exact and iq8 rows. Then exact traversal
+    at L = 48, B5 by id bit for bit at one real rpq64 round (1000 x 4 x 32
+    candidates, m = 64, 2048 cells), B1 and B4 at the cosine build's shape
+    (4096 x 1.2M, NB 4096, B1's norm-free form; kk 260), and the native
+    cosine build through `build_index_from_vectors(metric="cosine")` (293
+    B1 launches, every one norm-free, and 293 B4), served by
+    `SearchEngine.search_batch` at l_search 32 / 48 (exact traversal: no
+    kernel). Recall@10 is gated at the JAX figures less 0.01 (rpq32: 0.03)
+    at 1.2M only; at another `n` the phase measures."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k, sweep_exact
+    from diskrag_tpu_torch.build_index import build_index_from_vectors
+    from diskrag_tpu_torch.engine import SearchEngine
+    from diskrag_tpu_torch.graph.search import beam_search_pq
+    from diskrag_tpu_torch.tools import angular_bench
+
+    cell = "angular-1.2M-R32" if n == ANGULAR_N else f"angular-{n}-R32"
+    at_cell = n == ANGULAR_N
+    blocks = -(-n // 4096)
+    t_phase = time.perf_counter()
+
+    # 1. the JAX protocol, in process
+    keep: dict = {}
+    torch.cuda.empty_cache()
+    reset_counts()
+    with _b1_forms_and_build_stages() as l2_forms:
+        result = angular_bench.run(n=n, dim=MAIN_D, n_queries=MAIN_B, k=MAIN_K, device="cuda",
+                                   min_seconds=0.5, keep=keep)
+    launches = keep["launches"]
+    require(launches["build"]["B1"] == launches["build"]["B4"] == blocks
+            and not any(v for kid, v in launches["build"].items() if kid not in ("B1", "B4")),
+            f"the angular L2 build did not launch B1 and B4 once a block: {launches['build']}")
+    require(len(l2_forms["b1"]) == blocks and all(f["use_norms"] for f in l2_forms["b1"]),
+            "the L2 build ran B1's norm-free form")
+    index, q, gt = keep["index"], keep["queries"], keep["gt"]
+    stages = result["stage_seconds"]
+    build = {"build_seconds": result["build_seconds"],
+             "stage_seconds": {k: v for k, v in stages.items() if k != "peak_device_bytes"},
+             "peak_device_bytes_by_stage": stages["peak_device_bytes"],
+             "peak_device_bytes": max(stages["peak_device_bytes"].values()),
+             "launches": launches["build"], "entry_points": int(index.entry_points.shape[0]),
+             "no_in_edge_share": index.no_in_edge_share()}
+    emit({"phase": "main-angular", "cell": cell, "step": "build l2", "n": n, "d": MAIN_D,
+          "degree_bound": 32, **build, "card": smi})
+    rows, rounds_rpq, b5_rpq = [], 0, 0
+    for p in keep["sweep_points"]:
+        key = (p.mode, p.search_width, p.expand_width)
+        row = {"mode": p.mode, "L": p.search_width, "E": p.expand_width,
+               "recall_at_10": p.recall, "qps": p.qps,
+               "ms_per_batch": p.mean_latency_ms * len(q), "rounds_per_pass": p.rounds,
+               "passes": p.passes, **_angular_gate(key, p.recall, at_cell)}
+        rows.append(row)
+    for group, got in launches.items():
+        if group == "build":
+            continue
+        pts_g = [p for p in keep["sweep_points"] if p.mode.split("+")[0] == group]
+        rounds = sum(p.rounds * p.passes for p in pts_g)
+        others = {kid: v for kid, v in got.items() if kid != "B5"}
+        if group.startswith("rpq"):
+            require(got["B5"] == rounds > 0 and not any(others.values()),
+                    f"{group}: B5 launches {got} != the rounds executed {rounds}")
+            rounds_rpq += rounds
+            b5_rpq += got["B5"]
+        else:
+            require(not any(got.values()), f"{group}: the traversal launched {got}")
+    emit({"phase": "main-angular", "cell": cell, "step": "sweeps", "queries": len(q),
+          "k": MAIN_K, "points": rows, "launches": {g: v for g, v in launches.items()
+                                                    if g != "build"},
+          "quantizer_seconds": keep["quantizer_seconds"], "card": smi})
+
+    # 2. exact traversal at L = 48 on the same graph
+    reset_counts()
+    p48 = sweep_exact(index, q, gt, k=MAIN_K, widths=(48,), expand_widths=(8,),
+                      min_seconds=0.5)[0]
+    got = read_counts()
+    require(not any(got.values()), f"exact L=48 launched {got}")
+    l2_recall = {p.search_width: p.recall for p in keep["sweep_points"] if p.mode == "exact"}
+    l2_recall[48] = p48.recall
+    emit({"phase": "main-angular", "cell": cell, "step": "exact L=48", "mode": "exact", "L": 48,
+          "E": 8, "recall_at_10": p48.recall, "qps": p48.qps,
+          "ms_per_batch": p48.mean_latency_ms * len(q), "rounds_per_pass": p48.rounds,
+          **_angular_gate(("exact", 48, 8), p48.recall, at_cell), "card": smi})
+
+    # 3. B5 by id at one real rpq64 round: 1000 queries x E * R = 128
+    # candidates, m = 64, over the 2048 coarse cells
+    rpq, codes, cids = keep["rpq64"]
+    qd = torch.as_tensor(q, device="cuda")
+    cells = cids.to(torch.int32)
+    with _captured_b5_round(2) as op:
+        beam_search_pq(codes, rpq.inner_tables(qd), index.adjacency, index.medoid,
+                       search_width=64, k=MAIN_K, rerank=True, vectors=index.vectors, queries=qd,
+                       expand_width=4, entry_points=index.entry_points, point_cell=cells,
+                       point_bias=rpq.point_bias(codes, cells), cell_tables=rpq.cell_tables(qd))
+    require(tuple(op["ids"].shape) == (len(q), 4 * 32) and op["tables"].shape[1] == 64
+            and op["aux"]["cell_tables"].shape[1] == rpq.n_coarse,
+            f"captured round: ids {tuple(op['ids'].shape)}, m {op['tables'].shape[1]}, "
+            f"cells {op['aux']['cell_tables'].shape[1]}")
+    b5 = {"rows": codes.shape[0], "cells": int(rpq.n_coarse),
+          **_b5_compact(b5_ids_row(op["tables"], op["code_table"], op["ids"], op["aux"]))}
+    emit({"phase": "main-angular", "cell": cell, "kernel": "B5",
+          "operands": "one rpq64 round (L = 64, E = 4)", **b5, "card": smi})
+    pts = keep["points"]
+    del op, rpq, codes, cids, cells, qd, index, keep
+    torch.cuda.empty_cache()
+
+    # 4. B1's norm-free form and B4 at the cosine build's shape
+    shape = phase_build_shape_kernels(pts, smi, metric="cosine")
+
+    # 5. the native cosine build, through the entry points a user calls
+    index_dir = make_collection(base, "angular_cosine", pts)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _b1_forms_and_build_stages() as cos_forms:
+        meta = build_index_from_vectors(pts, index_dir, metric="cosine", index_type="vamana",
+                                        params_override={"R": 32}, device="cuda")
+    torch.cuda.synchronize()
+    cos_seconds = time.perf_counter() - t0
+    cos_launches = read_counts()
+    norm_forms = sorted({f["use_norms"] for f in cos_forms["b1"]})
+    require(cos_launches["B1"] == cos_launches["B4"] == blocks == len(cos_forms["b1"]),
+            f"the cosine build did not launch B1 and B4 once a block: {cos_launches}")
+    require(norm_forms == [False] and all(f["b"] <= 4096 and f["n"] == n and f["nb"] == 4096
+                                          for f in cos_forms["b1"]),
+            f"the cosine build's B1 operands: use_norms {norm_forms}")
+    require(meta["distance_metric"] == "cosine" and meta["R"] == 32,
+            f"cosine build meta: {meta['distance_metric']}, R {meta['R']}")
+    cos_stages = cos_forms["stages"][0]
+    engine = SearchEngine("angular_cosine", base_dir=str(base), device="cuda")
+    require(engine.index.metric == "cosine", "the engine did not load a cosine graph")
+    cos_build = {"seconds": cos_seconds, "graph_seconds": meta["build_seconds"],
+                 "stage_seconds": {k: v for k, v in cos_stages.items()
+                                   if k != "peak_device_bytes"},
+                 "peak_device_bytes_by_stage": cos_stages["peak_device_bytes"],
+                 "peak_device_bytes": max(cos_stages["peak_device_bytes"].values()),
+                 "launches": cos_launches, "b1_forms": {"use_norms": norm_forms,
+                                                        "launches": len(cos_forms["b1"])},
+                 "pq_kind": meta.get("pq_kind"), "use_pq": meta.get("use_pq"),
+                 "no_in_edge_share": engine.index.no_in_edge_share()}
+    emit({"phase": "main-angular", "cell": cell, "step": "build cosine", **cos_build,
+          "card": smi})
+    serve_rows = []
+    for width in (32, 48):
+        engine.search_batch(q, k=MAIN_K, l_search=width)
+        dists, ids, stats, batch_s, got = drive(engine, q, 3, l_search=width)
+        require(not any(got.values()), f"cosine engine L={width} launched {got}")
+        require(all(s["search_type"] == "exact" for s in stats),
+                f"cosine engine served {stats[0]['search_type']}")
+        ids, dists = np.asarray(ids), np.asarray(dists, np.float64)
+        # 1 - cos in f64 on the returned ids: no sqrt was taken
+        v = pts[ids.reshape(-1)].reshape(*ids.shape, -1).astype(np.float64)
+        qn = q.astype(np.float64) / np.linalg.norm(q.astype(np.float64), axis=1, keepdims=True)
+        want = 1.0 - np.einsum("bd,bkd->bk", qn, v / np.linalg.norm(v, axis=-1, keepdims=True))
+        err = float(np.abs(dists - want).max())
+        require(bool(np.isfinite(dists).all()) and float(dists.min()) >= -1e-6
+                and float(dists.max()) <= 2.0 + 1e-6 and err <= 1e-5
+                and bool((np.diff(dists, axis=1) >= 0).all()),
+                f"cosine distances at L={width}: range [{dists.min()}, {dists.max()}], "
+                f"off 1 - cos by {err}")
+        rec = recall_at_k(ids, gt, MAIN_K)
+        row = {"mode": "engine-cosine", "L": width, "E": 1, "recall_at_10": rec,
+               "l2_on_normalized_recall": l2_recall[width],
+               "ms_per_batch": [s * 1e3 for s in batch_s],
+               "qps": len(q) / min(batch_s), "rounds": stats[0].get("rounds"),
+               "distance_range": [float(dists.min()), float(dists.max())],
+               "distance_max_err_vs_1_minus_cos": err, "launches": got,
+               "jax_package_recorded": ANGULAR_COSINE_JAX_RECALL[width]}
+        if at_cell:
+            gate = round(ANGULAR_COSINE_JAX_RECALL[width] - ANGULAR_SLACK, 4)
+            require(rec >= gate, f"cosine engine recall@10 {rec} < {gate} at L={width}")
+            require(abs(rec - l2_recall[width]) <= ANGULAR_SLACK,
+                    f"cosine {rec} and L2 on normalized {l2_recall[width]} differ at L={width}")
+            row["recall_gate"] = gate
+        serve_rows.append(row)
+        emit({"phase": "main-angular", "cell": cell, "step": "engine cosine", **row, "card": smi})
+    del engine
+    shutil.rmtree(base / "angular_cosine", ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "main-angular", "cell": cell, "n": n,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"build_launches": {"l2": launches["build"], "cosine": cos_launches},
+            "build_shape_cosine": shape, "b5": b5, "b5_launches": b5_rpq, "rounds": rounds_rpq}
+
+
 def main() -> int:
     try:
         import torch
@@ -3963,12 +4244,20 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
     dev = phase_device()
-    if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"], ["--sharded-n"], ["--host-tier-n"]):
+    if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"], ["--sharded-n"], ["--host-tier-n"],
+                         ["--angular-n"]):
         from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
         n = int(sys.argv[2])
         if sys.argv[1] == "--streaming-n":
             phase_main_streaming(dev["smi"], base_n=n)
+        elif sys.argv[1] == "--angular-n":
+            base = ROOT / "build" / "chip_smoke" / "collections"
+            shutil.rmtree(base, ignore_errors=True)
+            try:
+                phase_main_angular(dev["smi"], base, n)
+            finally:
+                shutil.rmtree(base, ignore_errors=True)
         elif sys.argv[1] == "--host-tier-n":
             t = time.perf_counter()
             pts, q = make_dataset(n, MAIN_D, MAIN_B, seed=42)
@@ -4036,9 +4325,14 @@ def main() -> int:
         emit({"phase": "main-sharded", "step": "total with dryrun and multihost",
               "seconds": time.perf_counter() - t})
         del sets[MAIN_N]
+        angular = phase_main_angular(dev["smi"], base)
         build_shapes = phase_build_shape_kernels(sets[CMP_N][0], dev["smi"])
-        for row in out["kernels"][:2]:  # B1, B4: their shapes inside the graph build
-            row["graph_build_shape"] = build_shapes[row["name"][:2]]
+        for row in out["kernels"][:2]:  # B1, B4: their shapes inside the graph builds
+            kid = row["name"][:2]
+            row["graph_build_shape"] = build_shapes[kid]
+            row["angular_build_shape_cosine"] = angular["build_shape_cosine"][kid]
+            row["launches_angular_builds"] = {form: angular["build_launches"][form][kid]
+                                              for form in ("l2", "cosine")}
         graph = phase_main_graph(dev["smi"], *sets[CMP_N])
         b5 = phase_main_vamana(dev["smi"], base, *sets[CMP_N])
         auto_recall = b5.pop("auto_recall_at_64")
@@ -4061,6 +4355,9 @@ def main() -> int:
         b5_row["launches_host_tier_ladder_rpq64"] = ladder["b5_launches"]
         b5_row["rounds_host_tier_ladder_rpq64"] = ladder["rounds"]
         b5_row["rounds_sharded_host_tier_pq"] = sharded["rounds"]
+        b5_row["angular_shape"] = angular["b5"]
+        b5_row["launches_angular_rpq"] = angular["b5_launches"]
+        b5_row["rounds_angular_rpq"] = angular["rounds"]
         phase_ivf(dev["smi"], base, *sets[CMP_N])
         phase_ivfknn_resume(dev["smi"], sets[CMP_N][0])
         streaming = phase_main_streaming(dev["smi"])

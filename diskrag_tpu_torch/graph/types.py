@@ -78,3 +78,12 @@ class VamanaIndex:
     def degrees(self) -> torch.Tensor:
         """Out-degree per node."""
         return torch.sum(self.adjacency >= 0, dim=1)
+
+    def no_in_edge_share(self) -> float:
+        """Share of the nodes no edge points to: a search reaches them only
+        as seeds (the medoid, the entry points)."""
+        n = self.n_points
+        targets = self.adjacency.reshape(-1).long()
+        hit = torch.zeros(n, dtype=torch.bool, device=self.device)
+        hit[targets[targets >= 0]] = True
+        return float(n - int(hit.sum())) / n

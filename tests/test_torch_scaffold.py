@@ -38,7 +38,7 @@ import diskrag_tpu_torch.index.streaming, diskrag_tpu_torch.tools.streaming_benc
 import diskrag_tpu_torch.parallel, diskrag_tpu_torch.parallel.mesh, diskrag_tpu_torch.parallel.sharded
 import diskrag_tpu_torch.parallel.host_tier, diskrag_tpu_torch.parallel.multihost
 import diskrag_tpu_torch.parallel.dryrun, diskrag_tpu_torch.tools.multihost_check
-import diskrag_tpu_torch.tools.serving_bench
+import diskrag_tpu_torch.tools.serving_bench, diskrag_tpu_torch.tools.angular_bench
 import importlib.util
 _spec = importlib.util.spec_from_file_location("bench_cuda", "bench_cuda.py")
 bench_cuda = importlib.util.module_from_spec(_spec)
