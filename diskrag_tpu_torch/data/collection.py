@@ -36,6 +36,7 @@ from typing import Any, Optional
 
 import numpy as np
 from diskrag_tpu_torch.data.config import CollectionInfo, get_text_hash
+from diskrag_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -221,108 +222,115 @@ class CollectionManager:
         [K, D] and their assigned vector_index values [K] (duplicates
         excluded) — the live-ingest path (engine.insert_texts) needs
         them to mirror the append into the serving tier."""
-        info = self.get_collection_info(name)
-        if not info:
-            raise ValueError(f"collection {name} not found")
-        vectors = np.asarray(vectors, np.float32)
-        if vectors.ndim != 2 or vectors.shape[1] != info.dimension:
-            raise ValueError(
-                f"vector shape {vectors.shape} does not match dimension "
-                f"{info.dimension}"
-            )
-        if not (len(vectors) == len(texts) == len(metadata_list)):
-            raise ValueError("vectors/texts/metadata length mismatch")
+        with span("collection.update"):
+            info = self.get_collection_info(name)
+            if not info:
+                raise ValueError(f"collection {name} not found")
+            vectors = np.asarray(vectors, np.float32)
+            if vectors.ndim != 2 or vectors.shape[1] != info.dimension:
+                raise ValueError(
+                    f"vector shape {vectors.shape} does not match dimension "
+                    f"{info.dimension}"
+                )
+            if not (len(vectors) == len(texts) == len(metadata_list)):
+                raise ValueError("vectors/texts/metadata length mismatch")
 
-        df = self._read_metadata(name)
-        existing = set(df["text_hash"].tolist())
+            df = self._read_metadata(name)
+            existing = set(df["text_hash"].tolist())
 
-        # reconcile vectors.npy with the committed metadata BEFORE
-        # assigning vector_index: vectors are replaced first in the
-        # commit sequence below, so a crash between the two writes
-        # leaves orphan vector rows with no metadata — appending on top
-        # of them would silently shift every later row's vector_index
-        # off its actual vector
-        old_vecs = np.load(self.get_vectors_path(name))
-        if old_vecs.ndim == 1:
-            old_vecs = old_vecs.reshape(-1, info.dimension)
-        n_committed = int(info.num_vectors)
-        if len(old_vecs) < n_committed:
-            raise ValueError(
-                f"collection {name} is corrupt: vectors.npy has "
-                f"{len(old_vecs)} rows but metadata records {n_committed}"
-            )
-        if len(old_vecs) > n_committed:
-            logger.warning(
-                "collection %s: dropping %d orphan vector row(s) from an "
-                "interrupted update (no metadata committed for them)",
-                name, len(old_vecs) - n_committed,
-            )
-            old_vecs = old_vecs[:n_committed]
+            # reconcile vectors.npy with the committed metadata BEFORE
+            # assigning vector_index: vectors are replaced first in the
+            # commit sequence below, so a crash between the two writes
+            # leaves orphan vector rows with no metadata — appending on top
+            # of them would silently shift every later row's vector_index
+            # off its actual vector
+            old_vecs = np.load(self.get_vectors_path(name))
+            if old_vecs.ndim == 1:
+                old_vecs = old_vecs.reshape(-1, info.dimension)
+            n_committed = int(info.num_vectors)
+            if len(old_vecs) < n_committed:
+                raise ValueError(
+                    f"collection {name} is corrupt: vectors.npy has "
+                    f"{len(old_vecs)} rows but metadata records {n_committed}"
+                )
+            if len(old_vecs) > n_committed:
+                logger.warning(
+                    "collection %s: dropping %d orphan vector row(s) from an "
+                    "interrupted update (no metadata committed for them)",
+                    name, len(old_vecs) - n_committed,
+                )
+                old_vecs = old_vecs[:n_committed]
 
-        keep_rows = []
-        keep_vecs = []
-        next_index = n_committed
-        for i, text in enumerate(texts):
-            h = get_text_hash(text)
-            if h in existing:
-                continue
-            existing.add(h)
-            meta = metadata_list[i]
-            keep_rows.append(
-                {
-                    "text": text,
-                    "text_hash": h,
-                    "vector_index": next_index,
-                    "metadata": json.dumps(meta, ensure_ascii=False)
-                    if not isinstance(meta, str)
-                    else meta,
-                }
-            )
-            keep_vecs.append(vectors[i])
-            info.text_hashes.add(h)
-            info.vector_offsets[h] = next_index
-            next_index += 1
+            with span("collection.rows"):
+                keep_rows = []
+                keep_vecs = []
+                next_index = n_committed
+                for i, text in enumerate(texts):
+                    h = get_text_hash(text)
+                    if h in existing:
+                        continue
+                    existing.add(h)
+                    meta = metadata_list[i]
+                    keep_rows.append(
+                        {
+                            "text": text,
+                            "text_hash": h,
+                            "vector_index": next_index,
+                            "metadata": json.dumps(meta, ensure_ascii=False)
+                            if not isinstance(meta, str)
+                            else meta,
+                        }
+                    )
+                    keep_vecs.append(vectors[i])
+                    info.text_hashes.add(h)
+                    info.vector_offsets[h] = next_index
+                    next_index += 1
+            count("collection.rows_added", len(keep_rows))
+            count("collection.rows_duplicate", len(texts) - len(keep_rows))
 
-        if not keep_rows:
-            logger.warning("no new texts to add to %s (all duplicates)", name)
+            if not keep_rows:
+                logger.warning("no new texts to add to %s (all duplicates)", name)
+                if return_rows:
+                    dim = info.dimension
+                    return (
+                        info,
+                        np.empty((0, dim), np.float32),
+                        np.empty((0,), np.int32),
+                    )
+                return info
+
+            with span("collection.vectors_write"):
+                all_vecs = np.vstack([old_vecs, np.stack(keep_vecs)])
+                tmp = self.get_vectors_path(name).with_suffix(".npy.tmp")
+                with open(tmp, "wb") as f:
+                    np.save(f, all_vecs)
+                os.replace(tmp, self.get_vectors_path(name))
+
+            import pandas as pd
+
+            with span("collection.metadata_write"):
+                new_df = pd.concat([df, pd.DataFrame(keep_rows)], ignore_index=True)
+                self._write_metadata(name, new_df)
+
+            info.num_vectors = next_index
+            info.updated_at = _now()
+            if source_file and source_file not in info.source_files:
+                info.source_files.append(source_file)
+            with span("collection.info_write"):
+                self.save_collection_info(info)
+            logger.info(
+                "collection %s: +%d vectors (now %d)", name, len(keep_rows),
+                info.num_vectors,
+            )
             if return_rows:
-                dim = info.dimension
                 return (
                     info,
-                    np.empty((0, dim), np.float32),
-                    np.empty((0,), np.int32),
+                    np.stack(keep_vecs),
+                    np.asarray(
+                        [r["vector_index"] for r in keep_rows], np.int32
+                    ),
                 )
             return info
-
-        all_vecs = np.vstack([old_vecs, np.stack(keep_vecs)])
-        tmp = self.get_vectors_path(name).with_suffix(".npy.tmp")
-        with open(tmp, "wb") as f:
-            np.save(f, all_vecs)
-        os.replace(tmp, self.get_vectors_path(name))
-
-        import pandas as pd
-
-        new_df = pd.concat([df, pd.DataFrame(keep_rows)], ignore_index=True)
-        self._write_metadata(name, new_df)
-
-        info.num_vectors = next_index
-        info.updated_at = _now()
-        if source_file and source_file not in info.source_files:
-            info.source_files.append(source_file)
-        self.save_collection_info(info)
-        logger.info(
-            "collection %s: +%d vectors (now %d)", name, len(keep_rows),
-            info.num_vectors,
-        )
-        if return_rows:
-            return (
-                info,
-                np.stack(keep_vecs),
-                np.asarray(
-                    [r["vector_index"] for r in keep_rows], np.int32
-                ),
-            )
-        return info
 
     def rebuild_collection(self, name: str) -> CollectionInfo:
         """Rebuild collection_info from the metadata parquet + vectors

@@ -70,6 +70,7 @@ import torch
 
 from diskrag_tpu_torch.data.collection import CollectionManager
 from diskrag_tpu_torch.device import resolve_device
+from diskrag_tpu_torch.utils.profiling import request, span
 
 logger = logging.getLogger(__name__)
 
@@ -157,11 +158,6 @@ class SearchEngine:
         # reranks chunk i while the device traverses chunk i+1)
         self.host_tier_pipeline_chunk = 256
         self.collection_name = collection_name
-        self.manager = CollectionManager(base_dir)
-        info = self.manager.get_collection_info(collection_name)
-        if info is None:
-            raise ValueError(f"collection {collection_name} not found")
-        self.info = info
         self._lock = threading.Lock() if use_lock else None
         self._stats: dict[str, float] = {
             "total_searches": 0,
@@ -187,15 +183,23 @@ class SearchEngine:
         self.use_pq = False
         self.brute_force_mode = False
         self.recommended_l = 0
-        self._load_artifacts()
-        if serving_mode == "streaming":
-            self._init_streaming()
-        self.diagnostics: Optional[dict] = None
-        if run_diagnostics:
-            try:
-                self.diagnostics = self._run_diagnostic_check()
-            except Exception as e:  # noqa: BLE001 — diagnostic is non-fatal
-                logger.warning("startup diagnostic failed (non-fatal): %s", e)
+        with span("engine.load"):
+            self.manager = CollectionManager(base_dir)
+            info = self.manager.get_collection_info(collection_name)
+            if info is None:
+                raise ValueError(f"collection {collection_name} not found")
+            self.info = info
+            with span("engine.load_artifacts"):
+                self._load_artifacts()
+                if serving_mode == "streaming":
+                    self._init_streaming()
+            self.diagnostics: Optional[dict] = None
+            if run_diagnostics:
+                try:
+                    with span("engine.diagnostic"):
+                        self.diagnostics = self._run_diagnostic_check()
+                except Exception as e:  # noqa: BLE001 — diagnostic is non-fatal
+                    logger.warning("startup diagnostic failed (non-fatal): %s", e)
 
     # --- bring-up --------------------------------------------------------
     def _load_artifacts(self) -> None:
@@ -558,8 +562,10 @@ class SearchEngine:
         traversal on a PQ-enabled graph; a flat scan reads neither it nor
         `l_search`, an IVF index takes its probe count from `l_search`."""
         t0 = time.perf_counter()
-        q, b, l_search = self._prep_queries(query_vectors, k, l_search)
-        disp = self._dispatch_search(q, b, k, l_search, use_pq_search)
+        with span("engine.prep"):
+            q, b, l_search = self._prep_queries(query_vectors, k, l_search)
+        with span("engine.dispatch"):
+            disp = self._dispatch_search(q, b, k, l_search, use_pq_search)
         return self._finish_search(disp, b=b, k=k, l_search=l_search, t0=t0)
 
     def _prep_queries(self, query_vectors, k: int, l_search: Optional[int]):
@@ -616,15 +622,16 @@ class SearchEngine:
         kind, payload, kk, event, meta = disp
         t_fetch = time.perf_counter()
         n_steps = 0
-        if kind == "packed":
-            if event is not None:
-                event.synchronize()
-            dists, ids, counter, n_steps = _decode_packed(payload.numpy(), kk)
-        else:
-            dists, ids = payload
-            ids = np.asarray(ids)
-            dists = np.asarray(dists, np.float64)
-            counter = 0
+        with span("engine.fetch"):
+            if kind == "packed":
+                if event is not None:
+                    event.synchronize()
+                dists, ids, counter, n_steps = _decode_packed(payload.numpy(), kk)
+            else:
+                dists, ids = payload
+                ids = np.asarray(ids)
+                dists = np.asarray(dists, np.float64)
+                counter = 0
         fetch_time = time.perf_counter() - t_fetch
         nodes_visited, n_exact, n_pq = meta["counts"](counter)
         if self.meta.get("distance_metric", "l2") == "l2":
@@ -790,26 +797,28 @@ class SearchEngine:
             raise ValueError("embedding_fn is required to embed the queries")
         if not queries:
             raise ValueError("queries must be non-empty")
-        t_total = time.perf_counter()
-        qv = np.stack([np.asarray(embedding_fn(q), np.float32) for q in queries])
-        embedding_time = time.perf_counter() - t_total
-        if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
-            raise ValueError(
-                f"query vector dimension mismatch: expected "
-                f"{self.info.dimension}, got {qv.shape}"
+        with request("engine.request", batch=len(queries), mode=self.serving_mode):
+            t_total = time.perf_counter()
+            with span("engine.embed"):
+                qv = np.stack([np.asarray(embedding_fn(q), np.float32) for q in queries])
+            embedding_time = time.perf_counter() - t_total
+            if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
+                raise ValueError(
+                    f"query vector dimension mismatch: expected "
+                    f"{self.info.dimension}, got {qv.shape}"
+                )
+            dists, ids, stats = self.search_batch(
+                qv, k=k, l_search=l_search, use_pq_search=use_pq_search
             )
-        dists, ids, stats = self.search_batch(
-            qv, k=k, l_search=l_search, use_pq_search=use_pq_search
-        )
-        return {
-            "results": self._attach_texts_batch(ids, dists),
-            "timing": {
-                "embedding_time": embedding_time,
-                "search_time": stats["search_time"],
-                "total_time": time.perf_counter() - t_total,
-            },
-            "stats": stats,
-        }
+            return {
+                "results": self._attach_texts_batch(ids, dists),
+                "timing": {
+                    "embedding_time": embedding_time,
+                    "search_time": stats["search_time"],
+                    "total_time": time.perf_counter() - t_total,
+                },
+                "stats": stats,
+            }
 
     def search_pipelined(
         self,
@@ -836,6 +845,7 @@ class SearchEngine:
         An error in a dispatch raises here; one in a worker re-raises from
         its future."""
         import concurrent.futures as cf
+        import contextvars
         from collections import deque
 
         if embedding_fn is None:
@@ -859,17 +869,25 @@ class SearchEngine:
         pending: deque = deque()
         with cf.ThreadPoolExecutor(max_workers=max(1, max_in_flight)) as ex:
             for bi, texts in enumerate(query_batches):
-                t_start = time.perf_counter()
-                qv = np.stack([np.asarray(embedding_fn(t), np.float32) for t in texts])
-                t_emb = time.perf_counter() - t_start
-                if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
-                    raise ValueError(
-                        f"query vector dimension mismatch: expected "
-                        f"{self.info.dimension}, got {qv.shape}"
-                    )
-                q, b, ls = self._prep_queries(qv, k, l_search)
-                disp = self._dispatch_search(q, b, k, ls, use_pq_search)
-                pending.append((bi, ex.submit(finish_and_join, disp, b, ls, t_start, t_emb)))
+                # the batch's request span closes once its drain is handed
+                # over; the drain's spans carry its id from the worker
+                with request("engine.request", batch=len(texts), mode=self.serving_mode):
+                    t_start = time.perf_counter()
+                    with span("engine.embed"):
+                        qv = np.stack([np.asarray(embedding_fn(t), np.float32) for t in texts])
+                    t_emb = time.perf_counter() - t_start
+                    if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
+                        raise ValueError(
+                            f"query vector dimension mismatch: expected "
+                            f"{self.info.dimension}, got {qv.shape}"
+                        )
+                    with span("engine.prep"):
+                        q, b, ls = self._prep_queries(qv, k, l_search)
+                    with span("engine.dispatch"):
+                        disp = self._dispatch_search(q, b, k, ls, use_pq_search)
+                    fut = ex.submit(contextvars.copy_context().run, finish_and_join,
+                                    disp, b, ls, t_start, t_emb)
+                pending.append((bi, fut))
                 while len(pending) > max_in_flight:
                     bj, fut = pending.popleft()
                     out[bj] = fut.result()
@@ -1104,27 +1122,30 @@ class SearchEngine:
     ) -> list[list[dict]]:
         """Text join for a [B, K] result batch: one column-store lookup
         for all B*K ids."""
-        ids = np.asarray(ids)
-        found = self.manager.get_texts_by_indices(
-            self.collection_name, ids[ids >= 0].tolist()
-        )
-        results: list[list[dict]] = []
-        j = 0
-        for id_row, dist_row in zip(
-            ids.tolist(), np.asarray(dists, np.float64).tolist()
-        ):
-            row: list[dict] = []
-            for idx, dist in zip(id_row, dist_row):
-                if idx < 0:
-                    continue
-                item = found[j]
-                j += 1
-                if item is None:
-                    continue
-                text, metadata = item
-                if not isinstance(metadata, dict):
-                    metadata = {"id": idx, "text": text}
-                row.append({"text": text, "distance": dist, "metadata": metadata})
-            results.append(row)
+        with span("engine.join"):
+            ids = np.asarray(ids)
+            with span("engine.join.lookup"):
+                found = self.manager.get_texts_by_indices(
+                    self.collection_name, ids[ids >= 0].tolist()
+                )
+            with span("engine.join.build"):
+                results: list[list[dict]] = []
+                j = 0
+                for id_row, dist_row in zip(
+                    ids.tolist(), np.asarray(dists, np.float64).tolist()
+                ):
+                    row: list[dict] = []
+                    for idx, dist in zip(id_row, dist_row):
+                        if idx < 0:
+                            continue
+                        item = found[j]
+                        j += 1
+                        if item is None:
+                            continue
+                        text, metadata = item
+                        if not isinstance(metadata, dict):
+                            metadata = {"id": idx, "text": text}
+                        row.append({"text": text, "distance": dist, "metadata": metadata})
+                    results.append(row)
         return results
 

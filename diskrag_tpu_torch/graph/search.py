@@ -18,6 +18,13 @@ spread of asking every round.
 
 Every selection is a stable sort (`ops/topk.py`): the lower slot first
 among equal distances, as `lax.top_k`.
+
+With tracing on (`utils/profiling.py`) the seeding is a `graph.seed` span
+and each loop iteration a `graph.round` span (attribute `step`) made of
+`graph.round.select`, `graph.round.sync` (the wait on "is any query still
+active?"), `graph.round.expand` and `graph.round.merge`; the counters
+`graph.iterations` and `graph.rounds` count the iterations and the rounds
+executed (the last iteration stops at its sync).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from diskrag_tpu_torch.ops.distance import Metric, pairwise_distance, squared_norms
 from diskrag_tpu_torch.ops.topk import INF, INVALID_ID, mask_duplicates, topk_smallest
+from diskrag_tpu_torch.utils.profiling import count, span
 
 @dataclasses.dataclass(frozen=True)
 class SearchResult:
@@ -126,109 +134,120 @@ def _frontier_search(
     visited_cap = max_steps * e
 
     # --- initial candidate list: medoid (+ optional entry points) --------
-    if entry_points is None:
-        seeds = medoid[None]
-    else:
-        seeds = torch.cat([medoid[None], entry_points.to(device=dev, dtype=torch.int32)])
-    s = seeds.shape[0]
-    seeds_b = seeds[None, :].expand(b, s)
-    if seed_expand_fn is not None:
-        d0 = seed_expand_fn(seeds.long())
-    else:
-        d0 = expand_fn(seeds_b.long())
-    if s > 1:
-        # entry_points are unique (the build guarantees it); only the
-        # medoid can repeat — mask those copies
-        dup_med = (seeds == medoid) & (torch.arange(s, device=dev) > 0)
-        d0 = torch.where(dup_med[None, :], INF, d0)
-    if s >= search_width:
-        cand_dists, take = topk_smallest(d0, search_width)
-        cand_ids = torch.gather(seeds_b, 1, take)
-        cand_ids = torch.where(torch.isinf(cand_dists), INVALID_ID, cand_ids)
-    else:
-        pad = search_width - s
-        cand_ids = torch.cat(
-            [
-                torch.where(torch.isinf(d0), INVALID_ID, seeds_b),
-                torch.full((b, pad), INVALID_ID, dtype=torch.int32, device=dev),
-            ],
-            dim=1,
-        )
-        cand_dists = torch.cat(
-            [d0, torch.full((b, pad), INF, dtype=torch.float32, device=dev)], dim=1
-        )
-    expanded = cand_ids == INVALID_ID
+    with span("graph.seed"):
+        if entry_points is None:
+            seeds = medoid[None]
+        else:
+            seeds = torch.cat([medoid[None], entry_points.to(device=dev, dtype=torch.int32)])
+        s = seeds.shape[0]
+        seeds_b = seeds[None, :].expand(b, s)
+        if seed_expand_fn is not None:
+            d0 = seed_expand_fn(seeds.long())
+        else:
+            d0 = expand_fn(seeds_b.long())
+        if s > 1:
+            # entry_points are unique (the build guarantees it); only the
+            # medoid can repeat — mask those copies
+            dup_med = (seeds == medoid) & (torch.arange(s, device=dev) > 0)
+            d0 = torch.where(dup_med[None, :], INF, d0)
+        if s >= search_width:
+            cand_dists, take = topk_smallest(d0, search_width)
+            cand_ids = torch.gather(seeds_b, 1, take)
+            cand_ids = torch.where(torch.isinf(cand_dists), INVALID_ID, cand_ids)
+        else:
+            pad = search_width - s
+            cand_ids = torch.cat(
+                [
+                    torch.where(torch.isinf(d0), INVALID_ID, seeds_b),
+                    torch.full((b, pad), INVALID_ID, dtype=torch.int32, device=dev),
+                ],
+                dim=1,
+            )
+            cand_dists = torch.cat(
+                [d0, torch.full((b, pad), INF, dtype=torch.float32, device=dev)], dim=1
+            )
+        expanded = cand_ids == INVALID_ID
 
-    visited_ids = torch.full((b, visited_cap), INVALID_ID, dtype=torch.int32, device=dev)
-    visited_dists = torch.full((b, visited_cap), INF, dtype=torch.float32, device=dev)
-    n_expanded = torch.zeros((b,), dtype=torch.int32, device=dev)
-    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
+        visited_ids = torch.full((b, visited_cap), INVALID_ID, dtype=torch.int32, device=dev)
+        visited_dists = torch.full((b, visited_cap), INF, dtype=torch.float32, device=dev)
+        n_expanded = torch.zeros((b,), dtype=torch.int32, device=dev)
+        n_steps = torch.zeros((), dtype=torch.int32, device=dev)
 
-    l_new = min(search_width, e * r)
-    slot_iota = torch.arange(search_width, device=dev)
-    lower = torch.tril(torch.ones((l_new, l_new), dtype=torch.bool, device=dev), diagonal=-1)
-    fresh = torch.zeros((b, l_new), dtype=torch.bool, device=dev)
+        l_new = min(search_width, e * r)
+        slot_iota = torch.arange(search_width, device=dev)
+        lower = torch.tril(torch.ones((l_new, l_new), dtype=torch.bool, device=dev), diagonal=-1)
+        fresh = torch.zeros((b, l_new), dtype=torch.bool, device=dev)
 
     for step in range(max_steps):
-        frontier = torch.where(expanded | (cand_ids == INVALID_ID), INF, cand_dists)
-        # E closest unexpanded candidates this round
-        sel_dists, sel_slots = topk_smallest(frontier, e)  # [B, E]
-        active = sel_dists < INF
-        any_active = torch.any(active)
-        if step and not bool(any_active):
-            break
-        n_steps = n_steps + any_active.to(torch.int32)
+        with span("graph.round", step=step):
+            with span("graph.round.select"):
+                frontier = torch.where(expanded | (cand_ids == INVALID_ID), INF, cand_dists)
+                # E closest unexpanded candidates this round
+                sel_dists, sel_slots = topk_smallest(frontier, e)  # [B, E]
+                active = sel_dists < INF
+                any_active = torch.any(active)
+            # the round's one wait on the device
+            with span("graph.round.sync"):
+                done = step and not bool(any_active)
+            count("graph.iterations")
+            if done:
+                break
+            count("graph.rounds")
+            n_steps = n_steps + any_active.to(torch.int32)
 
-        cur_ids = torch.gather(cand_ids, 1, sel_slots)
-        cur_ids_safe = torch.where(active, cur_ids, 0)
+            with span("graph.round.expand"):
+                cur_ids = torch.gather(cand_ids, 1, sel_slots)
+                cur_ids_safe = torch.where(active, cur_ids, 0)
 
-        # mark the selected slots expanded (only where active)
-        hit = torch.any(
-            (slot_iota[None, None, :] == sel_slots[:, :, None]) & active[:, :, None], dim=1
-        )
-        expanded = expanded | hit
+                # mark the selected slots expanded (only where active)
+                hit = torch.any(
+                    (slot_iota[None, None, :] == sel_slots[:, :, None]) & active[:, :, None],
+                    dim=1,
+                )
+                expanded = expanded | hit
 
-        # log visited (E entries per round)
-        visited_ids[:, step * e : (step + 1) * e] = torch.where(active, cur_ids, INVALID_ID)
-        visited_dists[:, step * e : (step + 1) * e] = torch.where(active, sel_dists, INF)
-        n_expanded = n_expanded + torch.sum(active, dim=1, dtype=torch.int32)
+                # log visited (E entries per round)
+                visited_ids[:, step * e : (step + 1) * e] = torch.where(active, cur_ids, INVALID_ID)
+                visited_dists[:, step * e : (step + 1) * e] = torch.where(active, sel_dists, INF)
+                n_expanded = n_expanded + torch.sum(active, dim=1, dtype=torch.int32)
 
-        # expand: gather neighbor ids [B, E, R] -> [B, E*R]; an inactive
-        # slot reads row 0 and `valid` masks it
-        nbrs = adjacency[cur_ids_safe.long()].reshape(b, e * r)
-        valid = (nbrs != INVALID_ID) & active.repeat_interleave(r, dim=1)
-        nbr_dists = expand_fn(torch.clamp(nbrs, 0, n - 1).long())
-        nbr_dists = torch.where(valid, nbr_dists, INF)
+                # expand: gather neighbor ids [B, E, R] -> [B, E*R]; an inactive
+                # slot reads row 0 and `valid` masks it
+                nbrs = adjacency[cur_ids_safe.long()].reshape(b, e * r)
+                valid = (nbrs != INVALID_ID) & active.repeat_interleave(r, dim=1)
+                nbr_dists = expand_fn(torch.clamp(nbrs, 0, n - 1).long())
+                nbr_dists = torch.where(valid, nbr_dists, INF)
 
-        # mask beam-resident duplicates BEFORE the width cut: each one
-        # kept past the cut would waste an insertion slot and drop a
-        # genuinely new candidate ranked just below it
-        on_beam = torch.any(nbrs[:, :, None] == cand_ids[:, None, :], dim=2)
-        nbr_dists = torch.where(on_beam, INF, nbr_dists)
+            with span("graph.round.merge"):
+                # mask beam-resident duplicates BEFORE the width cut: each one
+                # kept past the cut would waste an insertion slot and drop a
+                # genuinely new candidate ranked just below it
+                on_beam = torch.any(nbrs[:, :, None] == cand_ids[:, None, :], dim=2)
+                nbr_dists = torch.where(on_beam, INF, nbr_dists)
 
-        # two-stage merge: cut the E*R fresh candidates down to the L'
-        # best — at most L' can enter the list
-        sel_new_dists, new_take = topk_smallest(nbr_dists, l_new)
-        sel_new_ids = torch.gather(nbrs, 1, new_take)
+                # two-stage merge: cut the E*R fresh candidates down to the L'
+                # best — at most L' can enter the list
+                sel_new_dists, new_take = topk_smallest(nbr_dists, l_new)
+                sel_new_ids = torch.gather(nbrs, 1, new_take)
 
-        # dedup the selected few against the visited log (ids that were on
-        # the beam once and got displaced) and against themselves (one
-        # neighbor reached from two parents in the same round)
-        in_vis = torch.any(sel_new_ids[:, :, None] == visited_ids[:, None, :], dim=2)
-        eq = sel_new_ids[:, :, None] == sel_new_ids[:, None, :]
-        dup = torch.any(eq & lower, dim=2)
-        drop = in_vis | dup | torch.isinf(sel_new_dists)
-        sel_new_dists = torch.where(drop, INF, sel_new_dists)
-        sel_new_ids = torch.where(drop, INVALID_ID, sel_new_ids)
+                # dedup the selected few against the visited log (ids that were on
+                # the beam once and got displaced) and against themselves (one
+                # neighbor reached from two parents in the same round)
+                in_vis = torch.any(sel_new_ids[:, :, None] == visited_ids[:, None, :], dim=2)
+                eq = sel_new_ids[:, :, None] == sel_new_ids[:, None, :]
+                dup = torch.any(eq & lower, dim=2)
+                drop = in_vis | dup | torch.isinf(sel_new_dists)
+                sel_new_dists = torch.where(drop, INF, sel_new_dists)
+                sel_new_ids = torch.where(drop, INVALID_ID, sel_new_ids)
 
-        # final merge: [L + L'] -> top L (both parts unique and disjoint)
-        all_ids = torch.cat([cand_ids, sel_new_ids], dim=1)
-        all_dists = torch.cat([cand_dists, sel_new_dists], dim=1)
-        all_exp = torch.cat([expanded, fresh], dim=1)
-        cand_dists, take = topk_smallest(all_dists, search_width)
-        cand_ids = torch.gather(all_ids, 1, take)
-        cand_ids = torch.where(torch.isinf(cand_dists), INVALID_ID, cand_ids)
-        expanded = torch.gather(all_exp, 1, take) | (cand_ids == INVALID_ID)
+                # final merge: [L + L'] -> top L (both parts unique and disjoint)
+                all_ids = torch.cat([cand_ids, sel_new_ids], dim=1)
+                all_dists = torch.cat([cand_dists, sel_new_dists], dim=1)
+                all_exp = torch.cat([expanded, fresh], dim=1)
+                cand_dists, take = topk_smallest(all_dists, search_width)
+                cand_ids = torch.gather(all_ids, 1, take)
+                cand_ids = torch.where(torch.isinf(cand_dists), INVALID_ID, cand_ids)
+                expanded = torch.gather(all_exp, 1, take) | (cand_ids == INVALID_ID)
 
     return SearchResult(
         ids=cand_ids[:, :k],

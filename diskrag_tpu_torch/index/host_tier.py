@@ -16,11 +16,19 @@ Memory layout:
 
 The rerank stays on the host because the pool's vectors live there; only
 ids cross to it.
+
+With tracing on (`utils/profiling.py`) both searches record one set of
+spans: `host_tier.traverse` a chunk (its pool's copy to the host,
+`host_tier.pool_copy`, inside), `host_tier.rerank` a chunk (made of
+`host_tier.rerank.unique`, `.gather`, `.products` and `.select`, the
+pieces of `exact_rerank_pool`) and, pipelined, `host_tier.rerank_wait`;
+the counter `host_tier.vectors_fetched` adds the unique rows read.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 import dataclasses
 import json
 import logging
@@ -33,6 +41,7 @@ from diskrag_tpu_torch.device import resolve_device
 from diskrag_tpu_torch.graph.search import beam_search, beam_search_iq, beam_search_pq
 from diskrag_tpu_torch.native import RecordReader
 from diskrag_tpu_torch.ops.topk import INVALID_ID
+from diskrag_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -56,46 +65,52 @@ def exact_rerank_pool(
     drops duplicate ids per row with an id-sorted first-occurrence mask.
     """
     b, p = pool.shape
-    # -1 padding clips to row 0; its distance is masked to +inf below
-    flat = np.maximum(pool.reshape(-1).astype(np.int64), 0)
-    uniq, inverse = np.unique(flat, return_inverse=True)
-    uvecs = reader.get_vectors(uniq, n_threads=n_threads)
-    vecs = uvecs[inverse].reshape(b, p, -1)
+    with span("host_tier.rerank.unique"):
+        # -1 padding clips to row 0; its distance is masked to +inf below
+        flat = np.maximum(pool.reshape(-1).astype(np.int64), 0)
+        uniq, inverse = np.unique(flat, return_inverse=True)
+    with span("host_tier.rerank.gather"):
+        uvecs = reader.get_vectors(uniq, n_threads=n_threads)
+        vecs = uvecs[inverse].reshape(b, p, -1)
 
-    q_np = np.asarray(queries, np.float32)
-    if metric == "cosine":
-        qh = q_np / (np.linalg.norm(q_np, axis=1, keepdims=True) + 1e-12)
-        un = np.linalg.norm(uvecs, axis=1) + 1e-12
-        cos = np.matmul(vecs, qh[:, :, None])[:, :, 0]
-        exact = 1.0 - cos / un[inverse].reshape(b, p)
-    elif metric == "dot":
-        exact = -np.matmul(vecs, q_np[:, :, None])[:, :, 0]
-    else:
-        qn = np.sum(q_np * q_np, axis=1, keepdims=True)
-        un = np.sum(uvecs * uvecs, axis=1)
-        cross = np.matmul(vecs, q_np[:, :, None])[:, :, 0]
-        exact = np.maximum(qn + un[inverse].reshape(b, p) - 2.0 * cross, 0.0)
-    exact = np.where(pool == INVALID_ID, np.inf, exact)
-    # drop duplicate ids per row (the first occurrence in id-sorted order
-    # keeps its distance, repeats are masked)
-    id_order = np.argsort(pool, axis=1, kind="stable")
-    pool_by_id = np.take_along_axis(pool, id_order, axis=1)
-    dup = np.zeros_like(pool_by_id, bool)
-    dup[:, 1:] = pool_by_id[:, 1:] == pool_by_id[:, :-1]
-    dup_mask = np.zeros_like(dup)
-    np.put_along_axis(dup_mask, id_order, dup, axis=1)
-    exact = np.where(dup_mask, np.inf, exact)
+    with span("host_tier.rerank.products"):
+        q_np = np.asarray(queries, np.float32)
+        if metric == "cosine":
+            qh = q_np / (np.linalg.norm(q_np, axis=1, keepdims=True) + 1e-12)
+            un = np.linalg.norm(uvecs, axis=1) + 1e-12
+            cos = np.matmul(vecs, qh[:, :, None])[:, :, 0]
+            exact = 1.0 - cos / un[inverse].reshape(b, p)
+        elif metric == "dot":
+            exact = -np.matmul(vecs, q_np[:, :, None])[:, :, 0]
+        else:
+            qn = np.sum(q_np * q_np, axis=1, keepdims=True)
+            un = np.sum(uvecs * uvecs, axis=1)
+            cross = np.matmul(vecs, q_np[:, :, None])[:, :, 0]
+            exact = np.maximum(qn + un[inverse].reshape(b, p) - 2.0 * cross, 0.0)
+        exact = np.where(pool == INVALID_ID, np.inf, exact)
 
-    if p < k:  # keep the [B, k] output contract
-        pad = k - p
-        pool = np.pad(pool, ((0, 0), (0, pad)), constant_values=INVALID_ID)
-        exact = np.pad(exact, ((0, 0), (0, pad)), constant_values=np.inf)
-    order = np.argsort(exact, axis=1, kind="stable")[:, :k]
-    ids = np.take_along_axis(pool, order, axis=1).astype(np.int64)
-    dists = np.take_along_axis(exact, order, axis=1).astype(np.float64)
-    invalid = ~np.isfinite(dists)
-    ids[invalid] = INVALID_ID
-    dists[invalid] = np.inf
+    with span("host_tier.rerank.select"):
+        # drop duplicate ids per row (the first occurrence in id-sorted order
+        # keeps its distance, repeats are masked)
+        id_order = np.argsort(pool, axis=1, kind="stable")
+        pool_by_id = np.take_along_axis(pool, id_order, axis=1)
+        dup = np.zeros_like(pool_by_id, bool)
+        dup[:, 1:] = pool_by_id[:, 1:] == pool_by_id[:, :-1]
+        dup_mask = np.zeros_like(dup)
+        np.put_along_axis(dup_mask, id_order, dup, axis=1)
+        exact = np.where(dup_mask, np.inf, exact)
+
+        if p < k:  # keep the [B, k] output contract
+            pad = k - p
+            pool = np.pad(pool, ((0, 0), (0, pad)), constant_values=INVALID_ID)
+            exact = np.pad(exact, ((0, 0), (0, pad)), constant_values=np.inf)
+        order = np.argsort(exact, axis=1, kind="stable")[:, :k]
+        ids = np.take_along_axis(pool, order, axis=1).astype(np.int64)
+        dists = np.take_along_axis(exact, order, axis=1).astype(np.float64)
+        invalid = ~np.isfinite(dists)
+        ids[invalid] = INVALID_ID
+        dists[invalid] = np.inf
+    count("host_tier.vectors_fetched", int(len(uniq)))
     return dists, ids, int(len(uniq))
 
 
@@ -265,16 +280,26 @@ class HostTierIndex:
             )
         return res, torch.cat([res.ids, res.visited_ids], dim=1)
 
-    def _traverse_to_host(self, q_np: np.ndarray, *, search_width: int, expand_width: int,
-                          rerank_pool: int | None):
+    def _traverse_to_host(self, chunk: int, q_np: np.ndarray, *, search_width: int,
+                          expand_width: int, rerank_pool: int | None):
         """(pool [B, P] int32 numpy, nodes expanded, rounds) of one chunk:
         the traversal, then the pool's ids (only the reranked prefix when
         `rerank_pool` cuts it) copied to the host."""
-        q = torch.as_tensor(q_np, device=self.device)
-        res, pool = self._traverse(q, search_width=search_width, expand_width=expand_width)
-        if rerank_pool is not None and pool.shape[1] > rerank_pool:
-            pool = pool[:, :rerank_pool]
-        return pool.cpu().numpy(), int(torch.sum(res.n_expanded)), int(res.n_steps)
+        with span("host_tier.traverse", chunk=chunk):
+            q = torch.as_tensor(q_np, device=self.device)
+            res, pool = self._traverse(q, search_width=search_width, expand_width=expand_width)
+            if rerank_pool is not None and pool.shape[1] > rerank_pool:
+                pool = pool[:, :rerank_pool]
+            with span("host_tier.pool_copy"):
+                pool_np = pool.cpu().numpy()
+            return pool_np, int(torch.sum(res.n_expanded)), int(res.n_steps)
+
+    def _rerank(self, chunk: int, q_np: np.ndarray, pool: np.ndarray, *, k: int,
+                n_threads: int):
+        """The exact rerank of one chunk's pool on the host."""
+        with span("host_tier.rerank", chunk=chunk):
+            return exact_rerank_pool(q_np, pool, self.reader, metric=self.metric, k=k,
+                                     n_threads=n_threads)
 
     def search(
         self,
@@ -294,11 +319,9 @@ class HostTierIndex:
         if q_np.ndim == 1:
             q_np = q_np[None, :]
         pool, n_exp, rounds = self._traverse_to_host(
-            q_np, search_width=search_width, expand_width=expand_width, rerank_pool=rerank_pool)
+            0, q_np, search_width=search_width, expand_width=expand_width, rerank_pool=rerank_pool)
         t1 = time.perf_counter()
-        dists, ids, n_uniq = exact_rerank_pool(
-            q_np, pool, self.reader, metric=self.metric, k=k, n_threads=n_threads,
-        )
+        dists, ids, n_uniq = self._rerank(0, q_np, pool, k=k, n_threads=n_threads)
         t2 = time.perf_counter()
         stats = {
             "search_type": "host_tier",
@@ -351,10 +374,9 @@ class HostTierIndex:
             )
         starts = range(0, b, chunk)
 
-        def rerank(s: int, pool: np.ndarray):
+        def rerank(c: int, s: int, pool: np.ndarray):
             tr = time.perf_counter()
-            out = exact_rerank_pool(q_np[s : s + chunk], pool, self.reader,
-                                    metric=self.metric, k=k, n_threads=n_threads)
+            out = self._rerank(c, q_np[s : s + chunk], pool, k=k, n_threads=n_threads)
             return out, time.perf_counter() - tr
 
         t0 = time.perf_counter()
@@ -362,17 +384,18 @@ class HostTierIndex:
         n_exp = rounds = 0
         futures = []
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as worker:
-            for s in starts:
+            for c, s in enumerate(starts):
                 tt = time.perf_counter()
                 pool, ne, nr = self._traverse_to_host(
-                    q_np[s : s + chunk], search_width=search_width,
+                    c, q_np[s : s + chunk], search_width=search_width,
                     expand_width=expand_width, rerank_pool=rerank_pool)
                 t_trav += time.perf_counter() - tt
                 n_exp += ne
                 rounds += nr
-                futures.append(worker.submit(rerank, s, pool))
+                futures.append(worker.submit(contextvars.copy_context().run, rerank, c, s, pool))
             tw = time.perf_counter()
-            results = [f.result() for f in futures]
+            with span("host_tier.rerank_wait"):
+                results = [f.result() for f in futures]
             t_wait = time.perf_counter() - tw
         out_d = np.concatenate([r[0][0] for r in results])
         out_i = np.concatenate([r[0][1] for r in results])

@@ -1,1 +1,1 @@
-"""Utilities of the port: phase timers and device profiling."""
+"""Utilities of the port: the span recorder and device profiling."""

@@ -79,7 +79,7 @@ from diskrag_tpu_torch.benchmark import (
 )
 from diskrag_tpu_torch.api import AppState, create_app
 from diskrag_tpu_torch.ops.mm_probe import mm_probe, mm_probe_ref
-from diskrag_tpu_torch.utils.profiling import PhaseTimer, block_and_time, device_trace
+from diskrag_tpu_torch.utils.profiling import device_trace, drain, span, summary, tracing
 from diskrag_tpu_torch.kernels.launches import launch_counts
 assert set(launch_counts()) == {"B1", "B4", "B2", "B3", "B6", "B5", "M1"}
 from diskrag_tpu_torch.ops import (
@@ -199,7 +199,7 @@ def test_api_tools_and_profiling_raise_without_a_card(monkeypatch, tmp_path):
     from diskrag_tpu_torch.tools import (
         dataset_benchmark, fused_scan_micro, verify_index, verify_installation,
     )
-    from diskrag_tpu_torch.utils.profiling import block_and_time, device_trace
+    from diskrag_tpu_torch.utils.profiling import device_trace
 
     _no_card(monkeypatch)
     monkeypatch.chdir(tmp_path)
@@ -223,8 +223,6 @@ def test_api_tools_and_profiling_raise_without_a_card(monkeypatch, tmp_path):
         verify_index.main([str(tmp_path / "idx")])
     with no_card():
         dataset_benchmark.main(["--n", "100"])
-    with no_card():
-        block_and_time(lambda: torch.ones(2))
     with no_card():
         with device_trace(str(tmp_path / "trace")):
             pass
