@@ -37,7 +37,14 @@ microbenchmark (`diskrag_tpu_torch.tools.fused_scan_micro`) in process at
 that every stage launched the kernel it is named for, and serves the
 vamana collection over HTTP (`diskrag_tpu_torch.api.create_app` on a
 socket on 127.0.0.1), sending a few requests one after the other. Phase
-`main-host-tier` serves the host tier through `SearchEngine(serving_mode=
+`main-host-tier` first holds G1 (the exact traversal's rounds in one
+kernel) against the plain rounds from the same seeded state on its
+1,000,000-point degree-48 graph at the exact cell's shape (L 32, E 1, the
+graph's entry points; B = 1 and 512), bit for bit on the same graph with
+integer vectors and statistically on the float ones, and times it beside
+the plain rounds and its bound (`main-graph` does the same at 200,000, L
+16, E 8); G1's entry in the `kernels` line holds those rows and its
+launches in every phase that reaches it. It then serves the host tier through `SearchEngine(serving_mode=
 "host_tier")`: the JAX bench's 1M host-tier configuration (degree-48
 graph, int8 rows, the f32 vectors in the packed record file read by the
 native reader, the rerank on the host; recall@10 gates 0.985 at L = 32 and
@@ -68,7 +75,7 @@ cells), B1's norm-free form and B4 bit for bit at the cosine build's shape
 (4096 x 1.2M, NB 4096, kk 260), then the native cosine build through
 `build_index_from_vectors(metric="cosine")` (293 B1 launches, each
 norm-free as its operands show, and 293 B4) served by `SearchEngine.
-search_batch` at l_search 32 and 48 (exact traversal, no kernel; recall@10
+search_batch` at l_search 32 and 48 (exact traversal on the cosine metric: no kernel; recall@10
 gated at the documented native-cosine figures less 0.01 and within 0.01 of
 the L2-on-normalized rows; the distances 1 - cos, in [0, 2]); both builds'
 share of points without an in-edge is printed. Phase `main-ivf` builds the IVF-Flat index
@@ -89,7 +96,7 @@ package's v5e figures less 0.01), four merges and exactly 8 launches each
 of B1 and B4 a merge, holds B1 and B4 bit for bit at one merge sub-wave's
 operands (L2 with the 1e15 pad rows, cosine with zeroed pad codes), then
 runs one rebuild-path merge (B1 / B4 through `build_vamana_knn`), one
-`merge_method="wave"` merge (no kernel) and a delete of 10% of the live ids
+`merge_method="wave"` merge (G1 once a wave) and a delete of 10% of the live ids
 with `consolidate` (no tombstoned id served; recall within 0.01), beside
 the JAX package's consolidate policy on the same state (printed). Phase
 `pipelined` rows sit in every phase that has an engine live (flat-1M-int8,
@@ -107,8 +114,8 @@ embedding, upload and dispatch; `Event.synchronize` must release the GIL
 sends 8 `/search-batch` requests at once to the vamana and the packed
 flat 200k collections, each response equal to the same request sent
 alone. Phase
-`main-wave` builds the 200,000-point index with `build_method="wave"` (no
-kernel) and gates exact traversal at L = 48; phase `api-streaming` serves
+`main-wave` builds the 200,000-point index with `build_method="wave"` (its
+beam searches on G1, once a wave, no other kernel) and gates exact traversal at L = 48; phase `api-streaming` serves
 the default vamana collection over HTTP in streaming mode (`/insert`,
 `/search`, `/delete`), then flushes the inserted rows and serves them in
 mode "auto". Phase `main-sharded` (before the 1M set is dropped) builds
@@ -157,7 +164,10 @@ at that many points (the IVF kNN backend above 2,000,000, 65,536 random
 entry points, a checkpoint directory under `build/`; iq8 and rpq64, gated
 at the JAX package's 10M figures less 0.01), the same way; `python3
 chip_smoke.py --angular-n 1200000` runs the angular phase alone (its
-gates apply at 1,200,000 only).
+gates apply at 1,200,000 only); `python3 chip_smoke.py --g1-n 1000000`
+builds the degree-48 graph at that many points and holds G1 against the
+plain rounds at every shape of `G1_CELL_SHAPES` and `G1_SWEEP_SHAPES`,
+printing G1's `kernels` entry.
 """
 
 from __future__ import annotations
@@ -1295,8 +1305,8 @@ def pipelined_row(smi: str, engine, q, cell: str, *, expect: dict, l_search: int
     launch counts set to 0 just before each pass and read just after.
     Gates: every batch's ids and distances equal (as exact values) to
     `search_many`'s, the same search type, the same launches in every pass,
-    and the ones `expect` names ({kernel: "batches" | "rounds"}; every
-    other kernel 0). The overlap witness: for each batch after the first,
+    and the ones `expect` names ({kernel: "batches" | "rounds" | launches a
+    batch}; every other kernel 0). The overlap witness: for each batch after the first,
     whether the previous batch's event was still pending when this batch's
     dispatch began (its queries already uploaded: a pageable upload would
     have waited for that batch) and when it returned; the first is gated
@@ -1359,7 +1369,8 @@ def pipelined_row(smi: str, engine, q, cell: str, *, expect: dict, l_search: int
         require(launches == seq_launches,
                 f"{cell}: {which} pass launched {launches}, search_many's first {seq_launches}")
     rounds = sum(out["stats"].get("rounds", 0) for out in seq)
-    want_launches = {kid: {"batches": n_batches, "rounds": rounds}[how]
+    want_launches = {kid: how * n_batches if isinstance(how, int)
+                     else {"batches": n_batches, "rounds": rounds}[how]
                      for kid, how in expect.items()}
     require(all(v == want_launches.get(kid, 0) for kid, v in seq_launches.items()) and (
         not want_launches or min(want_launches.values()) > 0),
@@ -1872,11 +1883,233 @@ def _no_gather_adc():
         tpq.adc_lookup_gathered = tres.adc_lookup_gathered = real
 
 
+@contextlib.contextmanager
+def _calls(module, attr: str):
+    """While active, counts the calls of `module.<attr>` made through the
+    module's name (a caller that looks the function up at each call)."""
+    calls = {"n": 0}
+    real = getattr(module, attr)
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+
+    setattr(module, attr, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, real)
+
+
+def sweep_searches(points, n_queries: int, pipeline: int = 4) -> int:
+    """The searches a `sweep_exact` run made: its batch in `pipeline`
+    chunks, one search each, in every pass (warm-up included)."""
+    step = -(-n_queries // pipeline)
+    return sum(p.passes for p in points) * -(-n_queries // step)
+
+
+# G1 against the plain rounds: the exact cell's shape (1M x 128, R 48, L 32,
+# E 1, the index's entry points) at B = 1 and 512, and the 200k sweep's
+# (L 16, E 8, 1000 queries); (B, L, E)
+G1_CELL_SHAPES = ((1, 32, 1), (512, 32, 1))
+G1_SWEEP_SHAPES = ((1000, 16, 8),)
+G1_ID_SHARE = 0.995  # rows with identical top-10 ids, and with equal visited sets, on floats
+G1_DIST_TOL = 1e-5  # of qn + vn, the scale the norm expansion rounds at
+
+
+def g1_bound_ms(vectors, adjacency, queries, plain, seed_width: int) -> tuple[float, str]:
+    """Least time for G1's work from a seeded list, read off the plain
+    rounds' visited log: bytes, each distinct expanded node's adjacency row
+    and each distinct vector those rows name read once across the batch
+    (a vector several queries score is read once), the queries and the
+    seeded list read, the final state written; operations, 3 D (a
+    difference, a product, a sum) for each distinct neighbour a query
+    scores."""
+    import torch
+
+    b, d = queries.shape
+    r = adjacency.shape[1]
+    vis = plain.visited_ids
+    expanded = torch.unique(vis[vis >= 0])
+    nbrs = adjacency[vis.clamp_min(0).long()]
+    nbrs = torch.where((vis >= 0)[..., None], nbrs, -1).reshape(b, -1)
+    srt = torch.sort(nbrs, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    scored = int((first & (srt >= 0)).sum())
+    distinct = torch.unique(srt[srt >= 0]).numel()
+    v = vis.shape[1]
+    nbytes = (expanded.numel() * r * 4 + distinct * d * 4 + b * d * 4 + b * seed_width * 9
+              + b * (seed_width * 8 + v * 8 + 4))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 3.0 * d * scored / PEAK_F32_OPS
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+def _sorted_log(res):
+    import torch
+
+    ids, order = torch.sort(res.visited_ids, dim=1)
+    return ids, torch.gather(res.visited_dists, 1, order)
+
+
+def g1_compare(kern, plain, vectors, queries, gt, *, exact: bool, what: str) -> dict:
+    """G1's search against the plain rounds' from the same seeding. On
+    integer data (`exact`: every product and sum exact in f32) the whole
+    beam, the visited log, n_expanded and n_steps are bit-identical. On
+    float data the two sum in other orders, so a near-tie can break the
+    other way and change which node a round expands: the top-10 ids
+    identical and the visited logs equal as sets each on `G1_ID_SHARE` of
+    the rows (all rows below 200), on the rows where both hold n_expanded
+    equal and every distance of the top 10 and of the log within
+    `G1_DIST_TOL` of qn + vn, recall@10 within 1e-3 and n_steps equal. The
+    figures are emitted before they are gated."""
+    import torch
+
+    from diskrag_tpu_torch.benchmark import recall_at_k
+
+    fields = ("ids", "dists", "visited_ids", "visited_dists", "n_expanded", "n_steps")
+    if exact:
+        diff = [f for f in fields if not torch.equal(getattr(kern, f), getattr(plain, f))]
+        require(not diff, f"G1 differs from the plain rounds on integer data at {what}: {diff}")
+        require(int(kern.n_steps) > 0, f"G1 ran no round at {what}")
+        return {"match": "bit-identical", "n_steps": int(kern.n_steps)}
+    same = (kern.ids[:, :10] == plain.ids[:, :10]).all(1)
+    kv, kvd = _sorted_log(kern)
+    pv, pvd = _sorted_log(plain)
+    logs = (kv == pv).all(1)
+    both = same & logs
+    qn = (queries * queries).sum(1, keepdim=True)[both]
+
+    def within(a, b, ids):
+        fin = torch.isfinite(b)
+        v = vectors[ids.clamp_min(0).long()]
+        err = ((a - b).abs() / (qn + (v * v).sum(-1)))[fin]
+        return torch.equal(fin, torch.isfinite(a)), float(err.max()) if err.numel() else 0.0
+
+    beam_ok, beam_err = within(kern.dists[both, :10], plain.dists[both, :10],
+                               plain.ids[both, :10])
+    log_ok, log_err = within(kvd[both], pvd[both], pv[both])
+    got = recall_at_k(kern.ids[:, :10].cpu().numpy(), gt, 10)
+    want = recall_at_k(plain.ids[:, :10].cpu().numpy(), gt, 10)
+    row = {"match": f"statistical: top-10 ids and visited sets, distances within {G1_DIST_TOL} "
+                    "of qn + vn",
+           "rows": len(same), "top10_identical_share": float(same.float().mean()),
+           "visited_set_identical_share": float(logs.float().mean()),
+           "beam_identical_share": float((kern.ids == plain.ids).all(1).float().mean()),
+           "visited_order_identical_share": float(
+               (kern.visited_ids == plain.visited_ids).all(1).float().mean()),
+           "n_expanded_equal_on_identical_rows": bool(torch.equal(kern.n_expanded[both],
+                                                                  plain.n_expanded[both])),
+           "max_dist_err_over_qn_vn": max(beam_err, log_err), "recall_at_10": got,
+           "plain_recall_at_10": want, "n_steps": int(kern.n_steps),
+           "plain_n_steps": int(plain.n_steps)}
+    emit({"phase": "g1", "compare": what, **row})
+    need = 1.0 if len(same) < 1 / (1 - G1_ID_SHARE) else G1_ID_SHARE
+    require(row["top10_identical_share"] >= need and row["visited_set_identical_share"] >= need,
+            f"G1 at {what}: top-10 ids identical on {row['top10_identical_share']} of rows, "
+            f"visited sets on {row['visited_set_identical_share']}")
+    require(row["n_expanded_equal_on_identical_rows"],
+            f"G1 at {what}: n_expanded differs on a row of identical top-10 ids and visited set")
+    require(beam_ok and log_ok and row["max_dist_err_over_qn_vn"] <= G1_DIST_TOL,
+            f"G1 at {what}: a distance off by {row['max_dist_err_over_qn_vn']} of qn + vn")
+    require(abs(got - want) <= 1e-3, f"G1 at {what}: recall@10 {got} against the plain {want}")
+    require(row["n_steps"] == row["plain_n_steps"] > 0,
+            f"G1 at {what}: n_steps {row['n_steps']} against the plain {row['plain_n_steps']}")
+    return row
+
+
+def g1_rows(smi: str, index, q, gt, shapes, cell: str) -> dict:
+    """G1 held against the plain rounds (`_plain_rounds`) from the same
+    seeded state (`_seed_candidates`) over `index` at each (B, L, E) of
+    `shapes`: on the SIFT-like float queries and on the same graph with
+    vectors and queries scaled by 4 and rounded to integers (bit for bit;
+    `g1_compare`), then timed: G1 from the seeded state on the device
+    (`device_ms`) and launch to launch (`cuda_ms`), the plain rounds from
+    the same state (CUDA events around whole calls: the host's dispatch
+    and its waits a round), the whole `beam_search` (seeding and G1) and
+    the bound (`g1_bound_ms`). `launches`: the counts of one `beam_search`
+    at the shape, set to 0 just before: G1 once and nothing else."""
+    import torch
+
+    from diskrag_tpu_torch.graph import search as tsearch
+    from diskrag_tpu_torch.ops import traverse
+    from diskrag_tpu_torch.ops.distance import pairwise_distance
+
+    qd = torch.as_tensor(q, dtype=torch.float32, device="cuda")
+    ints = (torch.round(index.vectors * 4), torch.round(qd * 4))
+    rows = {}
+    for b, width, e in shapes:
+        what = f"{cell} B={b} L={width} E={e}"
+        steps = tsearch._default_steps(width, e, MAIN_K, None)
+        row = {"b": b, "n": index.vectors.shape[0], "d": index.vectors.shape[1],
+               "r": index.adjacency.shape[1], "L": width, "E": e, "max_steps": steps,
+               "entry_points": int(index.entry_points.shape[0])}
+        for label, (vecs, qs) in (("floats", (index.vectors, qd[:b])),
+                                  ("ints", (ints[0], ints[1][:b]))):
+            def expand(ids, vecs=vecs, qs=qs):
+                return tsearch._gathered_distance(qs, vecs[ids], "l2")
+
+            def seed_expand(seeds, vecs=vecs, qs=qs):
+                return pairwise_distance(qs, vecs[seeds], "l2")
+
+            kw = dict(search_width=width, k=width, expand_width=e,
+                      entry_points=index.entry_points)
+            reset_counts()
+            kern = tsearch.beam_search(vecs, index.adjacency, index.medoid, qs, **kw)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            require(launches == {**{k: 0 for k in launches}, "G1": 1},
+                    f"beam_search at {what} launched {launches}, expected G1 once")
+            seeded = tsearch._seed_candidates(index.adjacency, index.medoid, expand, b,
+                                              search_width=width, entry_points=index.entry_points,
+                                              seed_expand_fn=seed_expand)
+            plain = tsearch._plain_rounds(index.adjacency, expand, *seeded, k=width,
+                                          max_steps=steps, expand_width=e)
+            torch.cuda.synchronize()
+            row[label] = g1_compare(kern, plain, vecs, qs, gt[:b], exact=label == "ints",
+                                    what=f"{what} {label}")
+            if label == "ints":
+                continue
+            kern_call = lambda: traverse.beam_traverse(  # noqa: E731
+                vecs, index.adjacency, qs, *seeded, expand_width=e, max_steps=steps)
+            ms, timed_by = device_ms(kern_call, 20)
+            bound, by = g1_bound_ms(vecs, index.adjacency, qs, plain, width)
+            row.update(
+                launches=launches, device_ms=ms, timed_by=timed_by,
+                ms=cuda_ms(kern_call, 20),
+                plain_ms=cuda_ms(lambda: tsearch._plain_rounds(
+                    index.adjacency, expand, *seeded, k=width, max_steps=steps,
+                    expand_width=e), 3),
+                search_ms=cuda_ms(lambda: tsearch.beam_search(
+                    vecs, index.adjacency, index.medoid, qs, **kw), 20),
+                bound_ms=bound, bound_by=by, rounds=int(kern.n_steps),
+                device_us_a_round=ms * 1e3 / max(int(kern.n_steps), 1))
+        emit({"phase": "g1", "cell": cell, **row, "card": smi})
+        rows[f"b{b}_l{width}_e{e}"] = row
+    del ints
+    torch.cuda.empty_cache()
+    return rows
+
+
+def g1_kernel_row(rows: dict) -> dict:
+    """G1's entry in the `kernels` line: the exact cell's B = 1 row at the
+    top, every other shape `g1_rows` held under its own key."""
+    head, *rest = rows
+    return {"name": "G1 beam_traverse (the exact traversal's rounds: a block a query, every "
+                    "round in one launch)",
+            "route": "cuda", "source": "diskrag_tpu_torch/csrc/beam_traverse.cu",
+            "replaces": "diskrag_tpu/graph/search.py:305 (lax.while_loop; no pallas_call)",
+            "shape": head, **rows[head], **{f"{k}_shape": rows[k] for k in rest}}
+
+
 def phase_main_graph(smi: str, pts, q, gt) -> dict:
     """The graph path: build the degree-48 graph on the card (B1 and B4 in
     its kNN pass), train and encode a 32-subvector residual PQ, then sweep
-    exact traversal (L = 16, E = 8 and 12) and PQ-guided traversal + rerank
-    (L = 32 and 64, E = 4; B5 once per executed round). The recall limits
+    exact traversal (L = 16, E = 8 and 12; G1 once a search, and held
+    against the plain rounds at L = 16 / E = 8, `g1_rows`) and PQ-guided
+    traversal + rerank (L = 32 and 64, E = 4; B5 once per executed round).
+    The recall limits
     and the JAX package's recorded recalls belong to the bench's core-stage
     size (200,000 points) and apply there only."""
     import torch
@@ -1910,8 +2143,14 @@ def phase_main_graph(smi: str, pts, q, gt) -> dict:
           "entry_points": int(index.entry_points.shape[0]),
           "peak_device_gb": build_peak_bytes(stages) / 2**30, "card": smi})
 
+    g1 = g1_rows(smi, index, q, gt, G1_SWEEP_SHAPES, f"{n // 1000}k R48 sweep")
+    reset_counts()
     points = sweep_exact(index, q, gt, k=MAIN_K, widths=(16,), expand_widths=(8, 12),
                          min_seconds=0.5)
+    exact_launches = read_counts()
+    searches = sweep_searches(points, len(q))
+    require(exact_launches == {**{k: 0 for k in exact_launches}, "G1": searches},
+            f"the exact sweep launched {exact_launches}, expected G1 once a search ({searches})")
     t0 = time.perf_counter()
     rpq = ResidualPQ(32, device="cuda").fit(pts, seed=0)
     torch.cuda.synchronize()
@@ -1951,6 +2190,7 @@ def phase_main_graph(smi: str, pts, q, gt) -> dict:
     emit({"phase": "main-graph", "step": "sweeps", "queries": len(q), "k": MAIN_K,
           "rpq_fit_seconds": fit_s, "rpq_encode_seconds": encode_s, "points": rows,
           "b5_launches_pq_sweep": b5_launches, "rounds_executed_pq_sweep": rounds,
+          "g1_launches_exact_sweep": exact_launches["G1"],
           "gather_formulation_calls": gather_calls["n"], "card": smi})
     # B5 at the sweep's real operands (L = 64, E = 4 on a chunk of 250)
     chunk = torch.as_tensor(q[:250], device="cuda")
@@ -1958,7 +2198,8 @@ def phase_main_graph(smi: str, pts, q, gt) -> dict:
     row = b5_row(rpq.inner_tables(chunk).contiguous(), codes[nbrs.clamp_min(0).long()])
     del index, codes, cells, rpq
     torch.cuda.empty_cache()
-    return {"sweep_shape": row, "launches_pq_sweep": b5_launches}
+    return {"sweep_shape": row, "launches_pq_sweep": b5_launches, "g1": g1,
+            "g1_launches_exact_sweep": exact_launches["G1"]}
 
 
 def phase_main_vamana(smi: str, base, pts, q, gt) -> dict:
@@ -2536,7 +2777,9 @@ def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
     fit and encoded, `save_index(write_compat=True)` with the tuned L = 32 /
     E = 8, then served by `SearchEngine(serving_mode="host_tier")`: int8
     rows and the graph on the card, the f32 vectors in the record file,
-    the rerank on the host. The iq traversal reaches no kernel."""
+    the rerank on the host. The iq traversal reaches no kernel. Before the
+    quantizer, G1 is held against the plain rounds on the graph at the
+    exact cell's shapes (`g1_rows`, `G1_CELL_SHAPES`)."""
     import numpy as np
     import torch
 
@@ -2559,6 +2802,7 @@ def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
     build_launches = read_counts()
     require(build_launches["B1"] > 0 and build_launches["B4"] == build_launches["B1"],
             f"the 1M graph build did not go through B1 and B4: {build_launches}")
+    g1 = g1_rows(smi, index, q, gt, G1_CELL_SHAPES, f"{len(pts) // 1000}k R48")
     t0 = time.perf_counter()
     iq8 = IntQuantizer(bits=8, device="cuda").fit(pts, seed=0)
     torch.cuda.synchronize()
@@ -2637,7 +2881,7 @@ def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
     del engine, ht, bare
     torch.cuda.empty_cache()
     shutil.rmtree(base / name, ignore_errors=True)  # 2 GB of files no later phase reads
-    return {"build_launches": build_launches}
+    return {"build_launches": build_launches, "g1": g1}
 
 
 # The JAX package's capacity ladder (`benchmarks/host_tier_multi.py`): each
@@ -3295,7 +3539,7 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
     exactly 8 launches each of B1 and B4 per merge and no other kernel.
     Then, once each on the same tier: B1 / B4 held at the merge's shape, a
     profiled merged-search batch, a rebuild-path merge (B1 and B4 through
-    `build_vamana_knn`), a `merge_method="wave"` merge (no kernel), and a
+    `build_vamana_knn`), a `merge_method="wave"` merge (G1 once a wave), and a
     delete of 10% of the live ids followed by `consolidate` (no tombstoned
     id served, recall no more than 0.01 under the pre-delete figure), with
     the JAX package's consolidate policy measured beside it on the same
@@ -3304,13 +3548,16 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
     import torch
 
     from diskrag_tpu_torch.benchmark import make_dataset
+    from diskrag_tpu_torch.index import streaming as streaming_mod
     from diskrag_tpu_torch.tools import streaming_bench
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res, idx, queries = streaming_bench.run(base_n=base_n, stream_n=stream_n, batch=1024,
-                                            dim=MAIN_D, n_queries=MAIN_B, seed=42, device="cuda")
+    with _calls(streaming_mod, "beam_search") as searches:
+        res, idx, queries = streaming_bench.run(base_n=base_n, stream_n=stream_n, batch=1024,
+                                                dim=MAIN_D, n_queries=MAIN_B, seed=42,
+                                                device="cuda")
     launches = read_counts()
     phase_s = time.perf_counter() - t0
     n_merges = res["n_merges"]
@@ -3333,9 +3580,12 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
     require(all(m["B1"] == m["B4"] == STREAM_SUBWAVES
                 and not any(v for k, v in m.items() if k not in ("B1", "B4")) for m in per_merge),
             f"a kNN merge did not launch B1 and B4 {STREAM_SUBWAVES} times each: {per_merge}")
+    # G1 serves the stream's graph searches (the probes), once a search
     require(all(launches[k] == built[k] + (STREAM_SUBWAVES * n_merges if k in ("B1", "B4") else 0)
-                for k in launches),
+                for k in launches if k != "G1"),
             f"the stream launched {launches}: its base build {built}, its merges {per_merge}")
+    require(launches["G1"] == built["G1"] + searches["n"] and searches["n"] > 0,
+            f"G1 launched {launches['G1']} times in the stream, its graph searches {searches['n']}")
     require(len(mids) == 2 and min(mids) >= STREAM_MID_GATE,
             f"mid-stream recall {mids} < {STREAM_MID_GATE}")
     require(res["final_recall"] >= final_gate, f"final recall {res['final_recall']} < {final_gate}")
@@ -3370,7 +3620,7 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
     out["rebuild"] = {"seconds": rebuild_s, "launches": rebuild_launches, "recall_at_10": rec}
 
     # wave path: the last 4096 stream points re-inserted under new ids (the
-    # old rows tombstoned), merged by wave_step: no kernel
+    # old rows tombstoned), merged by wave_step: G1 once a wave (its beam search)
     idx.merge_insert_max_fraction, idx.merge_method = 0.25, "wave"
     moved = live_ext[-4096:]
     idx.delete(moved)
@@ -3378,12 +3628,16 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
     live_ext = np.concatenate([live_ext[:-4096], new_ext])
     reset_counts()
     t = time.perf_counter()
-    idx.merge()
+    with _calls(streaming_mod, "wave_step") as waves:
+        idx.merge()
     torch.cuda.synchronize()
     wave_s = time.perf_counter() - t
     wave_launches = read_counts()
     rec_wave, _ = _live_recall(idx, q_dev, live_ext, pts)
-    checks.append((not any(wave_launches.values()), f"the wave merge launched {wave_launches}"))
+    checks.append((wave_launches == {**{k: 0 for k in wave_launches}, "G1": waves["n"]}
+                   and waves["n"] > 0,
+                   f"the wave merge launched {wave_launches}, expected G1 once a wave "
+                   f"({waves['n']})"))
     out["wave"] = {"seconds": wave_s, "rows": 4096, "launches": wave_launches,
                    "recall_at_10": rec_wave}
 
@@ -3419,31 +3673,36 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
     del idx, q_dev
     torch.cuda.empty_cache()
     merge_launches = {k: launches[k] - built[k] for k in launches}
-    return {"kernels": kernels, "launches": merge_launches, "n_merges": n_merges}
+    return {"kernels": kernels, "launches": merge_launches, "n_merges": n_merges,
+            "g1_searches": searches["n"], "g1_wave_merge": wave_launches["G1"]}
 
 
 WAVE_RECALL_GATE = 0.972  # the JAX wave graph's 0.982 at L = 48 (docs/PERFORMANCE.md:340-342) less 0.01
 
 
-def phase_main_wave(smi: str, base, pts, q, gt) -> None:
+def phase_main_wave(smi: str, base, pts, q, gt) -> int:
     """The wave-insertion build through the entry point a user calls:
     `build_index_from_vectors(index_type="vamana", build_method="wave")`
     with every other default, served by `SearchEngine` with exact
-    traversal at L = 48 (recall@10 gate). No kernel may launch (the wave
-    build is beam search + prune; the PQ fit and encode run no kernel)."""
+    traversal at L = 48 (recall@10 gate). The build launches G1 once a
+    wave (`wave_step`'s one beam search; the prune, the PQ fit and encode
+    run no kernel) and nothing else; the search G1 once. Returns the
+    build's G1 launches."""
     import torch
 
     from diskrag_tpu_torch.benchmark import recall_at_k
     from diskrag_tpu_torch.build_index import build_index_from_vectors
     from diskrag_tpu_torch.engine import SearchEngine
+    from diskrag_tpu_torch.graph import build as build_mod
 
     name = f"wave_{len(pts) // 1000}k"
     index_dir = make_collection(base, name, pts)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    meta = build_index_from_vectors(pts, index_dir, index_type="vamana", build_method="wave",
-                                    device="cuda")
+    with _calls(build_mod, "wave_step") as waves:
+        meta = build_index_from_vectors(pts, index_dir, index_type="vamana", build_method="wave",
+                                        device="cuda")
     build_s = time.perf_counter() - t0
     build_launches = read_counts()
     engine = SearchEngine(name, base_dir=str(base), device="cuda")
@@ -3459,17 +3718,22 @@ def phase_main_wave(smi: str, base, pts, q, gt) -> None:
           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
           "l_search": 48, "recall_at_10": recall, "recall_gate": WAVE_RECALL_GATE,
           "rounds": stats["rounds"], "ms_per_batch": batch_s * 1e3,
-          "launches_build": build_launches, "launches_search": launches, "card": smi})
+          "waves": waves["n"], "launches_build": build_launches, "launches_search": launches,
+          "card": smi})
     require(meta["build_method"] == "wave", f"built {meta.get('build_method')}")
-    require(not any(build_launches.values()), f"the wave build launched {build_launches}")
+    require(build_launches == {**{k: 0 for k in build_launches}, "G1": waves["n"]}
+            and waves["n"] > 0,
+            f"the wave build launched {build_launches}, expected G1 once a wave ({waves['n']})")
     require(stats["search_type"] == "exact", f"served as {stats['search_type']}")
-    require(not any(launches.values()), f"exact traversal launched {launches}")
+    require(launches == {**{k: 0 for k in launches}, "G1": 1},
+            f"exact traversal launched {launches}, expected G1 once")
     require(recall >= WAVE_RECALL_GATE, f"wave graph recall@10 {recall} < {WAVE_RECALL_GATE} at L=48")
     del engine
     torch.cuda.empty_cache()
+    return build_launches["G1"]
 
 
-def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> None:
+def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> int:
     """The default 200k vamana collection (with the metadata `phase_api`
     gave it) behind `create_app` with `serving_mode="streaming"` and the
     mock embedder, on a socket on 127.0.0.1: `/insert` of a few texts
@@ -3480,7 +3744,9 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> None:
     `flush_index` persists them, and a fresh engine in mode "auto" holds
     them all and finds the four by search. The streaming engine behind the
     server also takes the pipelined row (the cell's queries, l_search 64)
-    after the requests. Runs last: it grows the collection."""
+    after the requests. The requests launch G1 once a graph search within
+    its limits (the collection's tuned L is past them) and nothing else;
+    their G1 launches are returned. Runs last: it grows the collection."""
     import asyncio
 
     import aiohttp
@@ -3491,6 +3757,8 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> None:
     from diskrag_tpu_torch.api import AppState, create_app
     from diskrag_tpu_torch.data import EmbeddingConfig, EmbeddingGenerator
     from diskrag_tpu_torch.engine import SearchEngine
+    from diskrag_tpu_torch.index import streaming as streaming_mod
+    from diskrag_tpu_torch.ops import traverse
 
     cfg = EmbeddingConfig(provider="mock", model="mock", dimension=MAIN_D)
     state = AppState(base_dir=str(base), embedding_config=cfg, serving_mode="streaming",
@@ -3534,11 +3802,19 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> None:
             await runner.cleanup()
 
     reset_counts()
-    asyncio.run(exchange())
+    with _calls(streaming_mod, "beam_search") as searches:
+        asyncio.run(exchange())
     launches = read_counts()
-    require(not any(launches.values()), f"the streaming requests launched {launches}")
+    # one graph search a /search, on G1 where its width is within G1's reach
+    # (the collection's tuned L, 570 by default, is not: the plain rounds)
+    widths = [out["stats"]["L_search"] for path, _, out, _ in sent if path == "/search"]
+    g1 = sum(w <= traverse.MAX_WIDTH for w in widths)
+    require(searches["n"] == len(widths) > 0
+            and launches == {**{k: 0 for k in launches}, "G1": g1},
+            f"the streaming requests launched {launches} in {searches['n']} graph searches, "
+            f"expected G1 once a search at L <= {traverse.MAX_WIDTH} (L {widths})")
     pipelined_row(smi, state.get_engine(name), q, "api-streaming-200k (streaming engine)",
-                  expect={}, l_search=64)
+                  expect={"G1": "batches"}, l_search=64)
     del state
     # deletions are session-local: a fresh streaming engine adopts the four
     # inserted rows past the index watermark; four more rows near existing
@@ -3579,6 +3855,7 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> None:
           "card": smi})
     del auto
     torch.cuda.empty_cache()
+    return launches["G1"]
 
 
 # recall@10 gates of sharded-1M-4x250k at l_search 64: exact traversal per
@@ -3631,6 +3908,7 @@ def _sharded_http(base, name: str, mode: str, engine, mesh_devices: list) -> dic
 
     from diskrag_tpu_torch.api import AppState, create_app
     from diskrag_tpu_torch.data import EmbeddingConfig, EmbeddingGenerator
+    from diskrag_tpu_torch.ops import traverse
 
     cfg = EmbeddingConfig(provider="mock", model="mock", dimension=MAIN_D)
     state = AppState(base_dir=str(base), embedding_config=cfg, serving_mode=mode,
@@ -3661,8 +3939,11 @@ def _sharded_http(base, name: str, mode: str, engine, mesh_devices: list) -> dic
     st = body["stats"]
     kind = SHARDED_SEARCH_TYPE[mode]
     b5 = st.get("rounds", 0) if mode == "host_tier" else 0
-    others = {k: v for k, v in launches.items() if k != "B5"}
-    require(st["search_type"] == kind and launches["B5"] == b5 and not any(others.values()),
+    # one exact search a mesh slot, on G1 where its width is within G1's reach
+    g1 = len(mesh_devices) if mode == "auto" and st["L_search"] <= traverse.MAX_WIDTH else 0
+    others = {k: v for k, v in launches.items() if k not in ("B5", "G1")}
+    require(st["search_type"] == kind and launches["B5"] == b5 and launches["G1"] == g1
+            and not any(others.values()),
             f"/search under {mode}: {st['search_type']}, launches {launches}, rounds {b5}")
     return {"serving_mode": mode, "status": status, "ms": ms, "search_type": kind,
             "l_search": st["L_search"], "rounds": st.get("rounds"), "launches": launches}
@@ -3674,7 +3955,7 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
     "sharded", n_shards=S, write_compat=True)` with every other default
     (B1 + B4 in every shard's kNN pass), served through `SearchEngine` on an
     S-slot mesh of one card (`mesh_devices=["cuda:0"] * S`): mode "auto"
-    (exact traversal per shard, no kernel) at l_search 64 and at the
+    (exact traversal per shard: G1 once a shard and batch) at l_search 64 and at the
     build's recommended L, "sharded_flat" (held against an independent
     top-10 over every row on the card, no kernel) and "host_tier" (the
     default build's residual PQ: B5 by id once a round and shard; bf16
@@ -3747,7 +4028,9 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
     require(diagnostic or not full, f"startup diagnostic failed: {engine.diagnostics}")
     at64 = _sharded_drive(engine, q, gt, 64)
     at64.pop("_ids")
-    require(not any(at64["launches"].values()), f"exact sharded traversal launched {at64['launches']}")
+    require(at64["launches"] == {**{k: 0 for k in at64["launches"]}, "G1": 5 * s},
+            f"exact sharded traversal launched {at64['launches']}, expected G1 once a shard "
+            f"and batch")
     require(at64["search_type"] == "sharded", f"served as {at64['search_type']}")
     require(at64["recall_at_10"] >= SHARDED_AUTO_GATE or not full,
             f"sharded auto recall@10 {at64['recall_at_10']} < {SHARDED_AUTO_GATE} at l_search=64")
@@ -3760,7 +4043,8 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
                                    at64["rounds_per_batch"])
     if full:
         http.append(_sharded_http(base, name, "auto", engine, mesh_devices))
-        pipelined_row(smi, engine, q, f"{cell} auto", expect={}, l_search=64, n_batches=4,
+        pipelined_row(smi, engine, q, f"{cell} auto", expect={"G1": len(mesh_devices)},
+                      l_search=64, n_batches=4,
                       passes=1, profile_batches=0)
     emit({"phase": "main-sharded", "cell": cell, "serving_mode": "auto", "queries": len(q),
           "k": MAIN_K, "load_seconds": load_s, "diagnostic_passed": diagnostic, **at64,
@@ -4043,7 +4327,7 @@ def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
     4096-row block), then exact, iq8, rpq32 and rpq64 (2048 cells) over
     that graph at the JAX protocol's widths. The launch counts are read
     around the build and around each quantizer's sweep: B5 once a round in
-    the rpq rows, no kernel in the exact and iq8 rows. Then exact traversal
+    the rpq rows, G1 once a search in the exact rows, none in the iq8 rows. Then exact traversal
     at L = 48, B5 by id bit for bit at one real rpq64 round (1000 x 4 x 32
     candidates, m = 64, 2048 cells), B1 and B4 at the cosine build's shape
     (4096 x 1.2M, NB 4096, B1's norm-free form; kk 260), and the native
@@ -4089,7 +4373,7 @@ def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
              "no_in_edge_share": index.no_in_edge_share()}
     emit({"phase": "main-angular", "cell": cell, "step": "build l2", "n": n, "d": MAIN_D,
           "degree_bound": 32, **build, "card": smi})
-    rows, rounds_rpq, b5_rpq = [], 0, 0
+    rows, rounds_rpq, b5_rpq, g1_launches = [], 0, 0, 0
     for p in keep["sweep_points"]:
         key = (p.mode, p.search_width, p.expand_width)
         row = {"mode": p.mode, "L": p.search_width, "E": p.expand_width,
@@ -4108,6 +4392,12 @@ def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
                     f"{group}: B5 launches {got} != the rounds executed {rounds}")
             rounds_rpq += rounds
             b5_rpq += got["B5"]
+        elif group == "exact":  # L2 on the normalized rows: G1 once a search
+            searches = sweep_searches(pts_g, len(q))
+            require(got == {**{kid: 0 for kid in got}, "G1": searches},
+                    f"{group}: the traversal launched {got}, expected G1 once a search "
+                    f"({searches})")
+            g1_launches = got["G1"]
         else:
             require(not any(got.values()), f"{group}: the traversal launched {got}")
     emit({"phase": "main-angular", "cell": cell, "step": "sweeps", "queries": len(q),
@@ -4120,7 +4410,10 @@ def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
     p48 = sweep_exact(index, q, gt, k=MAIN_K, widths=(48,), expand_widths=(8,),
                       min_seconds=0.5)[0]
     got = read_counts()
-    require(not any(got.values()), f"exact L=48 launched {got}")
+    searches = sweep_searches([p48], len(q))
+    require(got == {**{kid: 0 for kid in got}, "G1": searches},
+            f"exact L=48 launched {got}, expected G1 once a search ({searches})")
+    g1_launches += got["G1"]
     l2_recall = {p.search_width: p.recall for p in keep["sweep_points"] if p.mode == "exact"}
     l2_recall[48] = p48.recall
     emit({"phase": "main-angular", "cell": cell, "step": "exact L=48", "mode": "exact", "L": 48,
@@ -4225,7 +4518,8 @@ def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
     emit({"phase": "main-angular", "cell": cell, "n": n,
           "seconds": time.perf_counter() - t_phase, "card": smi})
     return {"build_launches": {"l2": launches["build"], "cosine": cos_launches},
-            "build_shape_cosine": shape, "b5": b5, "b5_launches": b5_rpq, "rounds": rounds_rpq}
+            "build_shape_cosine": shape, "b5": b5, "b5_launches": b5_rpq, "rounds": rounds_rpq,
+            "g1_launches": g1_launches}
 
 
 def main() -> int:
@@ -4245,12 +4539,21 @@ def main() -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"], ["--sharded-n"], ["--host-tier-n"],
-                         ["--angular-n"]):
+                         ["--angular-n"], ["--g1-n"]):
         from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
         n = int(sys.argv[2])
         if sys.argv[1] == "--streaming-n":
             phase_main_streaming(dev["smi"], base_n=n)
+        elif sys.argv[1] == "--g1-n":
+            from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+
+            pts, q = make_dataset(n, MAIN_D, MAIN_B, seed=42)
+            gt = ground_truth(pts, q, MAIN_K, device="cuda")
+            index = build_vamana_knn(pts, degree_bound=48, alpha=1.2, seed=0, device="cuda")
+            rows = g1_rows(dev["smi"], index, q, gt, G1_CELL_SHAPES + G1_SWEEP_SHAPES,
+                           f"{n // 1000}k R48")
+            print(json.dumps({"kernels": [g1_kernel_row(rows)]}))
         elif sys.argv[1] == "--angular-n":
             base = ROOT / "build" / "chip_smoke" / "collections"
             shutil.rmtree(base, ignore_errors=True)
@@ -4346,6 +4649,10 @@ def main() -> int:
         }
         out["kernels"].append(b5_row)
         out["kernels"].append(m1)
+        g1_row = g1_kernel_row({**ht1m["g1"], **graph["g1"]})
+        g1_row["launches_exact_sweep_200k"] = graph["g1_launches_exact_sweep"]
+        g1_row["launches_angular_exact"] = angular["g1_launches"]
+        out["kernels"].append(g1_row)
         phase_api(dev["smi"], base, "vamana_200k", CMP_N)
         ht200 = phase_host_tier_200k(dev["smi"], base, "vamana_200k", *sets[CMP_N], auto_recall)
         b5_row["launches_host_tier_200k_pq"] = ht200["b5_launches"]
@@ -4366,8 +4673,11 @@ def main() -> int:
             row["streaming_merge_shape"] = streaming["kernels"][kid]
             row["launches_main_streaming_merges"] = streaming["launches"][kid]
             row["launches_per_streaming_merge"] = streaming["launches"][kid] // streaming["n_merges"]
-        phase_main_wave(dev["smi"], base, *sets[CMP_N])
-        phase_api_streaming(dev["smi"], base, "vamana_200k", CMP_N, sets[CMP_N][1])
+        g1_row["launches_main_streaming"] = streaming["g1_searches"]
+        g1_row["launches_streaming_wave_merge"] = streaming["g1_wave_merge"]
+        g1_row["launches_wave_build"] = phase_main_wave(dev["smi"], base, *sets[CMP_N])
+        g1_row["launches_api_streaming"] = phase_api_streaming(dev["smi"], base, "vamana_200k",
+                                                               CMP_N, sets[CMP_N][1])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

@@ -8,13 +8,16 @@ neighbors -> mask duplicates -> merge into the top L. Per-query early exit
 is masking; the loop ends when every query has converged or at
 `max_steps`.
 
-The JAX package runs the loop as `lax.while_loop` on the device. Here the
-host steers it: a Python loop that asks the device "is any query still
-active?" once a round (one synchronisation each) and stops at the first
-"no", so no round runs past convergence and the PQ-guided search launches
-its ADC kernel exactly once per executed round. Measured on an H100 at
-200,000 x 128, asking every 4th round instead was within the host clock's
-spread of asking every round.
+The JAX package runs the loop as `lax.while_loop` on the device. The exact
+search on the card runs it in one CUDA kernel, G1 (`ops/traverse.py`), a
+block a query, with no host wait between rounds. Everywhere else
+(`_plain_rounds`: CPU tensors, bf16 vectors, cosine and dot, shapes past
+G1's limits, the PQ- and int-guided searches) the host steers it: a Python
+loop that asks the device "is any query still active?" once a round (one
+synchronisation each) and stops at the first "no", so no round runs past
+convergence and the PQ-guided search launches its ADC kernel exactly once
+per executed round. Measured on an H100 at 200,000 x 128, asking every 4th
+round instead was within the host clock's spread of asking every round.
 
 Every selection is a stable sort (`ops/topk.py`): the lower slot first
 among equal distances, as `lax.top_k`.
@@ -24,7 +27,9 @@ and each loop iteration a `graph.round` span (attribute `step`) made of
 `graph.round.select`, `graph.round.sync` (the wait on "is any query still
 active?"), `graph.round.expand` and `graph.round.merge`; the counters
 `graph.iterations` and `graph.rounds` count the iterations and the rounds
-executed (the last iteration stops at its sync).
+executed (the last iteration stops at its sync). On G1 the rounds are one
+`graph.traverse` span and the counter `graph.traverse_kernel` counts the
+searches it served.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import dataclasses
 
 import torch
 
+from diskrag_tpu_torch.ops import traverse
 from diskrag_tpu_torch.ops.distance import Metric, pairwise_distance, squared_norms
 from diskrag_tpu_torch.ops.topk import INF, INVALID_ID, mask_duplicates, topk_smallest
 from diskrag_tpu_torch.utils.profiling import count, span
@@ -100,40 +106,25 @@ def exact_rerank(
     return dataclasses.replace(res, ids=top_i, dists=top_d)
 
 
-def _frontier_search(
+def _seed_candidates(
     adjacency: torch.Tensor,
     medoid: torch.Tensor,
     expand_fn,
     batch: int,
     *,
     search_width: int,
-    k: int,
-    max_steps: int,
-    expand_width: int = 1,
     entry_points: torch.Tensor | None = None,
     seed_expand_fn=None,
-) -> SearchResult:
-    """Shared best-first loop. `expand_fn(ids [B, C] int64, clamped) ->
-    dists [B, C]` supplies the distance backend (exact gather-product or
-    PQ/ADC). `seed_expand_fn(seeds [S]) -> [B, S]` optionally supplies a
-    cheaper backend for the initial seeds, which are shared across the
-    batch: one [S] gather and a dense [B, S] distance.
-
-    `expand_width` (E) expands the E closest unexpanded candidates per
-    round instead of 1: about the same expansion budget in E times fewer
-    sequential rounds.
-
-    `entry_points` (int32[S], unique) seeds the candidate list with S
-    extra start nodes besides the medoid.
-    """
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The seeded candidate list (ids int32 [B, L], dists f32 [B, L],
+    expanded bool [B, L]): the medoid and the `entry_points` (int32[S],
+    unique), scored by `seed_expand_fn(seeds [S]) -> [B, S]` (one shared
+    [S] gather and a dense [B, S] distance) where given, else by
+    `expand_fn`, cut to the L closest; fewer than L seeds are padded with
+    id -1 / +inf, unsorted."""
     b = batch
-    n, r = adjacency.shape
-    e = expand_width
     dev = adjacency.device
     medoid = torch.as_tensor(medoid, device=dev).to(torch.int32)
-    visited_cap = max_steps * e
-
-    # --- initial candidate list: medoid (+ optional entry points) --------
     with span("graph.seed"):
         if entry_points is None:
             seeds = medoid[None]
@@ -166,17 +157,46 @@ def _frontier_search(
             cand_dists = torch.cat(
                 [d0, torch.full((b, pad), INF, dtype=torch.float32, device=dev)], dim=1
             )
-        expanded = cand_ids == INVALID_ID
+    return cand_ids, cand_dists, cand_ids == INVALID_ID
 
-        visited_ids = torch.full((b, visited_cap), INVALID_ID, dtype=torch.int32, device=dev)
-        visited_dists = torch.full((b, visited_cap), INF, dtype=torch.float32, device=dev)
-        n_expanded = torch.zeros((b,), dtype=torch.int32, device=dev)
-        n_steps = torch.zeros((), dtype=torch.int32, device=dev)
 
-        l_new = min(search_width, e * r)
-        slot_iota = torch.arange(search_width, device=dev)
-        lower = torch.tril(torch.ones((l_new, l_new), dtype=torch.bool, device=dev), diagonal=-1)
-        fresh = torch.zeros((b, l_new), dtype=torch.bool, device=dev)
+def _plain_rounds(
+    adjacency: torch.Tensor,
+    expand_fn,
+    cand_ids: torch.Tensor,
+    cand_dists: torch.Tensor,
+    expanded: torch.Tensor,
+    *,
+    k: int,
+    max_steps: int,
+    expand_width: int = 1,
+) -> SearchResult:
+    """The best-first rounds from a seeded candidate list, for the whole
+    batch at once, one PyTorch op at a time and one host wait a round.
+    `expand_fn(ids [B, C] int64, clamped) -> dists [B, C]` supplies the
+    distance backend (exact gather-product or PQ/ADC). Also the plain
+    version of G1 (`ops/traverse.py`), which runs these rounds in one
+    kernel for the exact search on the card.
+
+    `expand_width` (E) expands the E closest unexpanded candidates per
+    round instead of 1: about the same expansion budget in E times fewer
+    sequential rounds.
+    """
+    b, search_width = cand_ids.shape
+    n, r = adjacency.shape
+    e = expand_width
+    dev = adjacency.device
+    visited_cap = max_steps * e
+
+    visited_ids = torch.full((b, visited_cap), INVALID_ID, dtype=torch.int32, device=dev)
+    visited_dists = torch.full((b, visited_cap), INF, dtype=torch.float32, device=dev)
+    n_expanded = torch.zeros((b,), dtype=torch.int32, device=dev)
+    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
+
+    l_new = min(search_width, e * r)
+    slot_iota = torch.arange(search_width, device=dev)
+    lower = torch.tril(torch.ones((l_new, l_new), dtype=torch.bool, device=dev), diagonal=-1)
+    fresh = torch.zeros((b, l_new), dtype=torch.bool, device=dev)
 
     for step in range(max_steps):
         with span("graph.round", step=step):
@@ -259,6 +279,31 @@ def _frontier_search(
     )
 
 
+def _frontier_search(
+    adjacency: torch.Tensor,
+    medoid: torch.Tensor,
+    expand_fn,
+    batch: int,
+    *,
+    search_width: int,
+    k: int,
+    max_steps: int,
+    expand_width: int = 1,
+    entry_points: torch.Tensor | None = None,
+    seed_expand_fn=None,
+    kernel_rounds=None,
+) -> SearchResult:
+    """Shared best-first loop: `_seed_candidates`, then the rounds:
+    `kernel_rounds(cand_ids, cand_dists, expanded) -> SearchResult` (G1)
+    where given, else `_plain_rounds`."""
+    seeded = _seed_candidates(adjacency, medoid, expand_fn, batch, search_width=search_width,
+                              entry_points=entry_points, seed_expand_fn=seed_expand_fn)
+    if kernel_rounds is not None:
+        return kernel_rounds(*seeded)
+    return _plain_rounds(adjacency, expand_fn, *seeded, k=k, max_steps=max_steps,
+                         expand_width=expand_width)
+
+
 def _default_steps(search_width: int, expand_width: int, k: int, max_steps: int | None) -> int:
     if k > search_width:
         raise ValueError(f"k={k} must be <= search_width={search_width}")
@@ -282,6 +327,11 @@ def beam_search(
 ) -> SearchResult:
     """Batched best-first graph search with exact distances.
 
+    After seeding, the rounds run on G1 (`ops/traverse.py`: one kernel for
+    all rounds) where `ops.traverse.refusal` finds nothing against the
+    inputs (CUDA f32 vectors, L2, the kernel's limits on D, L, E x R and
+    max_steps x E), else on `_plain_rounds`.
+
     Args:
       vectors: [N, D] database vectors (f32, or bf16 for the low-bandwidth
         traversal of `beam_search_reranked`).
@@ -297,7 +347,6 @@ def beam_search(
         best-first).
     """
     max_steps = _default_steps(search_width, expand_width, k, max_steps)
-    n = vectors.shape[0]
 
     def expand(ids):
         return _gathered_distance(queries, vectors[ids], metric)
@@ -306,11 +355,19 @@ def beam_search(
         seed_vecs = vectors[seeds].to(torch.float32)  # one shared gather
         return pairwise_distance(queries, seed_vecs, metric).to(torch.float32)
 
+    def g1_rounds(cand_ids, cand_dists, expanded):
+        ids, dists, *log = traverse.launch(vectors, adjacency, queries, cand_ids, cand_dists,
+                                           expanded, expand_width=expand_width,
+                                           max_steps=max_steps)
+        return SearchResult(ids[:, :k], dists[:, :k], *log)
+
+    on_g1 = traverse.refusal(vectors, adjacency, queries, search_width=search_width,
+                             expand_width=expand_width, max_steps=max_steps, metric=metric) is None
     return _frontier_search(
         adjacency, medoid, expand, queries.shape[0],
         search_width=search_width, k=k, max_steps=max_steps,
         expand_width=expand_width, entry_points=entry_points,
-        seed_expand_fn=seed_expand,
+        seed_expand_fn=seed_expand, kernel_rounds=g1_rounds if on_g1 else None,
     )
 
 

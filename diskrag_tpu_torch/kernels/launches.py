@@ -25,7 +25,7 @@ def count(wrapper, attr: str = "launches") -> None:
 def launch_counts() -> dict[str, int]:
     """{kernel id: launches since the last reset}."""
     from diskrag_tpu_torch.ops import flat_scan as fs
-    from diskrag_tpu_torch.ops import mm_probe, pq_scan
+    from diskrag_tpu_torch.ops import mm_probe, pq_scan, traverse
 
     with _LOCK:
         return {
@@ -36,14 +36,16 @@ def launch_counts() -> dict[str, int]:
             "B6": fs.scan_bucketed_topk_hier.launches_pipelined,
             "B5": pq_scan.adc_lookup_gathered_kernel.launches,
             "M1": mm_probe.mm_probe.launches,
+            "G1": traverse.beam_traverse.launches,
         }
 
 
 def reset_launch_counts() -> None:
     from diskrag_tpu_torch.ops import flat_scan as fs
-    from diskrag_tpu_torch.ops import mm_probe, pq_scan
+    from diskrag_tpu_torch.ops import mm_probe, pq_scan, traverse
 
     with _LOCK:
         fs.reset_launch_counts()
         pq_scan.reset_launch_counts()
         mm_probe.reset_launch_counts()
+        traverse.reset_launch_counts()

@@ -122,6 +122,30 @@ def test_max_steps_cap_and_k_guard(graph):
         _both_exact(graph, "l2", width=4, e=1, seeds=False, k=5)
 
 
+@pytest.mark.parametrize("e", [1, 4, 8])
+@pytest.mark.parametrize("width", [16, 32])
+@pytest.mark.parametrize("seeds", [True, False])
+def test_batch_search_is_each_query_searched_alone(graph, e, width, seeds):
+    """What G1 (`ops/traverse.py`, a block a query that stops on its own)
+    rests on: a query with no active selection never changes state in the
+    batch loop, so the batch's ids, distances, visited log and n_expanded
+    are each query's searched alone, and its n_steps their largest."""
+    tidx = vamana_index_from_jax(graph["ints"], graph["adj"], graph["med"], metric="l2",
+                                 entry_points=graph["eps"] if seeds else None, device="cpu")
+    q = _t(graph["q_int"])
+    kw = dict(search_width=width, k=width, expand_width=e, entry_points=tidx.entry_points)
+    batch = tsearch.beam_search(tidx.vectors, tidx.adjacency, tidx.medoid, q, **kw)
+    steps = []
+    for i in range(B):
+        one = tsearch.beam_search(tidx.vectors, tidx.adjacency, tidx.medoid, q[i : i + 1], **kw)
+        for field in ("ids", "dists", "visited_ids", "visited_dists", "n_expanded"):
+            assert torch.equal(getattr(batch, field)[i], getattr(one, field)[0]), (i, field)
+        steps.append(int(one.n_steps))
+    assert int(batch.n_steps) == max(steps)
+    # the queries stop at different rounds, unless the cap of ceil(2L / E) stops them all
+    assert min(steps) < max(steps) or min(steps) == -(-2 * width // e)
+
+
 @pytest.mark.parametrize("metric", ["l2", "dot"])
 def test_beam_search_reranked_matches_jax(graph, metric):
     """bf16 traversal + f32 rerank: small integers are exact in bf16, so

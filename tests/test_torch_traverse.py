@@ -1,0 +1,285 @@
+"""G1 (`ops/traverse.py`, `csrc/beam_traverse.cu`): the exact traversal's
+rounds in one CUDA kernel.
+
+On the CPU: which exact searches go to the kernel (`refusal`; a refused
+search keeps the plain round loop and launches nothing) and the wrapper's
+checks. The tests marked `cuda` (they skip without a card) hold G1 against
+the plain rounds from the same seeded state on a card:
+
+    pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_traverse.py
+
+No JAX in this file: the tests for the card hold the kernel against the
+port's own plain rounds (`--noconftest` skips the suite's session hook,
+which asks JAX for emulated CPU devices these tests do not need)."""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)  # the suite runs several workers: do not let each spin a thread per core
+
+from diskrag_tpu_torch.benchmark import ground_truth, make_dataset, recall_at_k
+from diskrag_tpu_torch.graph import search as tsearch
+from diskrag_tpu_torch.kernels.launches import launch_counts, reset_launch_counts
+from diskrag_tpu_torch.ops import traverse
+from diskrag_tpu_torch.ops.distance import pairwise_distance
+from diskrag_tpu_torch.utils import profiling
+
+
+def _random_graph(n=300, d=16, r=12, b=8, seed=0):
+    rng = np.random.default_rng(seed)
+    vecs = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    adj = torch.from_numpy(rng.integers(-1, n, size=(n, r)).astype(np.int32))
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    return vecs, adj, q
+
+
+# (case, what it changes, the refusal's words)
+REFUSED = [
+    ("cpu", {}, "CUDA device"),
+    ("bf16", {"dtype": torch.bfloat16}, "f32"),
+    ("dim_not_multiple_of_4", {"d": 18}, "multiple of 4"),
+    ("dim_over_2048", {"d": 2052}, "multiple of 4 up to 2048"),
+    ("width_over_256", {"width": 264}, "E <= L <= 256"),
+    ("fresh_over_1024", {"width": 128, "e": 100}, "E x R"),
+    ("visited_over_1024", {"e": 8, "max_steps": 200}, "max_steps x E"),
+    ("cosine", {"metric": "cosine"}, "L2"),
+    ("int64_adjacency", {"adj_dtype": torch.int64}, "int32"),
+    ("strided_vectors", {"strided": True}, "contiguous"),
+]
+
+
+@pytest.mark.parametrize("case,change,words", REFUSED, ids=[c[0] for c in REFUSED])
+def test_refused_searches_keep_the_plain_loop(case, change, words):
+    """Each input outside G1's reach keeps `_plain_rounds`: the refusal
+    names why, the search runs the plain rounds (their spans and counters
+    record) and neither G1's launch count nor `graph.traverse_kernel` moves."""
+    vecs, adj, q = _random_graph(d=change.get("d", 16))
+    vecs = vecs.to(change.get("dtype", torch.float32))
+    if change.get("strided"):
+        vecs = torch.cat([vecs, vecs], dim=1)[:, ::2]
+    adj = adj.to(change.get("adj_dtype", torch.int32))
+    kw = dict(search_width=change.get("width", 16), expand_width=change.get("e", 1),
+              metric=change.get("metric", "l2"))
+    steps = change.get("max_steps") or tsearch._default_steps(kw["search_width"],
+                                                              kw["expand_width"], 10, None)
+    why = traverse.refusal(vecs, adj, q, max_steps=steps, **kw)
+    assert why is not None and words in why, why
+    reset_launch_counts()
+    with profiling.tracing():
+        profiling.counters(reset=True)
+        res = tsearch.beam_search(vecs, adj, torch.tensor(0, dtype=torch.int32), q,
+                                  k=10, max_steps=change.get("max_steps"), **kw)
+        records = profiling.drain()
+        counters = profiling.counters(reset=True)
+    assert launch_counts()["G1"] == 0
+    assert "graph.traverse_kernel" not in counters and counters["graph.rounds"] == int(res.n_steps)
+    assert any(r.name == "graph.round" for r in records)
+    assert not any(r.name == "graph.traverse" for r in records)
+
+
+def _seeded(vecs, adj, q, l=16):
+    b = q.shape[0]
+    ids = torch.full((b, l), -1, dtype=torch.int32)
+    ids[:, 0] = 0
+    dists = torch.full((b, l), float("inf"))
+    dists[:, 0] = 1.0
+    return [vecs, adj, q, ids, dists, ids == -1]
+
+
+# (case, operand index, replacement maker, exception, words)
+WRAPPER = [
+    ("f64_vectors", 0, lambda a: a.double(), TypeError, "float32 vectors"),
+    ("int64_cand_ids", 3, lambda a: a.long(), TypeError, "int32 cand_ids"),
+    ("uint8_expanded", 5, lambda a: a.to(torch.uint8), TypeError, "bool expanded"),
+    ("query_width", 2, lambda a: a[:, :8].contiguous(), ValueError, "disagree"),
+    ("adjacency_rows", 1, lambda a: a[:-1], ValueError, "disagree"),
+    ("cand_dists_shape", 4, lambda a: a[:, :-1], ValueError, "disagree"),
+    ("expanded_rows", 5, lambda a: a[:-1], ValueError, "disagree"),
+    ("cpu_operands", 0, lambda a: a, ValueError, "one CUDA device"),
+]
+
+
+@pytest.mark.parametrize("case,at,make,exc,words", WRAPPER, ids=[c[0] for c in WRAPPER])
+def test_wrapper_refuses_operands_it_does_not_take(case, at, make, exc, words):
+    ops = _seeded(*_random_graph())
+    ops[at] = make(ops[at])
+    reset_launch_counts()
+    with pytest.raises(exc, match=words):
+        traverse.beam_traverse(*ops, expand_width=1, max_steps=32)
+    assert launch_counts()["G1"] == 0
+
+
+# --- on the card ---------------------------------------------------------------
+#
+# Two sets at the exact cell's widths (D = 128, the R = 48 graph built on the
+# card with its entry points), 20k points and 512 queries each. On small
+# integers every f32 product and sum is exact in any order, so G1 and the
+# plain rounds agree bit for bit on every row, ties and all. On the SIFT-like
+# float set (`make_dataset`) the two sum in other orders: each distance of
+# the norm expansion max(qn + vn - 2 q.v, 0) is rounded at the scale of
+# qn + vn (the two differ by up to 4.1e-7 of it, 1.2e-4 of the distance, on
+# an H100), and a near-tie within that rounding can expand in the other
+# order; there the criteria are statistical.
+
+N_CARD = 20_000
+
+
+@pytest.fixture(scope="module")
+def card_sets():
+    """{"ints": ..., "floats": ...}, each (index, queries on the card, exact
+    top-10 ids)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: G1 is compiled and run only on one")
+    from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
+
+    rng = np.random.default_rng(5)
+    centers = rng.integers(-6, 7, size=(64, 128))
+    ints = (centers[rng.integers(0, 64, size=N_CARD)]
+            + rng.integers(-2, 3, size=(N_CARD, 128))).astype(np.float32)
+    q_int = (ints[rng.integers(0, N_CARD, size=512)]
+             + rng.integers(-1, 2, size=(512, 128))).astype(np.float32)
+    floats, q_flt = make_dataset(N_CARD, 128, 512, seed=11)
+    out = {}
+    for name, pts, qs in (("ints", ints, q_int), ("floats", floats, q_flt)):
+        index = build_vamana_knn(pts, degree_bound=48, seed=0, device="cuda")
+        out[name] = (index, torch.from_numpy(qs).cuda(), ground_truth(pts, qs, 10, device="cuda"))
+    return out
+
+
+def _both(vectors, adjacency, medoid, queries, *, width, e, entry_points, k, max_steps=None):
+    """(G1's result, the plain rounds' result) of one search from the same
+    seeding; G1 launched exactly once."""
+    kw = dict(search_width=width, k=k, expand_width=e, entry_points=entry_points)
+    reset_launch_counts()
+    kern = tsearch.beam_search(vectors, adjacency, medoid, queries, max_steps=max_steps, **kw)
+    assert launch_counts()["G1"] == 1
+
+    def expand(ids):
+        return tsearch._gathered_distance(queries, vectors[ids], "l2")
+
+    def seed_expand(seeds):
+        return pairwise_distance(queries, vectors[seeds], "l2")
+
+    steps = tsearch._default_steps(width, e, k, max_steps)
+    plain = tsearch._frontier_search(adjacency, medoid, expand, queries.shape[0],
+                                     max_steps=steps, seed_expand_fn=seed_expand, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["G1"] == 1
+    return kern, plain
+
+
+def _padded(adjacency, width=64, seed=3):
+    """The R = 48 rows padded with -1 to `width`, and a tenth of the rest
+    knocked out to -1 too."""
+    n, r = adjacency.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    adj = torch.cat([adjacency, torch.full((n, width - r), -1, dtype=torch.int32,
+                                           device="cuda")], 1)
+    return torch.where(torch.rand(adj.shape, device="cuda", generator=gen) < 0.1, -1,
+                       adj).contiguous()
+
+
+# (case, batch, L, E, entry points, max_steps, padded adjacency)
+CARD_CASES = [
+    ("cell_b1", 1, 32, 1, "all", None, False),
+    ("cell_b7", 7, 32, 1, "all", None, False),
+    ("cell_b512", 512, 32, 1, "all", None, False),
+    ("wave_l64_e8_r64", 512, 64, 8, "all", None, True),
+    ("cap_hit", 512, 32, 1, "all", 6, False),
+    ("medoid_only", 512, 32, 1, None, None, False),
+    ("five_entry_points", 512, 32, 4, "five", None, False),
+]
+
+
+def _case(sets, name, case):
+    _, b, width, e, eps, max_steps, padded = case
+    index, qs, gt = sets[name]
+    adj = _padded(index.adjacency) if padded else index.adjacency
+    ep = {"all": index.entry_points, "five": index.entry_points[:5], None: None}[eps]
+    return index, adj, qs[:b], gt[:b], dict(width=width, e=e, entry_points=ep,
+                                            max_steps=max_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
+def test_g1_is_the_plain_rounds_bit_for_bit_on_integer_data(card_sets, case):
+    """Where no sum rounds, G1 is the plain rounds on every row: the whole
+    beam (ids and distances), the visited log, n_expanded and n_steps."""
+    index, adj, qs, _, kw = _case(card_sets, "ints", case)
+    kern, plain = _both(index.vectors, adj, index.medoid, qs, k=kw["width"], **kw)
+    for field in ("ids", "dists", "visited_ids", "visited_dists", "n_expanded", "n_steps"):
+        assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+    assert int(kern.n_steps) > 0
+    if case[0] == "cap_hit":
+        assert int(kern.n_steps) == 6 and bool((kern.n_expanded == 6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
+def test_g1_matches_plain_rounds_on_float_data(card_sets, case):
+    """On the SIFT-like set: the top-10 ids identical and the visited logs
+    equal as sets each on >= 99.5% of rows (every row at B = 1 and 7);
+    on the rows where both hold, n_expanded equal and each distance of the
+    top 10 and of the log within 1e-5 of qn + vn, the scale its rounding
+    is taken at; recall@10 within 1e-3 and n_steps equal. A near-tie that
+    breaks the other way can change which node a round expands while the
+    top 10 stays: the share of rows allows for that, the integer test
+    holds the logic bit for bit."""
+    index, adj, qs, gt, kw = _case(card_sets, "floats", case)
+    kern, plain = _both(index.vectors, adj, index.medoid, qs, k=10, **kw)
+    same = (kern.ids == plain.ids).all(1)
+    k_log, k_order = torch.sort(kern.visited_ids, dim=1)
+    p_log, p_order = torch.sort(plain.visited_ids, dim=1)
+    logs = (k_log == p_log).all(1)
+    for share in (same, logs):
+        assert share.float().mean().item() >= 0.995, (
+            f"top-10 ids differ on {int((~same).sum())}, visited sets on {int((~logs).sum())} "
+            f"of {len(same)} rows")
+    both = same & logs
+    assert torch.equal(kern.n_expanded[both], plain.n_expanded[both])
+    got = recall_at_k(kern.ids.cpu().numpy(), gt, 10)
+    want = recall_at_k(plain.ids.cpu().numpy(), gt, 10)
+    assert abs(got - want) <= 1e-3, (got, want)
+    assert int(kern.n_steps) == int(plain.n_steps) > 0
+    for kd, pd, ids in ((kern.dists[both], plain.dists[both], plain.ids[both]),
+                        (torch.gather(kern.visited_dists, 1, k_order)[both],
+                         torch.gather(plain.visited_dists, 1, p_order)[both], p_log[both])):
+        fin = torch.isfinite(pd)
+        assert torch.equal(fin, torch.isfinite(kd))
+        v = index.vectors[ids.clamp_min(0).long()]
+        scale = (qs[both] ** 2).sum(1, keepdim=True) + (v * v).sum(-1)
+        assert torch.all((kd - pd).abs()[fin] <= 1e-5 * scale[fin])
+
+
+@pytest.mark.cuda
+def test_an_exact_search_at_the_cells_shape_is_one_traverse_span(card_sets):
+    """With tracing on, the search at L 32 / E 1 / R 48 / D 128 records one
+    `graph.traverse` span, `graph.traverse_kernel` counts it, and no host
+    round (`graph.round*`, `graph.rounds`) runs."""
+    index, qs, _ = card_sets["floats"]
+    reset_launch_counts()
+    with profiling.tracing():
+        profiling.counters(reset=True)
+        tsearch.beam_search(index.vectors, index.adjacency, index.medoid, qs[:1], search_width=32,
+                            k=10, entry_points=index.entry_points)
+        torch.cuda.synchronize()
+        records = profiling.drain()
+        counters = profiling.counters(reset=True)
+    assert launch_counts()["G1"] == 1
+    assert counters.get("graph.traverse_kernel") == 1 and "graph.rounds" not in counters
+    assert sum(r.name == "graph.traverse" for r in records) == 1
+    assert not any(r.name.startswith("graph.round") for r in records)
+
+
+@pytest.mark.cuda
+def test_refused_search_on_the_card_launches_nothing(card_sets):
+    """bf16 vectors and L past 256 on the card keep the plain rounds."""
+    index, qs, _ = card_sets["floats"]
+    reset_launch_counts()
+    tsearch.beam_search(index.vectors.to(torch.bfloat16), index.adjacency, index.medoid,
+                        qs[:4], search_width=32, k=10, entry_points=index.entry_points)
+    tsearch.beam_search(index.vectors, index.adjacency, index.medoid, qs[:4], search_width=264,
+                        k=10, max_steps=2, entry_points=index.entry_points)
+    torch.cuda.synchronize()
+    assert launch_counts()["G1"] == 0
