@@ -7,7 +7,11 @@ scaled by `center_sigma`, each point a centre plus N(0, noise_sigma) noise,
 each pool query a random base point plus N(0, query_noise_sigma) noise.
 They are drawn on the device with a `torch.Generator` in a few large
 calls (not numpy's stream on the host, so the values differ from
-`make_dataset`'s; the distribution is the same).
+`make_dataset`'s; the distribution is the same). A configuration with
+`"normalize": true` then divides each point and each pool query by its L2
+norm, in f32 on the device: the angular deployment's "normalize, then
+L2" (`diskrag_tpu_torch/tools/angular_bench.py::make_angular_dataset`),
+under which L2 order is cosine order.
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ def make_points(cfg: dict, seed: int, device: torch.device) -> tuple[torch.Tenso
     queries = torch.randn(qi.shape[0], d, generator=g, device=device)
     queries *= float(cfg["query_noise_sigma"])
     queries += pts[qi]
+    if cfg.get("normalize"):
+        pts /= torch.linalg.vector_norm(pts, dim=1, keepdim=True)
+        queries /= torch.linalg.vector_norm(queries, dim=1, keepdim=True)
     return pts, queries
 
 

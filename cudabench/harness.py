@@ -7,6 +7,10 @@ configuration in the file its `configs` entry names, the traffic mix in
 `metrics/<metric>.py` (a module with `read(run) -> float | None`; None
 leaves the metric out of the line). The program under test is
 `diskrag_tpu_torch`; the window drives `SearchEngine.search_many`.
+
+A `--trace 1` run, after the window, runs the harness's profiled stretch,
+then the program's own span stretches (`program_spans`) on the request
+numbers past it, kept as `run.program`; the `--trace 0` run runs neither.
 """
 
 from __future__ import annotations
@@ -27,12 +31,16 @@ import time
 import numpy as np
 import torch
 
-from cudabench import check, datagen, roofline, trace, traffic
+from cudabench import check, datagen, program_spans, roofline, trace, traffic
 from cudabench.reference import ControlEngine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "diskrag_tpu")
 COLLECTION = "bench"
+# traversal codes the build knows: none, IntQuantizer bits 8, ResidualPQ
+TRAVERSAL_CODES = (None, "iq8", "rpq")
+# requests of a traced run's span stretch
+SPAN_REQUESTS = 64
 
 
 class Spans:
@@ -99,6 +107,13 @@ class Run:
         self.gc: GcWatch | None = None
         self.stretch: dict | None = None
         self.cpu_s = None
+        # seconds of each set-up stage by the host clock (the summary's `setup_spans`)
+        self.setup_spans: dict = {}
+        # the program's spans and counters of a traced run, as
+        # `program_spans.span_stretch` gives them, with the profiled span
+        # stretch under "profiled" on a card; None untraced or without
+        # the program's recorder
+        self.program: dict | None = None
 
     @property
     def answered(self) -> list[dict]:
@@ -114,6 +129,22 @@ def find(entries: list, name: str, what: str) -> dict:
         if e["name"] == name:
             return e
     raise KeyError(f"no {what} named {name!r} in BENCHMARK.json")
+
+
+def check_config(cfg: dict, path) -> None:
+    """Refuses, before any set-up, a configuration that the harness could
+    not build or that its reference could not judge: the reference and
+    `check.py` hold answers against L2 alone."""
+    if cfg.get("metric") != "l2":
+        raise ValueError(f"{path}: metric {cfg.get('metric')!r}: the reference judges 'l2' alone")
+    codes = cfg.get("traversal_codes")
+    if codes not in TRAVERSAL_CODES:
+        raise ValueError(f"{path}: unknown traversal_codes {codes!r} "
+                         f"(known: {', '.join(map(repr, TRAVERSAL_CODES))})")
+    if codes == "rpq":
+        for key in ("pq_subvectors", "pq_cells"):
+            if key not in cfg:
+                raise ValueError(f"{path}: traversal_codes 'rpq' needs {key!r}")
 
 
 def cell_metrics(spec: dict, cell: str, per_layer: bool) -> list[dict]:
@@ -177,15 +208,25 @@ def _build(cfg: dict, pts: np.ndarray, index_dir: pathlib.Path, dev: torch.devic
             spans.add(f"build.{name}", stages[name])
     t1 = time.perf_counter()
     meta = {"recommended_search_L": int(cfg["recommended_search_L"])}
+    if "expand_width" in cfg:
+        meta["recommended_expand_width"] = int(cfg["expand_width"])
     kwargs: dict = {}
-    if cfg["traversal_codes"] == "iq8":
+    codes = cfg.get("traversal_codes")
+    if codes == "iq8":
         from diskrag_tpu_torch.pq.intq import IntQuantizer
 
         iq = IntQuantizer(bits=8, device=dev).fit(pts, seed=int(cfg["build_seed"]))
         kwargs = {"pq": iq, "pq_codes": iq.encode(pts)}
-        meta["recommended_expand_width"] = int(cfg["expand_width"])
-    elif cfg["traversal_codes"] is not None:
-        raise ValueError(f"unknown traversal_codes {cfg['traversal_codes']!r}")
+    elif codes == "rpq":
+        # as `build_index.py::_train_pq` fits a "residual" quantizer
+        from diskrag_tpu_torch.pq.residual import ResidualPQ
+
+        rpq = ResidualPQ(n_subvectors=int(cfg["pq_subvectors"]), n_coarse=int(cfg["pq_cells"]),
+                         device=dev).fit(pts, seed=int(cfg["build_seed"]))
+        pq_codes, cells = rpq.encode(pts)
+        kwargs = {"pq": rpq, "pq_codes": pq_codes, "pq_coarse_ids": cells}
+    elif codes is not None:
+        raise ValueError(f"unknown traversal_codes {codes!r}")
     save_index(index_dir, index, meta_extra=meta, write_compat=bool(cfg["record_file"]),
                host_vectors=pts, **kwargs)
     del index
@@ -270,20 +311,45 @@ def _traced_stretch(engine, call, stream, first: int, n: int, attempts: int = 3)
             delattr(engine, attr)
 
 
-def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
-             device: str = "cuda", t_process: float | None = None,
-             overrides: dict | None = None, traffic_overrides: dict | None = None,
-             control: bool = False,
-             root: pathlib.Path = ROOT, log=sys.stderr) -> dict:
-    """One run of `workload`; returns the result line's object. `overrides`
-    and `traffic_overrides` (tests only) replace configuration and traffic
-    keys; `control` puts the reference's TF32 stand-in in the program's
-    place."""
+def _program_stretches(call, stream, first: int, mix: dict, on_card: bool,
+                       paired: bool) -> dict | None:
+    """The program's own spans and counters from request `first` on: the
+    span stretch (`SPAN_REQUESTS` requests, each sent once with tracing
+    on; with `paired` also once with it off), then on a card the profiled
+    span stretch of `profile_requests` more. None where the program has
+    no span recorder."""
+    program = program_spans.span_stretch(call, stream, first, SPAN_REQUESTS, paired)
+    if program is not None and on_card:
+        program["profiled"] = program_spans.profiled_span_stretch(
+            call, stream, first + SPAN_REQUESTS, int(mix["profile_requests"]))
+    return program
+
+
+def _refuse_forbidden(log) -> None:
+    """Exits with 3, before any result, where the process holds a module
+    the benchmark forbids."""
+    found = forbidden_modules()
+    if found:
+        print(f"cudabench: modules loaded that the benchmark forbids: {found}", file=log)
+        raise SystemExit(3)
+
+
+def measure(workload: str, seed: int, seconds: float, traced: bool, *,
+            device: str = "cuda", t_process: float | None = None,
+            overrides: dict | None = None, traffic_overrides: dict | None = None,
+            control: bool = False, span_pairs: bool = False,
+            root: pathlib.Path = ROOT, log=sys.stderr) -> tuple[Run, dict]:
+    """One run of `workload`; returns what it measured and the result
+    line's object. `overrides` and `traffic_overrides` (tests only) replace
+    configuration and traffic keys; `control` puts the reference's TF32
+    stand-in in the program's place; `span_pairs` (the probe) sends each
+    request of the span stretch untraced too, for the tracing's cost."""
     t_process = time.perf_counter() if t_process is None else t_process
     spec = load_spec(root)
     cell = find(spec["workloads"], workload, "workload")
     cfg_entry = find(spec["configs"], cell["config"], "config")
     cfg = {**json.loads((root / cfg_entry["file"]).read_text()), **(overrides or {})}
+    check_config(cfg, cfg_entry["file"])
     mix = {**traffic.load(root / "cudabench" / "traffic" / f"{cell['traffic']}.json"),
            **(traffic_overrides or {})}
     metrics = cell_metrics(spec, workload, traced)
@@ -326,6 +392,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
             _sync(dev)
             census0 = gc_census()
         run.setup_s = time.perf_counter() - t_process
+        run.setup_spans = dict(spans.items)
         keep = np.random.default_rng([int(seed), 4]).random(4096) < min(1.0, 16.0 / batch)
         first = int(mix["warmup_requests"])
         gcw = run.gc = GcWatch()
@@ -337,10 +404,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
         finally:
             gc.callbacks.remove(gcw)
         run.cpu_s = cpu_seconds() - cpu0
-        found = forbidden_modules()
-        if found:
-            print(f"cudabench: modules loaded that the benchmark forbids: {found}", file=log)
-            raise SystemExit(3)
+        _refuse_forbidden(log)
         peak = 0
         if dev.type == "cuda":
             _sync(dev)
@@ -349,6 +413,10 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
         if traced and dev.type == "cuda":
             run.stretch = _traced_stretch(engine, call, stream, first + len(run.requests),
                                           int(mix["profile_requests"]))
+        if traced:
+            run.program = _program_stretches(
+                call, stream, first + len(run.requests) + int(mix["profile_requests"]), mix,
+                dev.type == "cuda", span_pairs)
         del engine
         gc.collect()
         if dev.type == "cuda":
@@ -365,11 +433,14 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
-    print(json.dumps(_summary(run, spans, census0, ref_s, seed, traced, control)), flush=True)
-    return _result(run, checks, metrics, readers, dev, peak, traced, log)
+    # again after what ran past the window: the stretches, the kNN
+    # profile and the reference
+    _refuse_forbidden(log)
+    print(json.dumps(_summary(run, census0, ref_s, seed, traced, control)), flush=True)
+    return run, _result(run, checks, metrics, readers, dev, peak, traced, log)
 
 
-def _summary(run: Run, spans: Spans, census: dict, ref_s: float, seed: int, traced: bool,
+def _summary(run: Run, census: dict, ref_s: float, seed: int, traced: bool,
              control: bool) -> dict:
     """The line before the result: what the run did, for whoever reads its log."""
     lat = np.array([r["latency_s"] for r in run.requests]) * 1e3
@@ -379,7 +450,7 @@ def _summary(run: Run, spans: Spans, census: dict, ref_s: float, seed: int, trac
         "median_ms": float(np.median(lat)) if lat.size else None,
         "p95_ms": float(np.percentile(lat, 95)) if lat.size else None,
         "window_s": run.window_s, "setup_s": run.setup_s, "build_s": run.build_s,
-        "reference_s": ref_s, "setup_spans": dict(spans.items),
+        "reference_s": ref_s, "setup_spans": run.setup_spans,
         "build_stages": run.build_stages, "launches": run.launches,
         "knn_profile": run.knn_profile, **card(),
         "gc_in_window": {"count": run.gc.count, "seconds": run.gc.seconds},
@@ -394,6 +465,8 @@ def _summary(run: Run, spans: Spans, census: dict, ref_s: float, seed: int, trac
     if run.stretch is not None:
         out["stretch"] = {key: run.stretch[key] for key in
                           ("window_s", "busy_s", "requests", "kernels", "launch_calls")}
+    if run.program is not None:
+        out["program"] = program_spans.digest(run.program)
     return out
 
 
@@ -505,8 +578,8 @@ def main(argv: list[str] | None = None, t_process: float | None = None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} visible",
               file=sys.stderr)
         return 2
-    line = run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
-                    t_process=t_process, control=args.control)
+    _, line = measure(args.workload, args.seed, args.seconds, bool(args.trace),
+                      t_process=t_process, control=args.control)
     print(json.dumps(line), flush=True)
     return 0
 

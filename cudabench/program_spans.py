@@ -3,34 +3,43 @@
 the readers of the per-layer numbers they give, and a probe that runs one
 cell with those stretches.
 
-Two stretches, both after the window and on request numbers past those
-of the harness's profiled stretch, so that stretch sees the requests it
-saw before:
+Two stretches, which every `--trace 1` run makes (`harness.measure`)
+after the window and the harness's profiled stretch, on request numbers
+past those it took, so that stretch sees the requests it saw before:
 
-- the span stretch (`span_stretch`): `n` requests, each sent twice in a
-  row, with tracing off and with it on, and no profiler running; the
-  spans, the counters and the tracing's cost (the median over the
-  requests of the traced send's latency over the untraced one's: paired,
-  since the host's speed drifts by more than that cost over seconds);
+- the span stretch (`span_stretch`): `n` requests, each sent once with
+  tracing on and no profiler running: the spans, the counters and each
+  request's engine stats. The probe sends each request a second time,
+  with tracing off, beside its traced send (`paired`), for the tracing's
+  cost (the median over the requests of the traced send's latency over
+  the untraced one's: paired, since the host's speed drifts by more than
+  that cost over seconds);
 - the profiled span stretch (`profiled_span_stretch`): requests with
   tracing on under `torch.profiler` (device and host), where each span is
-  a `diskrag.*` range: the launches a traversal round, and the device's
-  idle gaps named by the innermost program span.
+  a `diskrag.*` range: the launches a traversal round, the device time of
+  the kernels launched inside each span, and the device's idle gaps named
+  by the innermost program span.
 
-The readers take the `program` dict the probe builds (`span_stretch`'s
-result, with the set-up's records under "setup" and the profiled span
-stretch under "profiled") and return None where it holds nothing to read,
-as a program without the recorder leaves it.
+Both run after the profiler has run once in the process, which slows the
+host's later work (~20%): their host times are comparable from run to
+run and from PR to PR, not with the window's.
+
+The readers take the `program` dict a traced run keeps as `run.program`
+(`span_stretch`'s result, with the profiled span stretch under
+"profiled"; the probe adds the set-up's records under "setup") and return
+None where it holds nothing to read, as a program without the recorder
+leaves it.
 
     python3 -m cudabench.program_spans --workload sift1m-exact-b1 --seed 7 --seconds 50
 
-from the root of a checkout runs the cell as `run.py --trace 1` does (`harness.run_cell`), with the
-collection stage of the set-up traced and the two stretches run before
-the harness's own profiled stretch and after it; it prints the harness's
-summary and result lines, then one line of its own: the readers' values,
-the span summary and counters, the tracing's cost, the idle gaps by
-program span and the check that the round spans lie inside the engine's
-search time.
+from the root of a checkout runs the cell as `run.py --trace 1` does
+(`harness.measure`), with the span stretch paired, the collection stage
+of the set-up traced and the cost of one span site taken first; it prints
+the harness's summary and result lines, then one line of its own: every
+reader's value, the digest of the stretches (`digest`: the span summary
+and counters, the tracing's cost, the idle gaps by program span, the
+check that the round spans lie inside the engine's search time), the
+set-up's spans and the cost of a span site.
 """
 
 from __future__ import annotations
@@ -58,13 +67,14 @@ def recorder():
 # --- the stretches --------------------------------------------------------
 
 
-def span_stretch(call, stream, first: int, n: int) -> dict | None:
-    """Requests `first` .. `first + n - 1`, each sent twice in a row, once
-    with tracing off and once with it on (on first for every other
-    request, so that neither side always runs second): the spans and
-    counters of the traced sends, each one's engine stats, and the
-    tracing's cost (the median over the requests of the traced send's
-    latency over the untraced one's). None without the recorder."""
+def span_stretch(call, stream, first: int, n: int, paired: bool = False) -> dict | None:
+    """Requests `first` .. `first + n - 1`, each sent once with tracing on:
+    the spans and counters they recorded and each one's engine stats.
+    With `paired` each is also sent with tracing off, beside its traced
+    send (first for every other request, so that neither side always
+    runs second), for the tracing's cost: the median over the requests of
+    the traced send's latency over the untraced one's. None without the
+    recorder."""
     prof = recorder()
     if prof is None:
         return None
@@ -73,7 +83,8 @@ def span_stretch(call, stream, first: int, n: int) -> dict | None:
     ratios, lat_off, lat_on, stats = [], [], [], []
     for j, i in enumerate(range(first, first + n)):
         lat = {}
-        for on in ((False, True) if j % 2 == 0 else (True, False)):
+        sends = ((False, True) if j % 2 == 0 else (True, False)) if paired else (True,)
+        for on in sends:
             t0 = time.perf_counter()
             if on:
                 with prof.tracing():
@@ -82,16 +93,19 @@ def span_stretch(call, stream, first: int, n: int) -> dict | None:
             else:
                 call(stream.texts(i))
             lat[on] = time.perf_counter() - t0
-        lat_off.append(lat[False])
         lat_on.append(lat[True])
-        ratios.append(lat[True] / lat[False])
+        if paired:
+            lat_off.append(lat[False])
+            ratios.append(lat[True] / lat[False])
     dropped = prof.dropped()
     records = prof.drain()
-    return {"records": records, "counters": prof.counters(reset=True), "dropped": dropped,
-            "summary": prof.summary(records), "stats": stats,
-            "median_ms_off": statistics.median(lat_off) * 1e3,
-            "median_ms_on": statistics.median(lat_on) * 1e3,
-            "overhead": statistics.median(ratios)}
+    out = {"records": records, "counters": prof.counters(reset=True), "dropped": dropped,
+           "summary": prof.summary(records), "stats": stats,
+           "median_ms_on": statistics.median(lat_on) * 1e3}
+    if paired:
+        out.update(median_ms_off=statistics.median(lat_off) * 1e3,
+                   overhead=statistics.median(ratios))
+    return out
 
 
 def span_cost_ns(reps: int = 100_000) -> dict | None:
@@ -133,11 +147,13 @@ def profiled_span_stretch(call, stream, first: int, n: int, attempts: int = 3) -
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
         prof.drain()
+        by_span = device_ms_by_span(p.events())
         dev, host = trace.split_events(p)
         dev = [e for e in dev if not e[0].startswith(PREFIX)]  # the spans' device-side copies
         st = trace.stretch(dev, host)
         out = {"complete": trace.complete(st), "stretch": st,
                "launches_per_round": launches_per_round(host),
+               "device_ms_by_span": by_span,
                "idle_gaps_by_span": idle_gaps_by_span(dev, host)}
         if out["complete"]:
             break
@@ -207,6 +223,21 @@ def _mean_per_request(program, name: str):
     return sum(_ms(r) for r in spans) / _requests(recs)
 
 
+def seed_ms(program):
+    """Mean host ms a request of the traversal's seeding (`graph.seed` spans)."""
+    return _mean_per_request(program, "graph.seed")
+
+
+def seed_device_ms(program):
+    """Mean device ms a request of the kernels the traversal's seeding
+    launched (inside `diskrag.graph.seed` ranges of the profiled span
+    stretch), wherever on the device they ran after the span closed."""
+    p = (program or {}).get("profiled") or {}
+    ms = (p.get("device_ms_by_span") or {}).get("graph.seed")
+    requests = (p.get("stretch") or {}).get("requests")
+    return ms / requests if ms and requests else None
+
+
 def rerank_exposed_ms(program):
     """Mean ms a request waits for the host tier's reranks after its last traversal."""
     return _mean_per_request(program, "host_tier.rerank_wait")
@@ -236,6 +267,24 @@ def launches_per_round(host_events):
             i = bisect.bisect_right(starts, t0) - 1
             n += i >= 0 and t0 <= rounds[i][1]
     return n / len(rounds)
+
+
+def device_ms_by_span(events) -> dict:
+    """Device ms of the kernels launched inside each program span (a
+    `diskrag.*` host range of a profiled stretch; a span's own kernels and
+    those of the spans inside it), summed by span name. `events` are the
+    profiler's function events: the profiler links a kernel to the
+    PyTorch operator that launched it, which lies inside the span. A
+    kernel launched outside any operator (the port's own library's, as
+    the graph traversal's) is linked to none and counts nowhere."""
+    import torch
+
+    out: dict = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(PREFIX):
+            name = e.name.removeprefix(PREFIX)
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
+    return out
 
 
 def profiled_launches_per_round(program):
@@ -282,6 +331,8 @@ def round_cover(program):
 
 
 READERS = {
+    "graph.seed_ms": seed_ms,
+    "graph.seed_device_ms": seed_device_ms,
     "graph.dispatch_ms": dispatch_ms,
     "graph.sync_wait_ms": sync_wait_ms,
     "graph.launches_per_round": profiled_launches_per_round,
@@ -292,62 +343,63 @@ READERS = {
 }
 
 
-# --- the probe ----------------------------------------------------------------
+# --- the digest and the probe ------------------------------------------------
 
 
-def probe(workload: str, seed: int, seconds: float, span_requests: int = 64) -> dict:
-    """One `--trace 1` run of `workload` (`harness.run_cell`) with the
-    set-up's collection stage traced and the two stretches beside the
-    harness's profiled stretch; returns the probe's line."""
+def digest(program: dict) -> dict:
+    """What the stretches saw, for a run's summary line: the span summary,
+    counters and dropped records, the tracing's cost, the round cover
+    and, of the profiled span stretch, its completeness, its stretch and
+    its idle gaps by program span; the tracing's cost where the span
+    stretch was paired (the probe)."""
+    prof = recorder()
+    p = program.get("profiled") or {}
+    return {
+        "spans": prof.summary(_records(program)) if prof else None,
+        "counters": program.get("counters"), "dropped": program.get("dropped"),
+        "tracing_overhead": program.get("overhead"),
+        "median_ms_off_on": [program.get("median_ms_off"), program.get("median_ms_on")],
+        "round_cover": round_cover(program),
+        "profiled_complete": p.get("complete"),
+        "profiled_stretch": {k: (p.get("stretch") or {}).get(k) for k in
+                             ("window_s", "busy_s", "requests", "kernels", "launch_calls")},
+        "device_ms_by_span": p.get("device_ms_by_span"),
+        "idle_gaps_by_span": p.get("idle_gaps_by_span"),
+    }
+
+
+def probe(workload: str, seed: int, seconds: float) -> dict:
+    """One `--trace 1` run of `workload` (`harness.measure`, its span
+    stretch paired), with the cost of a span site taken first (before any
+    profiler runs in the process) and the set-up's collection stage
+    traced; returns the probe's line."""
     from cudabench import harness
     from diskrag_tpu_torch.data.collection import CollectionManager
 
     prof = recorder()
     if prof is None:
         raise SystemExit("cudabench: the program has no span recorder")
-    program: dict = {}
+    cost = span_cost_ns()
+    setup: list = []
     update = CollectionManager.update_collection
 
     def traced_update(self, *a, **kw):
         with prof.tracing():
             out = update(self, *a, **kw)
-        program["setup"] = prof.drain()
+        setup.extend(prof.drain())
         prof.counters(reset=True)
         return out
 
-    stretch = harness._traced_stretch
-
-    def stretches(engine, call, stream, first, n, *a, **kw):
-        program["span_cost_ns"] = span_cost_ns()  # before any profiler runs in the process
-        program.update(span_stretch(call, stream, first + n, span_requests) or {})
-        st = stretch(engine, call, stream, first, n, *a, **kw)
-        program["profiled"] = profiled_span_stretch(call, stream, first + n + span_requests, n)
-        return st
-
     CollectionManager.update_collection = traced_update
-    harness._traced_stretch = stretches
     try:
-        line = harness.run_cell(workload, seed, seconds, True)
+        run, line = harness.measure(workload, seed, seconds, True, span_pairs=True)
     finally:
         CollectionManager.update_collection = update
-        harness._traced_stretch = stretch
     print(json.dumps(line), flush=True)
-    p = program.get("profiled") or {}
-    return {
-        "workload": workload, "seed": seed,
-        "metrics": {name: fn(program) for name, fn in READERS.items()},
-        "program_spans": {"summary": program.get("summary"), "counters": program.get("counters"),
-                          "dropped": program.get("dropped")},
-        "setup_spans": prof.summary(program.get("setup") or []),
-        "tracing_overhead": program.get("overhead"),
-        "span_cost_ns": program.get("span_cost_ns"),
-        "median_ms_off_on": [program.get("median_ms_off"), program.get("median_ms_on")],
-        "round_cover": round_cover(program),
-        "profiled_complete": p.get("complete"),
-        "profiled_stretch": {k: (p.get("stretch") or {}).get(k) for k in
-                             ("window_s", "busy_s", "requests", "kernels", "launch_calls")},
-        "idle_gaps_by_span": p.get("idle_gaps_by_span"),
-    }
+    program = {**(run.program or {}), "setup": setup}
+    return {"workload": workload, "seed": seed,
+            "metrics": {name: fn(program) for name, fn in READERS.items()},
+            **digest(program), "setup_spans": prof.summary(setup), "span_cost_ns": cost}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -357,10 +409,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, default=50.0)
-    ap.add_argument("--span-requests", type=int, default=64)
     args = ap.parse_args(argv)
-    print(json.dumps(probe(args.workload, args.seed, args.seconds, args.span_requests)),
-          flush=True)
+    print(json.dumps(probe(args.workload, args.seed, args.seconds)), flush=True)
     return 0
 
 

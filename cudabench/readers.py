@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from cudabench import roofline
+from cudabench import program_spans, roofline
 
 
 def qps(run):
@@ -56,6 +56,18 @@ def stage_ms(run, stage: str):
 def build_stage_s(run, stage: str):
     v = run.build_stages.get(stage)
     return float(v) if v is not None else None
+
+
+def setup_stage_s(run, stage: str):
+    """Host-clock seconds of one stage of the set-up (`run.setup_spans`)."""
+    v = run.setup_spans.get(stage)
+    return float(v) if v is not None else None
+
+
+def program(run, name: str):
+    """The reader `name` of `program_spans.READERS` on the run's span
+    stretches (`run.program`); None untraced or without the program's recorder."""
+    return program_spans.READERS[name](run.program)
 
 
 def roofline_share(run, kernel: str):

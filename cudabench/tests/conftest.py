@@ -26,6 +26,14 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _short_span_stretch(monkeypatch):
+    """A traced CPU run's span stretch of 4 requests, not the card's 64."""
+    from cudabench import harness
+
+    monkeypatch.setattr(harness, "SPAN_REQUESTS", 4)
+
+
 @pytest.fixture
 def card():
     """The CUDA device, decided when the test runs; skips without one."""

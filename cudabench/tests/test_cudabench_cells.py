@@ -14,8 +14,8 @@ CELLS = [w["name"] for w in SPEC["workloads"]]
 
 
 def _run(cell, traced=False, seed=2**31 + 7):
-    return harness.run_cell(cell, seed, 0.5, traced, device="cpu", overrides=TINY,
-                            traffic_overrides=TINY_TRAFFIC)
+    return harness.measure(cell, seed, 0.5, traced, device="cpu", overrides=TINY,
+                           traffic_overrides=TINY_TRAFFIC)[1]
 
 
 @pytest.mark.parametrize("cell", CELLS)

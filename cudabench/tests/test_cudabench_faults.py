@@ -52,8 +52,8 @@ def test_a_fault_in_the_timed_path_is_not_correct(monkeypatch, cell, fault):
             return out
 
         monkeypatch.setattr(CollectionManager, "get_texts_by_indices", altered)
-    line = harness.run_cell(cell, 17, 0.5, False, device="cpu", overrides=TINY,
-                            traffic_overrides=TINY_TRAFFIC)
+    _, line = harness.measure(cell, 17, 0.5, False, device="cpu", overrides=TINY,
+                              traffic_overrides=TINY_TRAFFIC)
     assert line["correct"] is False
     failing = {k for k, c in line["checks"].items()
                if not (c["value"] <= c["limit"] if k != "recall_at_10" else c["value"] >= c["limit"])}

@@ -7,6 +7,7 @@ import shutil
 import subprocess
 import sys
 
+import pytest
 from conftest import ROOT, TINY, TINY_TRAFFIC
 
 LOAD_ALL = r"""
@@ -43,17 +44,39 @@ import torch
 torch.set_num_threads(2)
 sys.modules["jax"] = types.ModuleType("jax")
 from cudabench import harness
-line = harness.run_cell("sift1m-exact-b1", 1, 0.3, False, device="cpu",
-                        overrides=%r, traffic_overrides=%r)
+_, line = harness.measure("sift1m-exact-b1", 1, 0.3, False, device="cpu",
+                         overrides=%r, traffic_overrides=%r)
+print("RESULT", line)
+""" % (TINY, TINY_TRAFFIC)
+
+# jax loaded only once the window has closed, in the traced run's span stretch
+JAX_AFTER_THE_WINDOW = r"""
+import pathlib, sys, types
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)
+from cudabench import harness, program_spans
+harness.SPAN_REQUESTS = 2
+stretch = program_spans.span_stretch
+
+def loads_jax(*a, **kw):
+    sys.modules["jax"] = types.ModuleType("jax")
+    return stretch(*a, **kw)
+
+program_spans.span_stretch = loads_jax
+_, line = harness.measure("sift1m-exact-b1", 1, 0.3, True, device="cpu",
+                         overrides=%r, traffic_overrides=%r)
 print("RESULT", line)
 """ % (TINY, TINY_TRAFFIC)
 
 
-def test_a_run_that_loaded_jax_exits_without_a_result():
-    p = subprocess.run([sys.executable, "-c", FAKE_JAX, str(ROOT)], capture_output=True,
+@pytest.mark.parametrize("script", [FAKE_JAX, JAX_AFTER_THE_WINDOW],
+                         ids=["before-the-window", "in-the-span-stretch"])
+def test_a_run_that_loaded_jax_exits_without_a_result(script):
+    p = subprocess.run([sys.executable, "-c", script, str(ROOT)], capture_output=True,
                        text=True, timeout=300)
     assert p.returncode == 3
-    assert "RESULT" not in p.stdout
+    assert "RESULT" not in p.stdout and '"workload"' not in p.stdout
     assert "jax" in p.stderr
 
 

@@ -67,6 +67,58 @@ def test_host_tier_readers_are_means_a_request():
         pytest.approx(2.5)
 
 
+def test_seed_and_set_up_readers_through_their_metric_files():
+    """`graph.seed_ms.b1`: the seeding's host spans over the traced
+    requests; `graph.seed_ms.b512`: the device time of the kernels
+    launched inside them over the profiled span stretch's requests;
+    `setup.collection_s`: the set-up's collection stage by the host clock."""
+    from cudabench import harness
+
+    recs = [_rec("graph.seed", 2, 1, 0.0, 0.5), _rec("engine.request", 1, None, 0.0, 2.0),
+            _rec("graph.seed", 12, 11, 10.0, 10.7, request=2),
+            _rec("engine.request", 11, None, 10.0, 12.0, request=2),
+            _rec("engine.request", 21, None, 20.0, 21.0, request=3)]  # seeded nothing
+    assert ps.seed_ms({"records": recs, "counters": {}}) == pytest.approx(1.2 / 3)
+    run = harness.Run({"name": "x"}, {}, {})
+    run.program = {"records": recs, "counters": {},
+                   "profiled": {"stretch": {"requests": 8},
+                                "device_ms_by_span": {"graph.seed": 27.5, "engine.request": 60.0}}}
+    run.setup_spans = {"data": 1.5, "collection": 17.25, "warmup": 2.0}
+    assert harness.reader("graph.seed_ms.b1")(run) == pytest.approx(0.4)
+    assert harness.reader("graph.seed_ms.b512")(run) == pytest.approx(27.5 / 8)
+    assert harness.reader("setup.collection_s")(run) == 17.25
+    # a profile that recorded no device time under the seeding reads nothing, not 0
+    run.program["profiled"]["device_ms_by_span"] = {"graph.seed": 0.0}
+    assert harness.reader("graph.seed_ms.b512")(run) is None
+    untraced = harness.Run({"name": "x"}, {}, {})
+    for name in ("graph.seed_ms.b1", "graph.seed_ms.b512", "setup.collection_s",
+                 "engine.join_self_ms", "graph.dispatch_ms", "graph.launches_per_round"):
+        assert harness.reader(name)(untraced) is None, name
+    run.program = {"records": [_rec("engine.request", 1, None, 0.0, 2.0)], "counters": {}}
+    assert harness.reader("graph.seed_ms.b1")(run) is None
+    assert harness.reader("graph.seed_ms.b512")(run) is None
+
+
+def test_device_time_is_summed_by_program_span():
+    """The host ranges' device time (their kernels and their children's),
+    by span name; the device-side copies of the ranges and other host
+    operations left out."""
+    import types
+
+    import torch
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, device_type, us):
+        return types.SimpleNamespace(name=name, device_type=device_type, device_time_total=us)
+
+    events = [ev("diskrag.graph.seed", cpu, 3000.0), ev("diskrag.graph.seed", cpu, 500.0),
+              ev("diskrag.engine.request", cpu, 4000.0), ev("diskrag.graph.seed", cuda, 9e9),
+              ev("aten::sort", cpu, 2500.0), ev("cudabench.request", cpu, 4000.0)]
+    assert ps.device_ms_by_span(events) == {"graph.seed": pytest.approx(3.5),
+                                            "engine.request": pytest.approx(4.0)}
+
+
 def test_launches_are_counted_only_inside_rounds():
     host = [("diskrag.graph.round", 0.0, 10.0), ("diskrag.graph.round.select", 1.0, 4.0),
             ("cudaLaunchKernel", 2.0, 2.1), ("cudaLaunchKernel", 5.0, 5.1),
@@ -116,12 +168,19 @@ def test_span_stretch_records_only_its_traced_sends():
                     profiling.count("graph.rounds")
         return {"stats": {"search_time": 0.001, "fetch_time": 0.0}}
 
+    # a traced run's stretch: each request sent once, traced
     out = ps.span_stretch(call, Stream(), 10, 3)
+    assert seen == [("q10", True), ("q11", True), ("q12", True)]
+    assert out["counters"] == {"graph.rounds": 3} and out["summary"]["engine.request"]["count"] == 3
+    assert len(out["stats"]) == 3 and "overhead" not in out and not profiling.enabled()
+    assert ps.dispatch_ms(out) is not None and ps.sync_wait_ms(out) is not None
+    # the probe's: each also sent untraced, beside it, for the tracing's cost
+    seen.clear()
+    out = ps.span_stretch(call, Stream(), 10, 3, paired=True)
     assert seen == [("q10", False), ("q10", True), ("q11", True), ("q11", False),
                     ("q12", False), ("q12", True)]
     assert out["counters"] == {"graph.rounds": 3} and out["summary"]["engine.request"]["count"] == 3
     assert len(out["stats"]) == 3 and out["overhead"] > 0 and not profiling.enabled()
-    assert ps.dispatch_ms(out) is not None and ps.sync_wait_ms(out) is not None
     cost = ps.span_cost_ns(reps=1000)
     assert cost["on"] > cost["off"] > 0 and not profiling.enabled() and profiling.drain() == []
 

@@ -53,8 +53,8 @@ def test_control_is_not_correct():
     """The reference at TF32 in the program's place fails the comparison,
     by its distances."""
     for seed in (11, 12, 13):
-        line = harness.run_cell("sift1m-exact-b512", seed, 0.5, False, device="cpu",
-                                overrides=TINY, traffic_overrides=TINY_TRAFFIC, control=True)
+        _, line = harness.measure("sift1m-exact-b512", seed, 0.5, False, device="cpu",
+                                  overrides=TINY, traffic_overrides=TINY_TRAFFIC, control=True)
         assert line["correct"] is False
         c = line["checks"]["dist_rel_err"]
         assert c["value"] > 3 * c["limit"], c
@@ -63,8 +63,8 @@ def test_control_is_not_correct():
 @pytest.mark.cuda
 def test_control_is_not_correct_on_the_card(card):
     """The same with the card's own TF32 products, at a size a test run holds."""
-    line = harness.run_cell("sift1m-exact-b512", 5, 2.0, False, device=card,
-                            overrides={"n": 200_000, "n_clusters": 200, "query_pool": 2000},
-                            traffic_overrides=TINY_TRAFFIC, control=True)
+    _, line = harness.measure("sift1m-exact-b512", 5, 2.0, False, device=card,
+                              overrides={"n": 200_000, "n_clusters": 200, "query_pool": 2000},
+                              traffic_overrides=TINY_TRAFFIC, control=True)
     assert line["correct"] is False
     assert line["checks"]["dist_rel_err"]["value"] > line["checks"]["dist_rel_err"]["limit"]
