@@ -167,7 +167,10 @@ chip_smoke.py --angular-n 1200000` runs the angular phase alone (its
 gates apply at 1,200,000 only); `python3 chip_smoke.py --g1-n 1000000`
 builds the degree-48 graph at that many points and holds G1 against the
 plain rounds at every shape of `G1_CELL_SHAPES` and `G1_SWEEP_SHAPES`,
-printing G1's `kernels` entry.
+printing G1's `kernels` entry. `python3 chip_smoke.py --pq-cell-n 1183514`
+runs the PQ-guided cell's kernel shapes alone (B5 at `B5_PQ_CELL_SHAPES`,
+B1 at `ROWSCAN_D100`, B1 and B4 at the build's shapes over that many unit
+vectors of D = 100), printing their `kernels` entries.
 """
 
 from __future__ import annotations
@@ -507,10 +510,12 @@ def _b5_compact(row: dict) -> dict:
 
 
 # B1 int8 beyond the comparison set: (rows, D, B, NBs). D = 36 is zero-padded
-# to 48-byte rows; 960 and 1536 loop over 128-byte K boxes
+# to 48-byte rows, D = 100 (GloVe-100) to 112; 960 and 1536 loop over
+# 128-byte K boxes
+ROWSCAN_D100 = ((50_017, 100, 4096, (4096,)),)
 ROWSCAN_CASES = ((3001, 36, 37, (128, 512)), (50_017, 128, 1, (512,)),
                  (50_017, 128, 4096, (4096,)), (5003, 960, 70, (512,)),
-                 (4001, 1536, 130, (512,)))
+                 (4001, 1536, 130, (512,))) + ROWSCAN_D100
 
 # B5: the sweep's and the engine's shapes, a table past 48 KB (m = 64), a
 # ragged one, and two with thousands of candidates a query (where a kernel
@@ -565,6 +570,14 @@ def b5_row(tables, codes, reps: int = 50) -> dict:
 B5_LADDER_SHAPES = ((1000, 256, 64, 1_000_000), (1000, 256, 64, 10_000_000))
 B5_LADDER_CELLS = 1024
 
+# The PQ-guided cell's shapes (cudabench `glove100-rpq50-b512`): B5 by id
+# once a round at B 512 x E * R = 4 * 32 = 128 candidates, m = 50 (the
+# byte-load path, m % 4 != 0), over a code table of GloVe-100's 1,183,514
+# rows and 2048 coarse cells: (B, C, m, rows, cells); and the build's kNN
+# pass over that many unit vectors of D = 100
+B5_PQ_CELL_SHAPES = ((512, 128, 50, 1_183_514, 2048),)
+PQ_CELL_N, PQ_CELL_D = 1_183_514, 100
+
 
 def phase_b5_kernels() -> dict:
     """B5 against its plain version at `B5_SHAPES`: the gathered form,
@@ -604,6 +617,49 @@ def phase_b5_kernels() -> dict:
         del code_table, aux
     torch.cuda.empty_cache()
     return ladder
+
+
+def phase_pq_cell_kernels(smi: str, n: int = PQ_CELL_N) -> dict:
+    """B5 at `B5_PQ_CELL_SHAPES` on random operands: the gathered form,
+    then by id without and with the residual operands; B1 at
+    `ROWSCAN_D100` against its plain versions; then B1 and B4 at the graph
+    build's shapes over `n` unit vectors of D = 100 (the draws of
+    `make_dataset`, each divided by its norm, as the cell's set). Returns
+    the B5 rows and the build-shape rows."""
+    import numpy as np
+    import torch
+
+    from diskrag_tpu_torch.benchmark import make_dataset
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(22)
+    b5 = []
+    for b, c, m, n_rows, cells in B5_PQ_CELL_SHAPES:
+        tables = torch.rand((b, m, 256), generator=g, device=dev) * 40.0
+        codes = torch.randint(0, 256, (b, c, m), generator=g, device=dev, dtype=torch.uint8)
+        shape = {"rows": n_rows, "cells": cells}
+        b5.append({**shape, **b5_row(tables, codes)})
+        code_table = torch.randint(0, 256, (n_rows, m), generator=g, device=dev,
+                                   dtype=torch.uint8)
+        ids = torch.randint(0, n_rows, (b, c), generator=g, device=dev)
+        aux = {"point_cell": torch.randint(0, cells, (n_rows,), generator=g, device=dev,
+                                           dtype=torch.int32),
+               "point_bias": torch.rand((n_rows,), generator=g, device=dev) * 100.0,
+               "cell_tables": torch.rand((b, cells), generator=g, device=dev) * -50.0}
+        for a in ({}, aux):
+            b5.append({**shape, **b5_ids_row(tables, code_table, ids, a)})
+        del code_table, aux
+    for row in b5:
+        emit({"phase": "kernels", "kernel": "B5", "shape": "PQ-guided cell round", "card": smi,
+              **row})
+    for row in rowscan_rows(ROWSCAN_D100, torch.Generator(device="cpu").manual_seed(3), []):
+        emit({"phase": "kernels", "card": smi, **row})
+    pts, _ = make_dataset(n, PQ_CELL_D, 1, seed=42, n_clusters=1200)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    build = phase_build_shape_kernels(pts, smi)
+    del pts
+    torch.cuda.empty_cache()
+    return {"b5": b5, "build_shape": build}
 
 
 def b4_timed(vals, kk: int) -> dict:
@@ -846,6 +902,33 @@ def compare_b1(queries, db, db_norms, *, n_buckets, use_norms, q_scales=None,
     return v_k, row
 
 
+def rowscan_rows(cases, g, b4_cases: list) -> list[dict]:
+    """B1 int8 and bf16 against their plain versions on random rows at
+    each (rows, D, B, NBs) of `cases`, all three metrics; each l2 int8
+    block goes to `b4_cases` with the cut B4 takes at its NB."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for n_pts, d, b, nbs in cases:
+        pts = torch.randn((n_pts, d), generator=g).to(dev)
+        q_d = pts[:b] + 0.05 * torch.randn((b, d), generator=g).to(dev)
+        for metric in ("l2", "cosine", "dot"):
+            l2 = metric == "l2"
+            qc, qs, codes, block, n, src, qf = _scan_inputs(pts, q_d, metric)
+            for nb in nbs:
+                vals, row = compare_b1(qc, codes, block, n_buckets=nb, use_norms=l2,
+                                       q_scales=qs, n_valid=n)
+                rows.append({"metric": metric, "b": b, **row})
+                if l2:
+                    b4_cases.append((vals, min(nb, 260 if nb >= 4096 else 40)))
+                _, row = compare_b1(qf.to(torch.bfloat16), src.to(torch.bfloat16),
+                                    torch.sum(src * src, -1), n_buckets=nb, use_norms=l2)
+                rows.append({"metric": metric, "b": b, **row})
+        del pts, q_d
+    return rows
+
+
 def phase_kernels() -> dict:
     """Each kernel's public wrapper against its plain version on the card,
     at the shapes of the comparison set (200k x 128, B = 1000, NB = 512
@@ -890,22 +973,7 @@ def phase_kernels() -> dict:
     # rows (D = 36 zero-padded to 80-byte rows, D = 1536 streaming its query
     # boxes); B4 cut from each int8 block
     g = torch.Generator(device="cpu").manual_seed(3)
-    for n_pts, d, b, nbs in ROWSCAN_CASES:
-        pts = torch.randn((n_pts, d), generator=g).to(dev)
-        q_d = pts[:b] + 0.05 * torch.randn((b, d), generator=g).to(dev)
-        for metric in ("l2", "cosine", "dot"):
-            l2 = metric == "l2"
-            qc, qs, codes, block, n, src, qf = _scan_inputs(pts, q_d, metric)
-            for nb in nbs:
-                vals, row = compare_b1(qc, codes, block, n_buckets=nb, use_norms=l2,
-                                       q_scales=qs, n_valid=n)
-                rows.append({"metric": metric, "b": b, **row})
-                if l2:
-                    b4_cases.append((vals, min(nb, 260 if nb >= 4096 else 40)))
-                _, row = compare_b1(qf.to(torch.bfloat16), src.to(torch.bfloat16),
-                                    torch.sum(src * src, -1), n_buckets=nb, use_norms=l2)
-                rows.append({"metric": metric, "b": b, **row})
-        del pts, q_d
+    rows += rowscan_rows(ROWSCAN_CASES, g, b4_cases)
     # NB = 32768 (the widening rule's ceiling) from a real scan: kk = 1316
     # (k = 329) and kk > NB (the 16-bit sort)
     pts, q = make_dataset(CMP_N, MAIN_D, 64, seed=7)
@@ -4539,12 +4607,17 @@ def main() -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     if sys.argv[1:2] in (["--graph-n"], ["--streaming-n"], ["--sharded-n"], ["--host-tier-n"],
-                         ["--angular-n"], ["--g1-n"]):
+                         ["--angular-n"], ["--g1-n"], ["--pq-cell-n"]):
         from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
         n = int(sys.argv[2])
         if sys.argv[1] == "--streaming-n":
             phase_main_streaming(dev["smi"], base_n=n)
+        elif sys.argv[1] == "--pq-cell-n":
+            cell = phase_pq_cell_kernels(dev["smi"], n)
+            print(json.dumps({"kernels": [{"name": "B5", "pq_cell_shape": cell["b5"]},
+                                          {"name": "B1, B4",
+                                           "pq_cell_build_shape": cell["build_shape"]}]}))
         elif sys.argv[1] == "--g1-n":
             from diskrag_tpu_torch.graph.knn_build import build_vamana_knn
 
@@ -4593,6 +4666,7 @@ def main() -> int:
     phase_kernels()
     phase_packed_kernels()
     b5_ladder_shapes = phase_b5_kernels()
+    pq_cell = phase_pq_cell_kernels(dev["smi"])
 
     from diskrag_tpu_torch.benchmark import ground_truth, make_dataset
 
@@ -4634,6 +4708,7 @@ def main() -> int:
             kid = row["name"][:2]
             row["graph_build_shape"] = build_shapes[kid]
             row["angular_build_shape_cosine"] = angular["build_shape_cosine"][kid]
+            row["pq_cell_build_shape"] = pq_cell["build_shape"][kid]
             row["launches_angular_builds"] = {form: angular["build_launches"][form][kid]
                                               for form in ("l2", "cosine")}
         graph = phase_main_graph(dev["smi"], *sets[CMP_N])
@@ -4663,6 +4738,7 @@ def main() -> int:
         b5_row["rounds_host_tier_ladder_rpq64"] = ladder["rounds"]
         b5_row["rounds_sharded_host_tier_pq"] = sharded["rounds"]
         b5_row["angular_shape"] = angular["b5"]
+        b5_row["pq_cell_shape"] = pq_cell["b5"]
         b5_row["launches_angular_rpq"] = angular["b5_launches"]
         b5_row["rounds_angular_rpq"] = angular["rounds"]
         phase_ivf(dev["smi"], base, *sets[CMP_N])

@@ -9,8 +9,9 @@ Loads a collection's index, runs the startup self-check, and serves
     traversal + exact rerank of beam ∪ visited ("pq_accelerated") when
     the index carries PQ artifacts, the metric is L2 and the caller did
     not turn it off — int-quantized traversal ("iq_accelerated") when
-    those artifacts are IntQuantizer rows; exact traversal ("exact")
-    otherwise;
+    those artifacts are IntQuantizer rows, both expanding the index
+    meta's `recommended_expand_width` candidates a round (1 where the
+    build recorded none); exact traversal ("exact") otherwise;
   - a flat index (`index_type: flat`), served by `ops.flat.FlatIndex`
     with the collection's precision and rerank width;
   - an IVF-Flat index (`index_type: ivf`), served by `index.ivf.IVFIndex`
@@ -408,14 +409,19 @@ class SearchEngine:
     def _pq_serving_tables(self, q: torch.Tensor) -> tuple:
         """(tables, beam_search_pq aux kwargs) for the active quantizer:
         inner tables + cell / bias operands for a ResidualPQ (its serving
-        decomposition, pq/residual.py), plain ADC tables otherwise."""
-        if self.pq_cells_t is not None:
-            return self.pq.inner_tables(q), {
-                "point_cell": self.pq_cells_t,
-                "point_bias": self.pq_bias_t,
-                "cell_tables": self.pq.cell_tables(q),
-            }
-        return self.pq.compute_distance_tables(q), {}
+        decomposition, pq/residual.py), plain ADC tables otherwise. Traced
+        as one `engine.pq_tables` span (attributes `m`, `cells`: 0 for a
+        plain PQ)."""
+        residual = self.pq_cells_t is not None
+        with span("engine.pq_tables", m=self.pq.n_subvectors,
+                  cells=self.pq.n_coarse if residual else 0):
+            if residual:
+                return self.pq.inner_tables(q), {
+                    "point_cell": self.pq_cells_t,
+                    "point_bias": self.pq_bias_t,
+                    "cell_tables": self.pq.cell_tables(q),
+                }
+            return self.pq.compute_distance_tables(q), {}
 
     def _diagnostic_sample(self, n_sample: int = 8):
         """(vectors f32 [S, D], ids [S]) from the storage the serving mode
@@ -710,14 +716,16 @@ class SearchEngine:
         if use_pq_search and self.use_pq and index.metric == "l2":
             # ADC / iq tables rank by squared L2 only: on a cosine / dot
             # index quantized traversal would converge to the wrong region,
-            # so those metrics fall through to exact traversal below
+            # so those metrics fall through to exact traversal below.
+            # E from the index meta where the build recorded one, else 1
+            e = int(self.meta.get("recommended_expand_width", 0) or 1)
             if isinstance(self.pq, IntQuantizer):
                 res = beam_search_iq(
                     self.codes_t, self.pq.query_tables(q), index.adjacency, index.medoid,
                     dim=self.pq.dim, bits=self.pq.bits, n_cells=self.pq.n_cells,
                     search_width=l_search, k=k, rerank=True,
                     vectors=index.vectors, queries=q, metric=index.metric,
-                    entry_points=index.entry_points,
+                    expand_width=e, entry_points=index.entry_points,
                 )
                 kind = "iq_accelerated"
             else:
@@ -726,11 +734,12 @@ class SearchEngine:
                     self.codes_t, tables, index.adjacency, index.medoid,
                     search_width=l_search, k=k, rerank=True,
                     vectors=index.vectors, queries=q, metric=index.metric,
-                    entry_points=index.entry_points, **aux,
+                    expand_width=e, entry_points=index.entry_points, **aux,
                 )
                 kind = "pq_accelerated"
             ne = b * (l_search + res.visited_ids.shape[1])
-            return res.dists, res.ids, res, kind, lambda c: (c, ne, c * deg), {}
+            return (res.dists, res.ids, res, kind, lambda c: (c, ne, c * deg),
+                    {"expand_width": e})
         res = beam_search(
             index.vectors, index.adjacency, index.medoid, q,
             search_width=l_search, k=k, metric=index.metric,

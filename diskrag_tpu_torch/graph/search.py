@@ -29,7 +29,11 @@ active?"), `graph.round.expand` and `graph.round.merge`; the counters
 `graph.iterations` and `graph.rounds` count the iterations and the rounds
 executed (the last iteration stops at its sync). On G1 the rounds are one
 `graph.traverse` span and the counter `graph.traverse_kernel` counts the
-searches it served.
+searches it served. The exact rerank of beam ∪ visited is a `graph.rerank`
+span (attribute `pool`, its width) and the counter `graph.rerank_pool`
+adds B x pool; the PQ-guided rounds count their ADC calls in
+`pq.adc_launches` and the (query, candidate) pairs those score in
+`pq.adc_ids`. Every count is taken from shapes: none waits on the device.
 """
 
 from __future__ import annotations
@@ -95,14 +99,17 @@ def exact_rerank(
     """Rerank beam ∪ visited with full-precision distances and return the
     exact top-k. Used after bf16 or PQ/ADC traversal."""
     n = vectors.shape[0]
-    pool_ids = torch.cat([res.ids, res.visited_ids], dim=1)
-    exact = _gathered_distance(
-        queries, vectors[torch.clamp(pool_ids, 0, n - 1).long()], metric
-    )
-    exact = mask_duplicates(pool_ids, torch.where(pool_ids == INVALID_ID, INF, exact))
-    top_d, take = topk_smallest(exact, k)
-    top_i = torch.gather(pool_ids, 1, take)
-    top_i = torch.where(torch.isinf(top_d), INVALID_ID, top_i)
+    b, pool = res.ids.shape[0], res.ids.shape[1] + res.visited_ids.shape[1]
+    count("graph.rerank_pool", b * pool)
+    with span("graph.rerank", pool=pool):
+        pool_ids = torch.cat([res.ids, res.visited_ids], dim=1)
+        exact = _gathered_distance(
+            queries, vectors[torch.clamp(pool_ids, 0, n - 1).long()], metric
+        )
+        exact = mask_duplicates(pool_ids, torch.where(pool_ids == INVALID_ID, INF, exact))
+        top_d, take = topk_smallest(exact, k)
+        top_i = torch.gather(pool_ids, 1, take)
+        top_i = torch.where(torch.isinf(top_d), INVALID_ID, top_i)
     return dataclasses.replace(res, ids=top_i, dists=top_d)
 
 
@@ -457,6 +464,8 @@ def beam_search_pq(
                "cell_tables": cell_tables.to(torch.float32).contiguous()}
 
     def expand(ids):
+        count("pq.adc_launches")
+        count("pq.adc_ids", ids.shape[0] * ids.shape[1])
         return adc_lookup_ids_kernel(tables, codes, ids, **aux)
 
     def _seed_scores(seeds):
