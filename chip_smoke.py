@@ -44,8 +44,12 @@ graph's entry points; B = 1 and 512), bit for bit on the same graph with
 integer vectors and statistically on the float ones, and times it beside
 the plain rounds and its bound (`main-graph` does the same at 200,000, L
 16, E 8); G1's entry in the `kernels` line holds those rows and its
-launches in every phase that reaches it. It then serves the host tier through `SearchEngine(serving_mode=
-"host_tier")`: the JAX bench's 1M host-tier configuration (degree-48
+launches in every phase that reaches it. It holds G2 (the exact search's
+seeded list in one kernel) against the plain seeding at the same shape
+(bit for bit on the integer graph, the share of identical rows on the
+float one) and times it beside the plain seeding and its bound; every
+phase that reaches G1 pins G2 at one launch a search too. It then serves
+the host tier through `SearchEngine(serving_mode="host_tier")`: the JAX bench's 1M host-tier configuration (degree-48
 graph, int8 rows, the f32 vectors in the packed record file read by the
 native reader, the rerank on the host; recall@10 gates 0.985 at L = 32 and
 0.99 at L = 48), the default 200k vamana collection in its residual-PQ
@@ -166,8 +170,9 @@ at the JAX package's 10M figures less 0.01), the same way; `python3
 chip_smoke.py --angular-n 1200000` runs the angular phase alone (its
 gates apply at 1,200,000 only); `python3 chip_smoke.py --g1-n 1000000`
 builds the degree-48 graph at that many points and holds G1 against the
-plain rounds at every shape of `G1_CELL_SHAPES` and `G1_SWEEP_SHAPES`,
-printing G1's `kernels` entry. `python3 chip_smoke.py --pq-cell-n 1183514`
+plain rounds at every shape of `G1_CELL_SHAPES` and `G1_SWEEP_SHAPES` and
+G2 against the plain seeding at `G2_CELL_SHAPES`, printing G1's and G2's
+`kernels` entries. `python3 chip_smoke.py --pq-cell-n 1183514`
 runs the PQ-guided cell's kernel shapes alone (B5 at `B5_PQ_CELL_SHAPES`,
 B1 at `ROWSCAN_D100`, B1 and B4 at the build's shapes over that many unit
 vectors of D = 100), printing their `kernels` entries.
@@ -1288,6 +1293,12 @@ def build_peak_bytes(*stage_dicts) -> int:
     return max([*peaks, torch.cuda.max_memory_allocated()])
 
 
+def searches_on_the_card(n: int) -> dict:
+    """The launches of n exact searches on the card: G2 seeds each and G1
+    runs its rounds, one launch each a search."""
+    return {"G2": n, "G1": n}
+
+
 def reset_counts() -> None:
     from diskrag_tpu_torch.kernels.launches import reset_launch_counts
 
@@ -2127,8 +2138,8 @@ def g1_rows(smi: str, index, q, gt, shapes, cell: str) -> dict:
             kern = tsearch.beam_search(vecs, index.adjacency, index.medoid, qs, **kw)
             torch.cuda.synchronize()
             launches = read_counts()
-            require(launches == {**{k: 0 for k in launches}, "G1": 1},
-                    f"beam_search at {what} launched {launches}, expected G1 once")
+            require(launches == {**{k: 0 for k in launches}, **searches_on_the_card(1)},
+                    f"beam_search at {what} launched {launches}, expected G2 and G1 once")
             seeded = tsearch._seed_candidates(index.adjacency, index.medoid, expand, b,
                                               search_width=width, entry_points=index.entry_points,
                                               seed_expand_fn=seed_expand)
@@ -2168,6 +2179,108 @@ def g1_kernel_row(rows: dict) -> dict:
                     "round in one launch)",
             "route": "cuda", "source": "diskrag_tpu_torch/csrc/beam_traverse.cu",
             "replaces": "diskrag_tpu/graph/search.py:305 (lax.while_loop; no pallas_call)",
+            "shape": head, **rows[head], **{f"{k}_shape": rows[k] for k in rest}}
+
+
+# G2 against the plain seeding at the exact cells' shape (1M x 128, the
+# index's entry points and the medoid, L 32); (B, L)
+G2_CELL_SHAPES = ((1, 32), (512, 32))
+
+
+def g2_bound_ms(b: int, s: int, d: int, l: int) -> tuple[float, str, float]:
+    """Least time for G2's work: bytes, each seed row and id read once, the
+    queries read, the seeded list written (ids, distances, flags); operations,
+    2 D for each (query, seed) pair; the larger, its name, and the byte
+    bound alone."""
+    nbytes = s * d * 4 + (s - 1) * 4 + b * d * 4 + b * l * 9
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 2.0 * d * b * s / PEAK_F32_OPS
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            t_bytes * 1e3)
+
+
+def g2_rows(smi: str, index, q, shapes, cell: str) -> dict:
+    """G2 (`ops/traverse.py::beam_seed`) held against the plain seeding
+    (`_seed_candidates`, its seed scores by `pairwise_distance`) over
+    `index` at each (B, L) of `shapes`: bit for bit on the graph's vectors
+    and the queries scaled by 4 and rounded to integers, on the float data
+    the share of rows with identical seeded ids; then timed, both on the
+    device (`device_ms`) and launch to launch (`cuda_ms`), beside the bound
+    (`g2_bound_ms`). `launches`: one `beam_search` at the shape launches G2
+    and G1 once each and nothing else."""
+    import torch
+
+    from diskrag_tpu_torch.graph import search as tsearch
+    from diskrag_tpu_torch.ops import traverse
+    from diskrag_tpu_torch.ops.distance import pairwise_distance
+
+    qd = torch.as_tensor(q, dtype=torch.float32, device="cuda")
+    ints = (torch.round(index.vectors * 4), torch.round(qd * 4))
+    ep, med = index.entry_points, index.medoid
+    s = 1 + ep.shape[0]
+    rows = {}
+    for b, width in shapes:
+        what = f"{cell} B={b} L={width}"
+        qt, tiles, ns = traverse.seed_plan(b, s, width, qd.shape[1],
+                                           traverse._sm_count(qd.device.index))
+        row = {"b": b, "n": index.vectors.shape[0], "d": index.vectors.shape[1], "L": width,
+               "seeds": s, "queries_a_tile": qt, "tiles": tiles, "slices": ns}
+
+        def plain(vecs, qs, width=width):
+            def seed_expand(seeds):
+                return pairwise_distance(qs, vecs[seeds], "l2")
+
+            return tsearch._seed_candidates(index.adjacency, med, None, qs.shape[0],
+                                            search_width=width, entry_points=ep,
+                                            seed_expand_fn=seed_expand)
+
+        for label, (vecs, qs) in (("ints", (ints[0], ints[1][:b])),
+                                  ("floats", (index.vectors, qd[:b]))):
+            got = traverse.beam_seed(vecs, qs, med, ep, search_width=width)
+            want = plain(vecs, qs)
+            torch.cuda.synchronize()
+            if label == "ints":
+                diff = [name for name, g, w in zip(("ids", "dists", "expanded"), got, want)
+                        if not torch.equal(g, w)]
+                require(not diff, f"G2 differs from the plain seeding on integer data at {what}: "
+                                  f"{diff}")
+                row["ints"] = "bit-identical"
+            else:
+                row["floats_ids_identical_share"] = float((got[0] == want[0]).all(1)
+                                                         .float().mean())
+        qs = qd[:b]
+        reset_counts()
+        tsearch.beam_search(index.vectors, index.adjacency, med, qs, search_width=width, k=MAIN_K,
+                            entry_points=ep)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        require(launches == {**{k: 0 for k in launches}, **searches_on_the_card(1)},
+                f"beam_search at {what} launched {launches}, expected G2 and G1 once")
+        call = lambda: traverse.beam_seed(index.vectors, qs, med, ep,  # noqa: E731
+                                          search_width=width)
+        ms, timed_by = device_ms(call, 50)
+        plain_ms, plain_by = device_ms(lambda: plain(index.vectors, qs), 10)
+        bound, by, bytes_ms = g2_bound_ms(b, s, index.vectors.shape[1], width)
+        row.update(launches=launches, device_ms=ms, timed_by=timed_by, ms=cuda_ms(call, 50),
+                   plain_device_ms=plain_ms, plain_timed_by=plain_by,
+                   plain_ms=cuda_ms(lambda: plain(index.vectors, qs), 10),
+                   bound_ms=bound, bound_by=by, bytes_bound_ms=bytes_ms)
+        emit({"phase": "g2", "cell": cell, **row, "card": smi})
+        rows[f"b{b}_l{width}"] = row
+    del ints
+    torch.cuda.empty_cache()
+    return rows
+
+
+def g2_kernel_row(rows: dict) -> dict:
+    """G2's entry in the `kernels` line: the exact cells' B = 1 row at the
+    top, the other shapes under their own keys."""
+    head, *rest = rows
+    return {"name": "G2 beam_seed (the exact search's seeded list: query tiles x seed slices, "
+                    "the last block of a tile merges)",
+            "route": "cuda", "source": "diskrag_tpu_torch/csrc/beam_seed.cu",
+            "replaces": "diskrag_tpu_torch/graph/search.py::_seed_candidates on G1's searches "
+                        "(no pallas_call)",
             "shape": head, **rows[head], **{f"{k}_shape": rows[k] for k in rest}}
 
 
@@ -2217,8 +2330,10 @@ def phase_main_graph(smi: str, pts, q, gt) -> dict:
                          min_seconds=0.5)
     exact_launches = read_counts()
     searches = sweep_searches(points, len(q))
-    require(exact_launches == {**{k: 0 for k in exact_launches}, "G1": searches},
-            f"the exact sweep launched {exact_launches}, expected G1 once a search ({searches})")
+    require(exact_launches == {**{k: 0 for k in exact_launches},
+                               **searches_on_the_card(searches)},
+            f"the exact sweep launched {exact_launches}, expected G2 and G1 once a search "
+            f"({searches})")
     t0 = time.perf_counter()
     rpq = ResidualPQ(32, device="cuda").fit(pts, seed=0)
     torch.cuda.synchronize()
@@ -2871,6 +2986,7 @@ def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
     require(build_launches["B1"] > 0 and build_launches["B4"] == build_launches["B1"],
             f"the 1M graph build did not go through B1 and B4: {build_launches}")
     g1 = g1_rows(smi, index, q, gt, G1_CELL_SHAPES, f"{len(pts) // 1000}k R48")
+    g2 = g2_rows(smi, index, q, G2_CELL_SHAPES, f"{len(pts) // 1000}k R48")
     t0 = time.perf_counter()
     iq8 = IntQuantizer(bits=8, device="cuda").fit(pts, seed=0)
     torch.cuda.synchronize()
@@ -2949,7 +3065,7 @@ def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
     del engine, ht, bare
     torch.cuda.empty_cache()
     shutil.rmtree(base / name, ignore_errors=True)  # 2 GB of files no later phase reads
-    return {"build_launches": build_launches, "g1": g1}
+    return {"build_launches": build_launches, "g1": g1, "g2": g2}
 
 
 # The JAX package's capacity ladder (`benchmarks/host_tier_multi.py`): each
@@ -3650,9 +3766,10 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
             f"a kNN merge did not launch B1 and B4 {STREAM_SUBWAVES} times each: {per_merge}")
     # G1 serves the stream's graph searches (the probes), once a search
     require(all(launches[k] == built[k] + (STREAM_SUBWAVES * n_merges if k in ("B1", "B4") else 0)
-                for k in launches if k != "G1"),
+                for k in launches if k not in ("G1", "G2")),
             f"the stream launched {launches}: its base build {built}, its merges {per_merge}")
-    require(launches["G1"] == built["G1"] + searches["n"] and searches["n"] > 0,
+    require(launches["G1"] == built["G1"] + searches["n"] and searches["n"] > 0
+            and launches["G2"] - built["G2"] == launches["G1"] - built["G1"],
             f"G1 launched {launches['G1']} times in the stream, its graph searches {searches['n']}")
     require(len(mids) == 2 and min(mids) >= STREAM_MID_GATE,
             f"mid-stream recall {mids} < {STREAM_MID_GATE}")
@@ -3702,9 +3819,10 @@ def phase_main_streaming(smi: str, base_n: int = 200_000, stream_n: int = 131_07
     wave_s = time.perf_counter() - t
     wave_launches = read_counts()
     rec_wave, _ = _live_recall(idx, q_dev, live_ext, pts)
-    checks.append((wave_launches == {**{k: 0 for k in wave_launches}, "G1": waves["n"]}
+    checks.append((wave_launches == {**{k: 0 for k in wave_launches},
+                                     **searches_on_the_card(waves["n"])}
                    and waves["n"] > 0,
-                   f"the wave merge launched {wave_launches}, expected G1 once a wave "
+                   f"the wave merge launched {wave_launches}, expected G2 and G1 once a wave "
                    f"({waves['n']})"))
     out["wave"] = {"seconds": wave_s, "rows": 4096, "launches": wave_launches,
                    "recall_at_10": rec_wave}
@@ -3789,12 +3907,14 @@ def phase_main_wave(smi: str, base, pts, q, gt) -> int:
           "waves": waves["n"], "launches_build": build_launches, "launches_search": launches,
           "card": smi})
     require(meta["build_method"] == "wave", f"built {meta.get('build_method')}")
-    require(build_launches == {**{k: 0 for k in build_launches}, "G1": waves["n"]}
+    require(build_launches == {**{k: 0 for k in build_launches},
+                               **searches_on_the_card(waves["n"])}
             and waves["n"] > 0,
-            f"the wave build launched {build_launches}, expected G1 once a wave ({waves['n']})")
+            f"the wave build launched {build_launches}, expected G2 and G1 once a wave "
+            f"({waves['n']})")
     require(stats["search_type"] == "exact", f"served as {stats['search_type']}")
-    require(launches == {**{k: 0 for k in launches}, "G1": 1},
-            f"exact traversal launched {launches}, expected G1 once")
+    require(launches == {**{k: 0 for k in launches}, **searches_on_the_card(1)},
+            f"exact traversal launched {launches}, expected G2 and G1 once")
     require(recall >= WAVE_RECALL_GATE, f"wave graph recall@10 {recall} < {WAVE_RECALL_GATE} at L=48")
     del engine
     torch.cuda.empty_cache()
@@ -3878,11 +3998,11 @@ def phase_api_streaming(smi: str, base, name: str, n_rows: int, q) -> int:
     widths = [out["stats"]["L_search"] for path, _, out, _ in sent if path == "/search"]
     g1 = sum(w <= traverse.MAX_WIDTH for w in widths)
     require(searches["n"] == len(widths) > 0
-            and launches == {**{k: 0 for k in launches}, "G1": g1},
+            and launches == {**{k: 0 for k in launches}, **searches_on_the_card(g1)},
             f"the streaming requests launched {launches} in {searches['n']} graph searches, "
             f"expected G1 once a search at L <= {traverse.MAX_WIDTH} (L {widths})")
     pipelined_row(smi, state.get_engine(name), q, "api-streaming-200k (streaming engine)",
-                  expect={"G1": "batches"}, l_search=64)
+                  expect={"G1": "batches", "G2": "batches"}, l_search=64)
     del state
     # deletions are session-local: a fresh streaming engine adopts the four
     # inserted rows past the index watermark; four more rows near existing
@@ -4009,8 +4129,9 @@ def _sharded_http(base, name: str, mode: str, engine, mesh_devices: list) -> dic
     b5 = st.get("rounds", 0) if mode == "host_tier" else 0
     # one exact search a mesh slot, on G1 where its width is within G1's reach
     g1 = len(mesh_devices) if mode == "auto" and st["L_search"] <= traverse.MAX_WIDTH else 0
-    others = {k: v for k, v in launches.items() if k not in ("B5", "G1")}
-    require(st["search_type"] == kind and launches["B5"] == b5 and launches["G1"] == g1
+    others = {k: v for k, v in launches.items() if k not in ("B5", "G1", "G2")}
+    require(st["search_type"] == kind and launches["B5"] == b5
+            and launches["G1"] == launches["G2"] == g1
             and not any(others.values()),
             f"/search under {mode}: {st['search_type']}, launches {launches}, rounds {b5}")
     return {"serving_mode": mode, "status": status, "ms": ms, "search_type": kind,
@@ -4096,7 +4217,8 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
     require(diagnostic or not full, f"startup diagnostic failed: {engine.diagnostics}")
     at64 = _sharded_drive(engine, q, gt, 64)
     at64.pop("_ids")
-    require(at64["launches"] == {**{k: 0 for k in at64["launches"]}, "G1": 5 * s},
+    require(at64["launches"] == {**{k: 0 for k in at64["launches"]},
+                                 **searches_on_the_card(5 * s)},
             f"exact sharded traversal launched {at64['launches']}, expected G1 once a shard "
             f"and batch")
     require(at64["search_type"] == "sharded", f"served as {at64['search_type']}")
@@ -4111,7 +4233,8 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
                                    at64["rounds_per_batch"])
     if full:
         http.append(_sharded_http(base, name, "auto", engine, mesh_devices))
-        pipelined_row(smi, engine, q, f"{cell} auto", expect={"G1": len(mesh_devices)},
+        pipelined_row(smi, engine, q, f"{cell} auto",
+                      expect=searches_on_the_card(len(mesh_devices)),
                       l_search=64, n_batches=4,
                       passes=1, profile_batches=0)
     emit({"phase": "main-sharded", "cell": cell, "serving_mode": "auto", "queries": len(q),
@@ -4462,7 +4585,7 @@ def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
             b5_rpq += got["B5"]
         elif group == "exact":  # L2 on the normalized rows: G1 once a search
             searches = sweep_searches(pts_g, len(q))
-            require(got == {**{kid: 0 for kid in got}, "G1": searches},
+            require(got == {**{kid: 0 for kid in got}, **searches_on_the_card(searches)},
                     f"{group}: the traversal launched {got}, expected G1 once a search "
                     f"({searches})")
             g1_launches = got["G1"]
@@ -4479,7 +4602,7 @@ def phase_main_angular(smi: str, base, n: int = ANGULAR_N) -> dict:
                       min_seconds=0.5)[0]
     got = read_counts()
     searches = sweep_searches([p48], len(q))
-    require(got == {**{kid: 0 for kid in got}, "G1": searches},
+    require(got == {**{kid: 0 for kid in got}, **searches_on_the_card(searches)},
             f"exact L=48 launched {got}, expected G1 once a search ({searches})")
     g1_launches += got["G1"]
     l2_recall = {p.search_width: p.recall for p in keep["sweep_points"] if p.mode == "exact"}
@@ -4626,7 +4749,8 @@ def main() -> int:
             index = build_vamana_knn(pts, degree_bound=48, alpha=1.2, seed=0, device="cuda")
             rows = g1_rows(dev["smi"], index, q, gt, G1_CELL_SHAPES + G1_SWEEP_SHAPES,
                            f"{n // 1000}k R48")
-            print(json.dumps({"kernels": [g1_kernel_row(rows)]}))
+            g2 = g2_rows(dev["smi"], index, q, G2_CELL_SHAPES, f"{n // 1000}k R48")
+            print(json.dumps({"kernels": [g1_kernel_row(rows), g2_kernel_row(g2)]}))
         elif sys.argv[1] == "--angular-n":
             base = ROOT / "build" / "chip_smoke" / "collections"
             shutil.rmtree(base, ignore_errors=True)
@@ -4728,6 +4852,7 @@ def main() -> int:
         g1_row["launches_exact_sweep_200k"] = graph["g1_launches_exact_sweep"]
         g1_row["launches_angular_exact"] = angular["g1_launches"]
         out["kernels"].append(g1_row)
+        out["kernels"].append(g2_kernel_row(ht1m["g2"]))
         phase_api(dev["smi"], base, "vamana_200k", CMP_N)
         ht200 = phase_host_tier_200k(dev["smi"], base, "vamana_200k", *sets[CMP_N], auto_recall)
         b5_row["launches_host_tier_200k_pq"] = ht200["b5_launches"]

@@ -9,10 +9,12 @@ is masking; the loop ends when every query has converged or at
 `max_steps`.
 
 The JAX package runs the loop as `lax.while_loop` on the device. The exact
-search on the card runs it in one CUDA kernel, G1 (`ops/traverse.py`), a
-block a query, with no host wait between rounds. Everywhere else
-(`_plain_rounds`: CPU tensors, bf16 vectors, cosine and dot, shapes past
-G1's limits, the PQ- and int-guided searches) the host steers it: a Python
+search on the card runs in two CUDA kernels launched back to back
+(`ops/traverse.py`): G2 makes the seeded list, G1 runs the rounds, a block
+a query, with no host wait between rounds. Everywhere else
+(`_seed_candidates` and `_plain_rounds`: CPU tensors, bf16 vectors, cosine
+and dot, shapes past the kernels' limits, the PQ- and int-guided searches)
+the host seeds with PyTorch ops and steers the rounds: a Python
 loop that asks the device "is any query still active?" once a round (one
 synchronisation each) and stops at the first "no", so no round runs past
 convergence and the PQ-guided search launches its ADC kernel exactly once
@@ -27,11 +29,12 @@ and each loop iteration a `graph.round` span (attribute `step`) made of
 `graph.round.select`, `graph.round.sync` (the wait on "is any query still
 active?"), `graph.round.expand` and `graph.round.merge`; the counters
 `graph.iterations` and `graph.rounds` count the iterations and the rounds
-executed (the last iteration stops at its sync). On G1 the rounds are one
-`graph.traverse` span and the counter `graph.traverse_kernel` counts the
-searches it served. The exact rerank of beam ∪ visited is a `graph.rerank`
-span (attribute `pool`, its width) and the counter `graph.rerank_pool`
-adds B x pool; the PQ-guided rounds count their ADC calls in
+executed (the last iteration stops at its sync). On the kernels the
+seeding is G2's launch inside `graph.seed`, the rounds G1's inside one
+`graph.traverse` span, and the counters `graph.seed_kernel` and
+`graph.traverse_kernel` count the searches each served. The exact rerank
+of beam ∪ visited is a `graph.rerank` span (attribute `pool`, its width)
+and the counter `graph.rerank_pool` adds B x pool; the PQ-guided rounds count their ADC calls in
 `pq.adc_launches` and the (query, candidate) pairs those score in
 `pq.adc_ids`. Every count is taken from shapes: none waits on the device.
 """
@@ -298,15 +301,10 @@ def _frontier_search(
     expand_width: int = 1,
     entry_points: torch.Tensor | None = None,
     seed_expand_fn=None,
-    kernel_rounds=None,
 ) -> SearchResult:
-    """Shared best-first loop: `_seed_candidates`, then the rounds:
-    `kernel_rounds(cand_ids, cand_dists, expanded) -> SearchResult` (G1)
-    where given, else `_plain_rounds`."""
+    """Shared best-first loop: `_seed_candidates`, then `_plain_rounds`."""
     seeded = _seed_candidates(adjacency, medoid, expand_fn, batch, search_width=search_width,
                               entry_points=entry_points, seed_expand_fn=seed_expand_fn)
-    if kernel_rounds is not None:
-        return kernel_rounds(*seeded)
     return _plain_rounds(adjacency, expand_fn, *seeded, k=k, max_steps=max_steps,
                          expand_width=expand_width)
 
@@ -334,10 +332,11 @@ def beam_search(
 ) -> SearchResult:
     """Batched best-first graph search with exact distances.
 
-    After seeding, the rounds run on G1 (`ops/traverse.py`: one kernel for
-    all rounds) where `ops.traverse.refusal` finds nothing against the
-    inputs (CUDA f32 vectors, L2, the kernel's limits on D, L, E x R and
-    max_steps x E), else on `_plain_rounds`.
+    Where `ops.traverse.refusal` finds nothing against the inputs (CUDA f32
+    vectors, L2, the kernels' limits on D, L, E x R and max_steps x E) the
+    search runs on two kernels launched back to back (`ops/traverse.py`):
+    G2 makes the seeded list, G1 runs every round from it. Else
+    `_seed_candidates` seeds and `_plain_rounds` runs the rounds.
 
     Args:
       vectors: [N, D] database vectors (f32, or bf16 for the low-bandwidth
@@ -354,6 +353,12 @@ def beam_search(
         best-first).
     """
     max_steps = _default_steps(search_width, expand_width, k, max_steps)
+    if traverse.refusal(vectors, adjacency, queries, search_width=search_width,
+                        expand_width=expand_width, max_steps=max_steps, metric=metric) is None:
+        ids, dists, *log = traverse.seed_and_traverse(
+            vectors, adjacency, queries, medoid, entry_points, search_width=search_width,
+            expand_width=expand_width, max_steps=max_steps)
+        return SearchResult(ids[:, :k], dists[:, :k], *log)
 
     def expand(ids):
         return _gathered_distance(queries, vectors[ids], metric)
@@ -362,19 +367,11 @@ def beam_search(
         seed_vecs = vectors[seeds].to(torch.float32)  # one shared gather
         return pairwise_distance(queries, seed_vecs, metric).to(torch.float32)
 
-    def g1_rounds(cand_ids, cand_dists, expanded):
-        ids, dists, *log = traverse.launch(vectors, adjacency, queries, cand_ids, cand_dists,
-                                           expanded, expand_width=expand_width,
-                                           max_steps=max_steps)
-        return SearchResult(ids[:, :k], dists[:, :k], *log)
-
-    on_g1 = traverse.refusal(vectors, adjacency, queries, search_width=search_width,
-                             expand_width=expand_width, max_steps=max_steps, metric=metric) is None
     return _frontier_search(
         adjacency, medoid, expand, queries.shape[0],
         search_width=search_width, k=k, max_steps=max_steps,
         expand_width=expand_width, entry_points=entry_points,
-        seed_expand_fn=seed_expand, kernel_rounds=g1_rounds if on_g1 else None,
+        seed_expand_fn=seed_expand,
     )
 
 

@@ -37,6 +37,7 @@ def launch_counts() -> dict[str, int]:
             "B5": pq_scan.adc_lookup_gathered_kernel.launches,
             "M1": mm_probe.mm_probe.launches,
             "G1": traverse.beam_traverse.launches,
+            "G2": traverse.beam_seed.launches,
         }
 
 

@@ -66,7 +66,7 @@ def test_bench_cuda_cpu_smoke(tmp_path):
     assert [p["L"] for p in rec["host_tier"]["points"]] == [32, 48]
     assert set(rec["serving_qps_b512"]) == {"flat", "flat_pipelined", "vamana", "streaming",
                                              "host_tier"}
-    assert set(rec["launches"]) == {"B1", "B2", "B3", "B4", "B5", "B6", "M1", "G1"}
+    assert set(rec["launches"]) == {"B1", "B2", "B3", "B4", "B5", "B6", "M1", "G1", "G2"}
     assert not any(rec["launches"].values())  # the CPU runs the plain versions
     assert rec["recall"] >= 0.95 and rec["value"] > 0
     # a smoke-scale run leaves the full-protocol record alone

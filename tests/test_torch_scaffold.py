@@ -81,7 +81,7 @@ from diskrag_tpu_torch.api import AppState, create_app
 from diskrag_tpu_torch.ops.mm_probe import mm_probe, mm_probe_ref
 from diskrag_tpu_torch.utils.profiling import device_trace, drain, span, summary, tracing
 from diskrag_tpu_torch.kernels.launches import launch_counts
-assert set(launch_counts()) == {"B1", "B4", "B2", "B3", "B6", "B5", "M1", "G1"}
+assert set(launch_counts()) == {"B1", "B4", "B2", "B3", "B6", "B5", "M1", "G1", "G2"}
 from diskrag_tpu_torch.ops import (
     Metric, approximate_medoid, brute_force_topk, mask_duplicates, merge_topk,
     pairwise_cosine_distance, pairwise_distance, pairwise_l2_sq, query_point_distance,
@@ -291,10 +291,10 @@ def test_kernel_build_is_keyed_by_source_hash():
 
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert [s.stem for s in srcs] == [
-        "adc_lookup", "beam_traverse", "flat_scan", "hier_scan", "mm_probe", "packed_scan",
-        "topk_lanes"]
+        "adc_lookup", "beam_seed", "beam_traverse", "flat_scan", "hier_scan", "mm_probe",
+        "packed_scan", "topk_lanes"]
     paths = {_build._lib_path(s) for s in srcs}
-    assert len(paths) == 7
+    assert len(paths) == 8
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     with pytest.raises(RuntimeError, match="CUDA error 7"):

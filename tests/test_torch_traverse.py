@@ -1,15 +1,17 @@
-"""G1 (`ops/traverse.py`, `csrc/beam_traverse.cu`): the exact traversal's
-rounds in one CUDA kernel.
+"""G2 and G1 (`ops/traverse.py`, `csrc/beam_seed.cu`,
+`csrc/beam_traverse.cu`): the exact search's seeding and its rounds, each
+in one CUDA kernel.
 
-On the CPU: which exact searches go to the kernel (`refusal`; a refused
-search keeps the plain round loop and launches nothing) and the wrapper's
-checks. The tests marked `cuda` (they skip without a card) hold G1 against
-the plain rounds from the same seeded state on a card:
+On the CPU: which exact searches go to the kernels (`refusal`; a refused
+search keeps the plain seeding and round loop and launches nothing), G2's
+grid plan and both wrappers' checks. The tests marked `cuda` (they skip
+without a card) hold G2 against the plain seeding and G1 against the plain
+rounds from the same seeded state on a card:
 
     pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_traverse.py
 
-No JAX in this file: the tests for the card hold the kernel against the
-port's own plain rounds (`--noconftest` skips the suite's session hook,
+No JAX in this file: the tests for the card hold the kernels against the
+port's own plain seeding and rounds (`--noconftest` skips the suite's session hook,
 which asks JAX for emulated CPU devices these tests do not need)."""
 
 import numpy as np
@@ -51,9 +53,11 @@ REFUSED = [
 
 @pytest.mark.parametrize("case,change,words", REFUSED, ids=[c[0] for c in REFUSED])
 def test_refused_searches_keep_the_plain_loop(case, change, words):
-    """Each input outside G1's reach keeps `_plain_rounds`: the refusal
-    names why, the search runs the plain rounds (their spans and counters
-    record) and neither G1's launch count nor `graph.traverse_kernel` moves."""
+    """Each input outside G1's reach keeps `_seed_candidates` and
+    `_plain_rounds`: the refusal names why, the search seeds and runs the
+    plain rounds (their spans and counters record) and neither G2's nor
+    G1's launch count, `graph.seed_kernel` nor `graph.traverse_kernel`
+    moves."""
     vecs, adj, q = _random_graph(d=change.get("d", 16))
     vecs = vecs.to(change.get("dtype", torch.float32))
     if change.get("strided"):
@@ -72,8 +76,10 @@ def test_refused_searches_keep_the_plain_loop(case, change, words):
                                   k=10, max_steps=change.get("max_steps"), **kw)
         records = profiling.drain()
         counters = profiling.counters(reset=True)
-    assert launch_counts()["G1"] == 0
+    assert launch_counts()["G1"] == launch_counts()["G2"] == 0
     assert "graph.traverse_kernel" not in counters and counters["graph.rounds"] == int(res.n_steps)
+    assert "graph.seed_kernel" not in counters
+    assert any(r.name == "graph.seed" for r in records)
     assert any(r.name == "graph.round" for r in records)
     assert not any(r.name == "graph.traverse" for r in records)
 
@@ -108,6 +114,115 @@ def test_wrapper_refuses_operands_it_does_not_take(case, at, make, exc, words):
     with pytest.raises(exc, match=words):
         traverse.beam_traverse(*ops, expand_width=1, max_steps=32)
     assert launch_counts()["G1"] == 0
+
+
+def _guided(kind):
+    """A PQ- or int-guided search on the CPU, the plain seeding's other callers."""
+    from diskrag_tpu_torch.pq.intq import IntQuantizer
+
+    vecs, adj, q = _random_graph()
+    med = torch.tensor(0, dtype=torch.int32)
+    kw = dict(search_width=16, k=10, vectors=vecs, queries=q, expand_width=2,
+              entry_points=torch.arange(1, 40, dtype=torch.int32))
+    if kind == "pq":
+        gen = torch.Generator().manual_seed(0)
+        codes = torch.randint(0, 256, (vecs.shape[0], 4), dtype=torch.uint8, generator=gen)
+        tables = torch.rand((q.shape[0], 4, 256), generator=gen)
+        return tsearch.beam_search_pq(codes, tables, adj, med, **kw)
+    iq = IntQuantizer(bits=8, device="cpu").fit(vecs.numpy(), seed=0)
+    rows = torch.as_tensor(iq.encode(vecs.numpy()))
+    return tsearch.beam_search_iq(rows, iq.query_tables(q), adj, med, dim=iq.dim, bits=iq.bits,
+                                  n_cells=iq.n_cells, **kw)
+
+
+@pytest.mark.parametrize("kind", ["pq", "iq"])
+def test_guided_searches_keep_the_plain_seeding(kind):
+    """The PQ- and int-guided searches seed with `_seed_candidates` (one
+    `graph.seed` span a search) and launch neither kernel."""
+    reset_launch_counts()
+    with profiling.tracing():
+        profiling.counters(reset=True)
+        res = _guided(kind)
+        records = profiling.drain()
+        counters = profiling.counters(reset=True)
+    assert res.ids.shape == (8, 10)
+    assert launch_counts()["G1"] == launch_counts()["G2"] == 0
+    assert "graph.seed_kernel" not in counters and "graph.traverse_kernel" not in counters
+    assert sum(r.name == "graph.seed" for r in records) == 1
+
+
+# (case, B, S, L, D): the exact cells' shapes (1M x 128: 15,625 entry points
+# and the medoid), the wave build's (the medoid alone at B 2048), a width
+# of 256 and D 2048
+PLANS = [
+    ("exact_b1", 1, 15_626, 32, 128),
+    ("exact_b512", 512, 15_626, 32, 128),
+    ("wave_medoid_only", 2048, 1, 64, 128),
+    ("wave_entry_points", 2048, 3_126, 64, 128),
+    ("b7_l256", 7, 15_626, 256, 128),
+    ("d2048", 512, 15_626, 32, 2048),
+    ("few_seeds", 3, 6, 32, 36),
+]
+
+
+@pytest.mark.parametrize("case,b,s,l,d", PLANS, ids=[c[0] for c in PLANS])
+def test_seed_plan_takes_the_grid_from_the_shapes(case, b, s, l, d):
+    """G2's grid: tiles of a power of two queries, as many as B needs (16 at
+    most) within the tile's shared-memory room; slices that cover the seeds
+    with none empty, about two blocks an SM and at most 4096 list keys a
+    query; one slice, unsorted, where S < L."""
+    sms = 132
+    qt, tiles, ns = traverse.seed_plan(b, s, l, d, sms)
+    assert qt & (qt - 1) == 0 and qt <= traverse.SEED_TILE
+    assert traverse.seed_tile_bytes(qt, d, l) <= traverse.SEED_TILE_BYTES
+    assert tiles == -(-b // qt) and (qt >= min(b, traverse.SEED_TILE)
+                                     or traverse.seed_tile_bytes(2 * qt, d, l)
+                                     > traverse.SEED_TILE_BYTES)
+    sl = -(-s // ns)
+    assert (ns - 1) * sl < s <= ns * sl
+    if s < l:
+        assert ns == 1
+    else:
+        assert ns * l <= traverse.SEED_MERGE_KEYS and tiles * ns <= 2 * sms or ns == 1
+    if case == "exact_b1":  # the seeds spread over nearly every SM
+        assert (qt, ns) == (1, 123)
+    if case == "exact_b512":  # each seed row read 32 times, not 512
+        assert (qt, tiles, ns) == (16, 32, 8)
+
+
+# (case, operand, replacement, exception, words)
+SEED_WRAPPER = [
+    ("f64_vectors", "vectors", lambda a: a.double(), TypeError, "float32 vectors"),
+    ("bf16_queries", "queries", lambda a: a.bfloat16(), TypeError, "float32 vectors"),
+    ("float_medoid", "medoid", lambda a: a.float(), TypeError, "integer medoid"),
+    ("1d_medoid", "medoid", lambda a: a[None], TypeError, "integer medoid"),
+    ("int64_entry_points", "entry_points", lambda a: a.long(), TypeError, "int32 entry_points"),
+    ("2d_entry_points", "entry_points", lambda a: a[None], TypeError, "int32 entry_points"),
+    ("query_width", "queries", lambda a: a[:, :8].contiguous(), ValueError, "disagree"),
+    ("dim_not_multiple_of_4", "both", lambda a: a[..., :18].contiguous(), ValueError,
+     "multiple of 4"),
+    ("width_0", "width", lambda a: 0, ValueError, "L from 1 to 256"),
+    ("width_257", "width", lambda a: 257, ValueError, "L from 1 to 256"),
+    ("strided_vectors", "vectors", lambda a: torch.cat([a, a], 1)[:, ::2], ValueError,
+     "contiguous"),
+    ("cpu_operands", "none", lambda a: a, ValueError, "one CUDA device"),
+]
+
+
+@pytest.mark.parametrize("case,at,make,exc,words", SEED_WRAPPER, ids=[c[0] for c in SEED_WRAPPER])
+def test_seed_wrapper_refuses_operands_it_does_not_take(case, at, make, exc, words):
+    vecs, _, q = _random_graph(d=20)
+    ops = {"vectors": vecs, "queries": q, "medoid": torch.tensor(3, dtype=torch.int32),
+           "entry_points": torch.arange(10, 40, dtype=torch.int32), "width": 16}
+    if at == "both":
+        ops["vectors"], ops["queries"] = make(ops["vectors"]), make(ops["queries"])
+    elif at != "none":
+        ops[at] = make(ops[at])
+    reset_launch_counts()
+    with pytest.raises(exc, match=words):
+        traverse.beam_seed(ops["vectors"], ops["queries"], ops["medoid"], ops["entry_points"],
+                           search_width=ops["width"])
+    assert launch_counts()["G2"] == 0
 
 
 # --- on the card ---------------------------------------------------------------
@@ -255,8 +370,9 @@ def test_g1_matches_plain_rounds_on_float_data(card_sets, case):
 @pytest.mark.cuda
 def test_an_exact_search_at_the_cells_shape_is_one_traverse_span(card_sets):
     """With tracing on, the search at L 32 / E 1 / R 48 / D 128 records one
-    `graph.traverse` span, `graph.traverse_kernel` counts it, and no host
-    round (`graph.round*`, `graph.rounds`) runs."""
+    `graph.seed` span and one `graph.traverse` span, `graph.seed_kernel`
+    and `graph.traverse_kernel` count it, and no host round
+    (`graph.round*`, `graph.rounds`) runs."""
     index, qs, _ = card_sets["floats"]
     reset_launch_counts()
     with profiling.tracing():
@@ -266,15 +382,140 @@ def test_an_exact_search_at_the_cells_shape_is_one_traverse_span(card_sets):
         torch.cuda.synchronize()
         records = profiling.drain()
         counters = profiling.counters(reset=True)
-    assert launch_counts()["G1"] == 1
-    assert counters.get("graph.traverse_kernel") == 1 and "graph.rounds" not in counters
+    assert launch_counts()["G1"] == launch_counts()["G2"] == 1
+    assert counters.get("graph.traverse_kernel") == counters.get("graph.seed_kernel") == 1
+    assert "graph.rounds" not in counters
     assert sum(r.name == "graph.traverse" for r in records) == 1
+    assert sum(r.name == "graph.seed" for r in records) == 1
     assert not any(r.name.startswith("graph.round") for r in records)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 512])
+def test_the_exact_search_on_the_card_is_two_launches_and_no_pytorch_kernel(card_sets, b):
+    """Under the profiler, an exact search at the cells' shape (L 32, E 1, R
+    48, D 128, the index's entry points) runs two kernels on the device, G2
+    and then G1, and nothing else: no PyTorch kernel seeds it. G2's launch
+    lies inside the `graph.seed` range and G1's inside `graph.traverse`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    index, qs, _ = card_sets["floats"]
+
+    def search():
+        return tsearch.beam_search(index.vectors, index.adjacency, index.medoid, qs[:b],
+                                   search_width=32, k=10, entry_points=index.entry_points)
+
+    search()
+    torch.cuda.synchronize()
+    with profiling.tracing(), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+        search()
+        torch.cuda.synchronize()
+    profiling.drain()
+    events = prof.events()
+    kernels = [e.name for e in sorted(events, key=lambda e: e.time_range.start)
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(profiling.PREFIX)]  # the spans' ranges on the device
+    assert len(kernels) == 2, kernels
+    assert "beam_seed_kernel" in kernels[0] and "beam_traverse_kernel" in kernels[1], kernels
+    ranges = {e.name: e.time_range for e in events if e.name.startswith(profiling.PREFIX)
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    launches = sorted((e.time_range for e in events if e.name == "cudaLaunchKernel"),
+                      key=lambda r: r.start)
+    assert len(launches) == 2, launches
+    for name, launch in zip(("graph.seed", "graph.traverse"), launches):
+        span_range = ranges[profiling.PREFIX + name]
+        assert span_range.start <= launch.start and launch.end <= span_range.end, name
+
+
+def _seed_both(vectors, queries, medoid, entry_points, width):
+    """(G2's seeded list, `_seed_candidates`'s) of one search; G2 launched
+    exactly once."""
+    reset_launch_counts()
+    got = traverse.beam_seed(vectors, queries, medoid, entry_points, search_width=width)
+    torch.cuda.synchronize()
+    assert launch_counts()["G2"] == 1 and launch_counts()["G1"] == 0
+
+    def seed_expand(seeds):
+        return pairwise_distance(queries, vectors[seeds], "l2")
+
+    want = tsearch._seed_candidates(vectors.new_zeros((1, 1), dtype=torch.int32), medoid, None,
+                                    queries.shape[0], search_width=width,
+                                    entry_points=entry_points, seed_expand_fn=seed_expand)
+    return got, want
+
+
+# (case, batch, L, seeds): "all" the index's entry points (313 seeds at 20k
+# points: S >= L up to L 256), "none" the medoid alone and "five" five entry
+# points (S < L: position order, padded), "repeat" 30 entry points and the
+# medoid once more (S = L = 32: sorted, the repeat last at +inf, id -1),
+# "repeat_few" five and the medoid (S < L: the repeat in its position),
+# "ties" every vector twice (each seed distance tied with its twin's, the
+# lower position first)
+G2_CASES = [
+    ("b1_all", 1, 32, "all"),
+    ("b512_all", 512, 32, "all"),
+    ("b7_l256", 7, 256, "all"),
+    ("b1_medoid_only", 1, 32, "none"),
+    ("b512_medoid_only", 512, 32, "none"),
+    ("b512_five", 512, 32, "five"),
+    ("b1_medoid_repeated", 1, 32, "repeat"),
+    ("b512_medoid_repeated", 512, 32, "repeat"),
+    ("b512_medoid_repeated_few", 512, 32, "repeat_few"),
+    ("b1_ties", 1, 32, "ties"),
+    ("b512_ties", 512, 32, "ties"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", G2_CASES, ids=[c[0] for c in G2_CASES])
+def test_g2_is_the_plain_seeding_bit_for_bit_on_integer_data(card_sets, case):
+    """Where no sum rounds, G2's seeded list is `_seed_candidates`'s on every
+    row: ids, distances and expanded flags."""
+    _, b, width, seeds = case
+    index, qs, _ = card_sets["ints"]
+    vectors, ep = index.vectors, index.entry_points
+    if seeds == "ties":
+        vectors = vectors.clone()
+        vectors[ep[1::2].long()] = vectors[ep[0::2][: ep[1::2].numel()].long()]
+    ep = {"none": None, "five": ep[:5], "repeat": torch.cat([ep[:30], index.medoid[None]]),
+          "repeat_few": torch.cat([ep[:5], index.medoid[None]])}.get(seeds, ep)
+    got, want = _seed_both(vectors, qs[:b], index.medoid, ep, width)
+    for name, g, w in zip(("cand_ids", "cand_dists", "expanded"), got, want):
+        assert torch.equal(g, w), name
+    if seeds == "ties":
+        d = want[1]
+        assert bool((d[:, 1:] == d[:, :-1]).any())  # the lists hold ties
+    if seeds.startswith("repeat"):  # the repeat scores +inf: id -1 in every row
+        assert bool((want[0] == -1).any(1).all()) and bool(torch.isinf(want[1]).any(1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 512])
+def test_search_on_g2_matches_the_plain_seeding_on_float_data(card_sets, b):
+    """On the SIFT-like set the whole `beam_search` (G2, then G1) against
+    the plain seeding and G1 from it: the top-10 ids identical on >= 99.5%
+    of rows (every row at B = 1). G2 sums in another order than PyTorch's
+    product, so a near-tie among the seeds may order the other way."""
+    index, qs, gt = card_sets["floats"]
+    qs = qs[:b]
+    steps = tsearch._default_steps(32, 1, 10, None)
+    kern = tsearch.beam_search(index.vectors, index.adjacency, index.medoid, qs, search_width=32,
+                               k=10, entry_points=index.entry_points)
+    _, want = _seed_both(index.vectors, qs, index.medoid, index.entry_points, 32)
+    plain = traverse.beam_traverse(index.vectors, index.adjacency, qs, *want, expand_width=1,
+                                   max_steps=steps)
+    same = (kern.ids == plain[0][:, :10]).all(1).float().mean().item()
+    assert same >= (1.0 if b < 200 else 0.995), same
+    got = recall_at_k(kern.ids.cpu().numpy(), gt[:b], 10)
+    ref = recall_at_k(plain[0][:, :10].cpu().numpy(), gt[:b], 10)
+    assert abs(got - ref) <= 1e-3, (got, ref)
+
+
+@pytest.mark.cuda
 def test_refused_search_on_the_card_launches_nothing(card_sets):
-    """bf16 vectors and L past 256 on the card keep the plain rounds."""
+    """bf16 vectors and L past 256 on the card keep the plain seeding and
+    rounds."""
     index, qs, _ = card_sets["floats"]
     reset_launch_counts()
     tsearch.beam_search(index.vectors.to(torch.bfloat16), index.adjacency, index.medoid,
@@ -282,4 +523,4 @@ def test_refused_search_on_the_card_launches_nothing(card_sets):
     tsearch.beam_search(index.vectors, index.adjacency, index.medoid, qs[:4], search_width=264,
                         k=10, max_steps=2, entry_points=index.entry_points)
     torch.cuda.synchronize()
-    assert launch_counts()["G1"] == 0
+    assert launch_counts()["G1"] == launch_counts()["G2"] == 0
