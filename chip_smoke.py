@@ -2140,9 +2140,8 @@ def g1_rows(smi: str, index, q, gt, shapes, cell: str) -> dict:
             launches = read_counts()
             require(launches == {**{k: 0 for k in launches}, **searches_on_the_card(1)},
                     f"beam_search at {what} launched {launches}, expected G2 and G1 once")
-            seeded = tsearch._seed_candidates(index.adjacency, index.medoid, expand, b,
-                                              search_width=width, entry_points=index.entry_points,
-                                              seed_expand_fn=seed_expand)
+            seeded = tsearch._seed_candidates(index.adjacency, index.medoid, seed_expand, b,
+                                              search_width=width, entry_points=index.entry_points)
             plain = tsearch._plain_rounds(index.adjacency, expand, *seeded, k=width,
                                           max_steps=steps, expand_width=e)
             torch.cuda.synchronize()
@@ -2230,9 +2229,8 @@ def g2_rows(smi: str, index, q, shapes, cell: str) -> dict:
             def seed_expand(seeds):
                 return pairwise_distance(qs, vecs[seeds], "l2")
 
-            return tsearch._seed_candidates(index.adjacency, med, None, qs.shape[0],
-                                            search_width=width, entry_points=ep,
-                                            seed_expand_fn=seed_expand)
+            return tsearch._seed_candidates(index.adjacency, med, seed_expand, qs.shape[0],
+                                            search_width=width, entry_points=ep)
 
         for label, (vecs, qs) in (("ints", (ints[0], ints[1][:b])),
                                   ("floats", (index.vectors, qd[:b]))):
@@ -2449,11 +2447,13 @@ def phase_main_vamana(smi: str, base, pts, q, gt) -> dict:
     # of the first 1000 points, clamped as the traversal clamps them), the
     # engine's code table and residual operands: the by-id form the round
     # calls, then the gathered form on the same round's codes
-    tables, aux = engine._pq_serving_tables(q_d)
-    tables = tables.contiguous()
-    nbrs = engine.index.adjacency[:MAIN_B].clamp(0, engine.codes_t.shape[0] - 1).long()
-    by_id = b5_ids_row(tables, engine.codes_t, nbrs, aux)
-    gathered = b5_row(tables, engine.codes_t[nbrs])
+    g = engine.guide
+    gt_q = g.tables(q_d)
+    tables = gt_q.main.contiguous()
+    aux = {"point_cell": g.cells, "point_bias": g.bias, "cell_tables": gt_q.cells}
+    nbrs = engine.index.adjacency[:MAIN_B].clamp(0, g.codes.shape[0] - 1).long()
+    by_id = b5_ids_row(tables, g.codes, nbrs, aux)
+    gathered = b5_row(tables, g.codes[nbrs])
     del engine, pts_d, q_d
     torch.cuda.empty_cache()
     return {"launches": launches["B5"], "rounds_per_batch": rounds / reps,
@@ -3052,7 +3052,8 @@ def phase_host_tier_1m(smi: str, base, pts, q, gt) -> dict:
     # alternately on the same queries
     bare = HostTierIndex.from_store(engine.manager.get_index_dir(name), gather_pad=False,
                                     device="cuda")
-    require(bare.codes.shape[1] == 130 and ht.codes.shape[1] == 256, "gather pad widths")
+    require(bare.guide.codes.shape[1] == 130 and ht.guide.codes.shape[1] == 256,
+            "gather pad widths")
     rows = {}
     for label, tier in (("padded_256", ht), ("unpadded_130", bare), ("padded_256_again", ht),
                         ("unpadded_130_again", bare)):
@@ -3256,8 +3257,8 @@ def phase_host_tier_ladder(smi: str, base, pts, q, gt) -> dict:
         # the payload a point, as the JAX bench counts it: the int row's
         # own width (not the 256-byte gather pad); the codes and the
         # residual PQ's cell id and bias
-        bpp = int(ht.pq.row_width) if mode == "iq" else (
-            int(ht.codes.shape[1]) + (8 if ht.pq_cells is not None else 0))
+        bpp = int(ht.guide.pq.row_width) if mode == "iq" else (
+            int(ht.guide.codes.shape[1]) + (8 if ht.guide.cells is not None else 0))
         qs.update(device_bytes_tier=ht.device_bytes(),
                   device_allocated_bytes=torch.cuda.memory_allocated(),
                   bytes_per_point=bpp, meta_kind=meta["pq_kind"])
@@ -3341,8 +3342,9 @@ def phase_host_tier_200k(smi: str, base, name: str, pts, q, gt, auto_recall: flo
 
     engine = SearchEngine(name, base_dir=str(base), serving_mode="host_tier", device="cuda")
     ht = engine.host_tier
-    require(ht.mode == "pq" and isinstance(ht.pq, ResidualPQ) and ht.pq.n_subvectors == 16,
-            f"host tier over the default index picked {ht.mode} / {type(ht.pq).__name__}")
+    require(ht.mode == "pq" and isinstance(ht.guide.pq, ResidualPQ)
+            and ht.guide.pq.n_subvectors == 16,
+            f"host tier over the default index picked {ht.mode} / {type(ht.guide.pq).__name__}")
     row = _ht_drive(engine, q, gt, 64)
     row.pop("_ids")
     rounds = row.pop("_rounds")
@@ -4300,8 +4302,8 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
     engine = SearchEngine(name, base_dir=str(base), serving_mode="host_tier", device="cuda",
                           mesh_devices=mesh_devices)
     ht = engine.host_tier
-    require(ht.mode == "pq" and isinstance(ht.pq, ResidualPQ) and ht.pq_cells is not None,
-            f"the sharded host tier picked {ht.mode} / {type(ht.pq).__name__}")
+    require(ht.mode == "pq" and isinstance(ht.guide.pq, ResidualPQ) and ht.guide.cells is not None,
+            f"the sharded host tier picked {ht.mode} / {type(ht.guide.pq).__name__}")
     diagnostic = bool(engine.diagnostics and engine.diagnostics["passed"])
     require(diagnostic or not full, f"startup diagnostic failed: {engine.diagnostics}")
     pq = _sharded_drive(engine, q, gt, 64)
@@ -4320,7 +4322,7 @@ def phase_main_sharded(smi: str, base, pts, q, gt, *, n_shards: int = SHARDED_SH
     if full:
         http.append(_sharded_http(base, name, "host_tier", engine, mesh_devices))
     emit({"phase": "main-sharded", "cell": cell, "serving_mode": "host_tier", "mode": "pq",
-          "n_subvectors": ht.pq.n_subvectors, "n_coarse": ht.pq.n_coarse,
+          "n_subvectors": ht.guide.pq.n_subvectors, "n_coarse": ht.guide.pq.n_coarse,
           "diagnostic_passed": diagnostic, **pq,
           "recall_gate": SHARDED_PQ_DEFAULT_GATE if full else None,
           "device_bytes": sum(ht.device_bytes().values()),

@@ -153,6 +153,20 @@ def sweep_exact(
                         mode="exact-bf16" if bf16 else "exact", min_seconds=min_seconds)
 
 
+def _guided_sweep(guide, index, queries, gt, *, k, **kw) -> list[SweepPoint]:
+    """Guided traversal + exact rerank (`graph/guided.py`), the query
+    tables built inside the timed pass."""
+
+    def search_chunk(c, w, e):
+        return guide.search(
+            guide.tables(c), index.adjacency, index.medoid, search_width=w, k=k, rerank=True,
+            vectors=index.vectors, queries=c, metric=index.metric, expand_width=e,
+            entry_points=index.entry_points,
+        )
+
+    return _graph_sweep(search_chunk, index, queries, gt, k=k, **kw)
+
+
 def sweep_pq(
     index, pq, codes, queries: np.ndarray, gt: np.ndarray, *,
     k: int, widths=(32, 48, 64, 96, 128), expand_widths=(1,),
@@ -162,33 +176,20 @@ def sweep_pq(
     """PQ-traversal + exact-rerank sweep (the "pq_accelerated" mode). Pass
     a ResidualPQ plus its `coarse_ids` to sweep the residual serving
     decomposition."""
-    from diskrag_tpu_torch.graph.search import beam_search_pq
+    from diskrag_tpu_torch.graph.guided import Guide
 
     dev = index.device
     codes_t = torch.as_tensor(codes, device=dev)
-    residual = coarse_ids is not None
-    if residual:
+    if coarse_ids is not None:
         cells = torch.as_tensor(coarse_ids, device=dev).to(torch.int32)
-        bias = pq.point_bias(codes_t, cells)
+        guide = Guide(pq, codes_t, cells, pq.point_bias(codes_t, cells))
         mode = mode_label or f"rpq{int(pq.n_subvectors)}+rerank"
     else:
+        guide = Guide(pq, codes_t)
         mode = mode_label or "pq+rerank"
-
-    def search_chunk(c, w, e):
-        if residual:
-            tables = pq.inner_tables(c)
-            aux = {"point_cell": cells, "point_bias": bias, "cell_tables": pq.cell_tables(c)}
-        else:
-            tables, aux = pq.compute_distance_tables(c), {}
-        return beam_search_pq(
-            codes_t, tables, index.adjacency, index.medoid, search_width=w, k=k,
-            rerank=True, vectors=index.vectors, queries=c, metric=index.metric,
-            expand_width=e, entry_points=index.entry_points, **aux,
-        )
-
-    return _graph_sweep(search_chunk, index, queries, gt, k=k, widths=widths,
-                        expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
-                        mode=mode, min_seconds=min_seconds)
+    return _guided_sweep(guide, index, queries, gt, k=k, widths=widths,
+                         expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
+                         mode=mode, min_seconds=min_seconds)
 
 
 def sweep_iq(
@@ -200,22 +201,13 @@ def sweep_iq(
     `beam_search_iq`): int8 / int4 rows guide the beam, the rerank of beam
     ∪ visited restores recall. The query tables are built inside the timed
     pass, as `sweep_pq` builds its own."""
-    from diskrag_tpu_torch.graph.search import beam_search_iq
+    from diskrag_tpu_torch.graph.guided import Guide
 
-    rows_t = torch.as_tensor(np.asarray(rows, np.int8), device=index.device)
+    guide = Guide(iq, torch.as_tensor(np.asarray(rows, np.int8), device=index.device))
     label = f"iq{iq.bits}" + (f"c{iq.n_cells}" if iq.n_cells else "")
-
-    def search_chunk(c, w, e):
-        return beam_search_iq(
-            rows_t, iq.query_tables(c), index.adjacency, index.medoid,
-            dim=iq.dim, bits=iq.bits, n_cells=iq.n_cells, search_width=w, k=k,
-            rerank=True, vectors=index.vectors, queries=c, metric=index.metric,
-            expand_width=e, entry_points=index.entry_points,
-        )
-
-    return _graph_sweep(search_chunk, index, queries, gt, k=k, widths=widths,
-                        expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
-                        mode=label, min_seconds=min_seconds)
+    return _guided_sweep(guide, index, queries, gt, k=k, widths=widths,
+                         expand_widths=expand_widths, repeats=repeats, pipeline=pipeline,
+                         mode=label, min_seconds=min_seconds)
 
 
 def sweep_host_tier(

@@ -210,6 +210,7 @@ def sharded_host_tier_from_jax(tier, reader, mesh):
     cells and biases; int8 rows, gather pad included) and its quantizer,
     placed on `mesh`; `reader` is the port's reader of the same record
     file."""
+    from diskrag_tpu_torch.graph.guided import Guide
     from diskrag_tpu_torch.parallel import ShardedHostTier, place
 
     dev = mesh.first_device
@@ -217,15 +218,14 @@ def sharded_host_tier_from_jax(tier, reader, mesh):
     def put(a, dtype=None):
         return None if a is None else place(_tensor(a, torch.device("cpu")), mesh, dtype)
 
-    common = dict(
+    guide = None
+    if tier.mode != "bf16":
+        quantizer = (iq_from_jax(tier.pq, device=dev) if tier.mode == "iq"
+                     else pq_from_jax(tier.pq.to_arrays(), device=dev)[0])
+        guide = Guide(quantizer, tier.codes, tier.pq_cells, tier.pq_bias).map(put)
+    return ShardedHostTier(
+        vectors_bf16=put(tier.vectors_bf16, torch.bfloat16),
         adjacency=put(tier.adjacency), medoids=put(tier.medoids), global_ids=put(tier.global_ids),
         entry_points=put(tier.entry_points), reader=reader, mesh=mesh, metric=tier.metric,
+        guide=guide,
     )
-    if tier.mode == "bf16":
-        return ShardedHostTier(vectors_bf16=put(tier.vectors_bf16, torch.bfloat16), **common)
-    if tier.mode == "iq":
-        return ShardedHostTier(vectors_bf16=None, mode="iq", codes=put(tier.codes),
-                               pq=iq_from_jax(tier.pq, device=dev), **common)
-    pq = pq_from_jax(tier.pq.to_arrays(), device=dev)[0]
-    return ShardedHostTier(vectors_bf16=None, mode="pq", codes=put(tier.codes), pq=pq,
-                           pq_cells=put(tier.pq_cells), pq_bias=put(tier.pq_bias), **common)

@@ -76,11 +76,6 @@ from diskrag_tpu_torch.utils.profiling import request, span
 logger = logging.getLogger(__name__)
 
 
-def _host(x) -> np.ndarray:
-    """A device tensor or an array as a host numpy array."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def _pack(dists: torch.Tensor, ids: torch.Tensor, n_expanded: Optional[torch.Tensor],
           n_steps: Optional[torch.Tensor]) -> torch.Tensor:
     """One int32 [B, 2k + 2] tensor on the results' device: the ids, the
@@ -168,11 +163,7 @@ class SearchEngine:
             "total_search_time": 0.0,
         }
         self.index = None
-        self.pq = None
-        self.codes = None       # uint8 [N, m] on the host, as loaded
-        self.codes_t = None     # the same on the device
-        self.pq_cells_t = None  # residual-PQ aux (pq/residual.py)
-        self.pq_bias_t = None
+        self.guide = None       # vamana with PQ or int rows: graph/guided.py
         self.flat = None
         self.ivf = None         # index_type "ivf"
         self.host_tier = None   # serving_mode "host_tier"
@@ -181,7 +172,6 @@ class SearchEngine:
         self.sharded = None     # mode "auto" on a sharded index
         self.sharded_flat = None  # mode "sharded_flat": (bf16 rows, norms, global ids)
         self.meta: dict = {}
-        self.use_pq = False
         self.brute_force_mode = False
         self.recommended_l = 0
         with span("engine.load"):
@@ -204,7 +194,10 @@ class SearchEngine:
 
     # --- bring-up --------------------------------------------------------
     def _load_artifacts(self) -> None:
-        from diskrag_tpu_torch.index.persist import load_flat_vectors, load_index, load_ivf_index
+        from diskrag_tpu_torch.graph.guided import load_guide
+        from diskrag_tpu_torch.index.persist import (
+            IndexStore, load_flat_vectors, load_index, load_ivf_index,
+        )
         from diskrag_tpu_torch.ops.flat import FlatIndex
 
         index_dir = self.manager.get_index_dir(self.collection_name)
@@ -246,39 +239,20 @@ class SearchEngine:
             if self.index_type == "ivf":
                 self.ivf, self.meta = load_ivf_index(index_dir, device=self.device)
                 return
-            self.index, self.pq, self.codes, self.meta = load_index(
-                index_dir, device=self.device
-            )
+            self.index, pq, codes, self.meta = load_index(index_dir, device=self.device)
         except (FileNotFoundError, ValueError) as e:
             self._brute_force(e, metric_hint)
             return
-        self.use_pq = self.pq is not None
-        if self.use_pq:
-            self.codes_t = torch.as_tensor(self.codes, device=self.device)
-            from diskrag_tpu_torch.pq.residual import ResidualPQ
-
-            if isinstance(self.pq, ResidualPQ):
-                from diskrag_tpu_torch.index.persist import IndexStore, load_pq_aux
-
-                try:
-                    cells, bias = load_pq_aux(
-                        IndexStore(index_dir), expect_n=int(self.codes.shape[0])
-                    )
-                except ValueError as e:  # stale length — treat as torn
-                    logger.warning("%s", e)
-                    cells = None
-                if cells is None:
-                    # torn artifact set (model present, aux missing or
-                    # stale): recompute from the resident vectors — cheap,
-                    # and keeps the serving mode available
-                    logger.warning(
-                        "recomputing residual-PQ serving arrays from the index vectors"
-                    )
-                    cells = self.pq.coarse_assign(self.index.vectors)
-                    bias = self.pq.point_bias(self.codes_t, cells)
-                self.pq_cells_t = torch.as_tensor(cells, device=self.device).to(torch.int32)
-                self.pq_bias_t = torch.as_tensor(bias, device=self.device).to(torch.float32)
+        if pq is not None:
+            # a torn residual aux is recomputed from the resident vectors
+            self.guide = load_guide(IndexStore(index_dir), device=self.device, pq=pq, codes=codes,
+                                    vectors=self.index.vectors).to(self.device)
         self.recommended_l = int(self.meta.get("recommended_search_L", 64))
+
+    @property
+    def use_pq(self) -> bool:
+        """Whether the loaded vamana index carries a guide (PQ or int rows)."""
+        return self.guide is not None
 
     def _brute_force(self, why: Exception, metric: str) -> None:
         """Graceful degradation of mode "auto" to brute force over the
@@ -375,7 +349,8 @@ class SearchEngine:
     def _load_sharded_host_tier(self, index_dir) -> None:
         """The sharded host tier: pq traversal when PQ artifacts exist and
         the metric is L2 (iq for IntQuantizer rows), else bf16."""
-        from diskrag_tpu_torch.index.persist import IndexStore, load_pq_aux
+        from diskrag_tpu_torch.graph.guided import load_guide, traversal_mode
+        from diskrag_tpu_torch.index.persist import IndexStore
         from diskrag_tpu_torch.parallel import ShardedHostTier, load_sharded_index
 
         store = IndexStore(index_dir)
@@ -391,37 +366,12 @@ class SearchEngine:
             int(self.meta.get("compat_R", 0)), cache_capacity=65_536,
         )
         mode_kwargs: dict = {}
-        if store.pq_model_path.exists() and self.meta.get("distance_metric", "l2") == "l2":
-            from diskrag_tpu_torch.pq.residual import pq_from_arrays
-
-            with np.load(store.pq_model_path) as z:
-                pq = pq_from_arrays(dict(z), device=self.mesh.first_device)
-            codes = np.load(store.pq_codes_path)
-            if str(self.meta.get("pq_kind", "plain")).startswith("int"):
-                mode_kwargs = {"mode": "iq", "pq": pq, "codes": codes}
-            else:
-                cells, bias = load_pq_aux(store, expect_n=int(codes.shape[0]))
-                mode_kwargs = {"mode": "pq", "pq": pq, "codes": codes,
-                               "pq_cells": cells, "pq_bias": bias}
+        if traversal_mode(store, self.meta) != "bf16":
+            g = load_guide(store, device=self.mesh.first_device)
+            mode_kwargs = {"mode": g.mode, "pq": g.pq, "codes": g.codes, "pq_cells": g.cells,
+                           "pq_bias": g.bias}
         self.host_tier = ShardedHostTier.from_sharded_index(
             load_sharded_index(index_dir / "sharded"), reader, self.mesh, **mode_kwargs)
-
-    def _pq_serving_tables(self, q: torch.Tensor) -> tuple:
-        """(tables, beam_search_pq aux kwargs) for the active quantizer:
-        inner tables + cell / bias operands for a ResidualPQ (its serving
-        decomposition, pq/residual.py), plain ADC tables otherwise. Traced
-        as one `engine.pq_tables` span (attributes `m`, `cells`: 0 for a
-        plain PQ)."""
-        residual = self.pq_cells_t is not None
-        with span("engine.pq_tables", m=self.pq.n_subvectors,
-                  cells=self.pq.n_coarse if residual else 0):
-            if residual:
-                return self.pq.inner_tables(q), {
-                    "point_cell": self.pq_cells_t,
-                    "point_bias": self.pq_bias_t,
-                    "cell_tables": self.pq.cell_tables(q),
-                }
-            return self.pq.compute_distance_tables(q), {}
 
     def _diagnostic_sample(self, n_sample: int = 8):
         """(vectors f32 [S, D], ids [S]) from the storage the serving mode
@@ -492,20 +442,13 @@ class SearchEngine:
             result["passed"] = False
             logger.warning("self-retrieval smoke probe %.2f < 0.8 in %s mode", rate, mode)
 
-        if self.use_pq and self.index is not None:
+        if self.guide is not None and self.index is not None:
             vecs = self.index.vectors
             n = int(vecs.shape[0])
             sample = np.random.default_rng(0).choice(n, size=min(512, n), replace=False)
             sample_t = torch.as_tensor(sample, device=self.device)
             q = vecs[sample_t[: min(8, len(sample))]]
-            tables = self.pq.compute_distance_tables(q)
-            if self.pq_cells_t is not None:  # residual PQ
-                adc = self.pq.asymmetric_distance_sq(
-                    tables, self.codes_t[sample_t], self.pq_cells_t[sample_t]
-                )
-            else:
-                adc = self.pq.asymmetric_distance_sq(tables, self.codes_t[sample_t])
-            adc = adc.cpu().numpy()
+            adc = self.guide.adc(q, sample_t).cpu().numpy()
             exact = torch.sum((q[:, None, :] - vecs[sample_t][None, :, :]) ** 2, dim=-1)
             exact = exact.cpu().numpy()
             corrs = [float(np.corrcoef(adc[i], exact[i])[0, 1]) for i in range(len(q))]
@@ -669,8 +612,7 @@ class SearchEngine:
         extra stats) of the active mode; `counts(total_expanded)` gives the
         (nodes_visited, n_exact, n_pq) stats triple. dists / ids are device
         tensors, or numpy arrays from the host tier."""
-        from diskrag_tpu_torch.graph.search import beam_search, beam_search_iq, beam_search_pq
-        from diskrag_tpu_torch.pq.intq import IntQuantizer
+        from diskrag_tpu_torch.graph.search import beam_search
 
         if self.host_tier is not None:
             return self._host_tier_branch(q, b, k, l_search)
@@ -713,33 +655,28 @@ class SearchEngine:
             return dists, ids, None, kind, lambda c: (nv, nv, 0), {}
         index = self.index
         deg = index.degree_bound
-        if use_pq_search and self.use_pq and index.metric == "l2":
+        if use_pq_search and self.guide is not None and index.metric == "l2":
             # ADC / iq tables rank by squared L2 only: on a cosine / dot
             # index quantized traversal would converge to the wrong region,
             # so those metrics fall through to exact traversal below.
             # E from the index meta where the build recorded one, else 1
             e = int(self.meta.get("recommended_expand_width", 0) or 1)
-            if isinstance(self.pq, IntQuantizer):
-                res = beam_search_iq(
-                    self.codes_t, self.pq.query_tables(q), index.adjacency, index.medoid,
-                    dim=self.pq.dim, bits=self.pq.bits, n_cells=self.pq.n_cells,
-                    search_width=l_search, k=k, rerank=True,
-                    vectors=index.vectors, queries=q, metric=index.metric,
-                    expand_width=e, entry_points=index.entry_points,
-                )
-                kind = "iq_accelerated"
-            else:
-                tables, aux = self._pq_serving_tables(q)
-                res = beam_search_pq(
-                    self.codes_t, tables, index.adjacency, index.medoid,
-                    search_width=l_search, k=k, rerank=True,
-                    vectors=index.vectors, queries=q, metric=index.metric,
-                    expand_width=e, entry_points=index.entry_points, **aux,
-                )
-                kind = "pq_accelerated"
+            g = self.guide
+            if g.kind == "iq":
+                tables = g.tables(q)
+            else:  # a PQ's tables: one span (`cells` 0 for a plain PQ)
+                with span("engine.pq_tables", m=g.pq.n_subvectors,
+                          cells=g.pq.n_coarse if g.kind == "rpq" else 0):
+                    tables = g.tables(q)
+            res = g.search(
+                tables, index.adjacency, index.medoid,
+                search_width=l_search, k=k, rerank=True,
+                vectors=index.vectors, queries=q, metric=index.metric,
+                expand_width=e, entry_points=index.entry_points,
+            )
             ne = b * (l_search + res.visited_ids.shape[1])
-            return (res.dists, res.ids, res, kind, lambda c: (c, ne, c * deg),
-                    {"expand_width": e})
+            return (res.dists, res.ids, res, g.search_type,
+                    lambda c: (c, ne, c * deg), {"expand_width": e})
         res = beam_search(
             index.vectors, index.adjacency, index.medoid, q,
             search_width=l_search, k=k, metric=index.metric,
@@ -808,26 +745,38 @@ class SearchEngine:
             raise ValueError("queries must be non-empty")
         with request("engine.request", batch=len(queries), mode=self.serving_mode):
             t_total = time.perf_counter()
-            with span("engine.embed"):
-                qv = np.stack([np.asarray(embedding_fn(q), np.float32) for q in queries])
+            qv = self._embed(queries, embedding_fn)
             embedding_time = time.perf_counter() - t_total
-            if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
-                raise ValueError(
-                    f"query vector dimension mismatch: expected "
-                    f"{self.info.dimension}, got {qv.shape}"
-                )
             dists, ids, stats = self.search_batch(
                 qv, k=k, l_search=l_search, use_pq_search=use_pq_search
             )
-            return {
-                "results": self._attach_texts_batch(ids, dists),
-                "timing": {
-                    "embedding_time": embedding_time,
-                    "search_time": stats["search_time"],
-                    "total_time": time.perf_counter() - t_total,
-                },
-                "stats": stats,
-            }
+            return self._joined(ids, dists, stats, t_total, embedding_time)
+
+    def _embed(self, texts: list[str], embedding_fn) -> np.ndarray:
+        """The texts' vectors f32 [B, D] (span `engine.embed`); a vector of
+        another dimension than the collection's raises ValueError."""
+        with span("engine.embed"):
+            qv = np.stack([np.asarray(embedding_fn(t), np.float32) for t in texts])
+        if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
+            raise ValueError(
+                f"query vector dimension mismatch: expected "
+                f"{self.info.dimension}, got {qv.shape}"
+            )
+        return qv
+
+    def _joined(self, ids, dists, stats: dict, t_start: float, embedding_time: float) -> dict:
+        """A text search's result dict: the text join of a [B, k] result,
+        its timing from `t_start` and its stats."""
+        results = self._attach_texts_batch(ids, dists)
+        return {
+            "results": results,
+            "timing": {
+                "embedding_time": embedding_time,
+                "search_time": stats["search_time"],
+                "total_time": time.perf_counter() - t_start,
+            },
+            "stats": stats,
+        }
 
     def search_pipelined(
         self,
@@ -848,10 +797,11 @@ class SearchEngine:
         `max_in_flight` are pending. The workers launch nothing on the
         device (a worker's current stream is its own thread's default, not
         the one the main thread enqueued on, so a device call there would
-        race or serialise). Graph
-        modes wait on the device once a traversal round inside the
-        dispatch, so there the overlap is only the drain and the join.
-        An error in a dispatch raises here; one in a worker re-raises from
+        race or serialise). The exact graph search on the card waits on no
+        round (its rounds run in one kernel, `ops/traverse.py`); the PQ- and
+        iq-guided searches run the plain loop, which waits on the device
+        once a round inside the dispatch, so there the overlap is only the
+        drain and the join. An error in a dispatch raises here; one in a worker re-raises from
         its future."""
         import concurrent.futures as cf
         import contextvars
@@ -865,15 +815,7 @@ class SearchEngine:
 
         def finish_and_join(disp, b, ls, t_start, t_emb):
             dists, ids, stats = self._finish_search(disp, b=b, k=k, l_search=ls, t0=t_start)
-            return {
-                "results": self._attach_texts_batch(ids, dists),
-                "timing": {
-                    "embedding_time": t_emb,
-                    "search_time": stats["search_time"],
-                    "total_time": time.perf_counter() - t_start,
-                },
-                "stats": stats,
-            }
+            return self._joined(ids, dists, stats, t_start, t_emb)
 
         pending: deque = deque()
         with cf.ThreadPoolExecutor(max_workers=max(1, max_in_flight)) as ex:
@@ -882,14 +824,8 @@ class SearchEngine:
                 # over; the drain's spans carry its id from the worker
                 with request("engine.request", batch=len(texts), mode=self.serving_mode):
                     t_start = time.perf_counter()
-                    with span("engine.embed"):
-                        qv = np.stack([np.asarray(embedding_fn(t), np.float32) for t in texts])
+                    qv = self._embed(texts, embedding_fn)
                     t_emb = time.perf_counter() - t_start
-                    if qv.ndim != 2 or qv.shape[1] != self.info.dimension:
-                        raise ValueError(
-                            f"query vector dimension mismatch: expected "
-                            f"{self.info.dimension}, got {qv.shape}"
-                        )
                     with span("engine.prep"):
                         q, b, ls = self._prep_queries(qv, k, l_search)
                     with span("engine.dispatch"):
@@ -1107,17 +1043,8 @@ class SearchEngine:
                 "pq_centroids", "pq_kind", "pq_n_coarse", "iq_row_width", "iq_n_cells",
             }
             meta_extra = {k: v for k, v in self.meta.items() if k not in derived}
-            pq_kwargs = {}
-            if self.use_pq and self.pq is not None:
-                # re-encode, so the persisted codes cover the merged rows
-                from diskrag_tpu_torch.pq.residual import ResidualPQ
-
-                if isinstance(self.pq, ResidualPQ):
-                    codes, cids = self.pq.encode(exact.vectors)
-                    pq_kwargs = {"pq": self.pq, "pq_codes": _host(codes),
-                                 "pq_coarse_ids": _host(cids)}
-                else:
-                    pq_kwargs = {"pq": self.pq, "pq_codes": _host(self.pq.encode(exact.vectors))}
+            # re-encode, so the persisted codes cover the merged rows
+            pq_kwargs = {} if self.guide is None else self.guide.encode_artifacts(exact.vectors)
             save_index(self.manager.get_index_dir(self.collection_name), exact,
                        meta_extra=meta_extra, **pq_kwargs)
         return {"n_points": n, "n_buffered_before": n_buf}

@@ -119,19 +119,17 @@ def exact_rerank(
 def _seed_candidates(
     adjacency: torch.Tensor,
     medoid: torch.Tensor,
-    expand_fn,
+    seed_expand_fn,
     batch: int,
     *,
     search_width: int,
     entry_points: torch.Tensor | None = None,
-    seed_expand_fn=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The seeded candidate list (ids int32 [B, L], dists f32 [B, L],
     expanded bool [B, L]): the medoid and the `entry_points` (int32[S],
     unique), scored by `seed_expand_fn(seeds [S]) -> [B, S]` (one shared
-    [S] gather and a dense [B, S] distance) where given, else by
-    `expand_fn`, cut to the L closest; fewer than L seeds are padded with
-    id -1 / +inf, unsorted."""
+    [S] gather and a dense [B, S] distance), cut to the L closest; fewer
+    than L seeds are padded with id -1 / +inf, unsorted."""
     b = batch
     dev = adjacency.device
     medoid = torch.as_tensor(medoid, device=dev).to(torch.int32)
@@ -142,10 +140,7 @@ def _seed_candidates(
             seeds = torch.cat([medoid[None], entry_points.to(device=dev, dtype=torch.int32)])
         s = seeds.shape[0]
         seeds_b = seeds[None, :].expand(b, s)
-        if seed_expand_fn is not None:
-            d0 = seed_expand_fn(seeds.long())
-        else:
-            d0 = expand_fn(seeds_b.long())
+        d0 = seed_expand_fn(seeds.long())
         if s > 1:
             # entry_points are unique (the build guarantees it); only the
             # medoid can repeat — mask those copies
@@ -293,6 +288,7 @@ def _frontier_search(
     adjacency: torch.Tensor,
     medoid: torch.Tensor,
     expand_fn,
+    seed_expand_fn,
     batch: int,
     *,
     search_width: int,
@@ -300,11 +296,11 @@ def _frontier_search(
     max_steps: int,
     expand_width: int = 1,
     entry_points: torch.Tensor | None = None,
-    seed_expand_fn=None,
 ) -> SearchResult:
-    """Shared best-first loop: `_seed_candidates`, then `_plain_rounds`."""
-    seeded = _seed_candidates(adjacency, medoid, expand_fn, batch, search_width=search_width,
-                              entry_points=entry_points, seed_expand_fn=seed_expand_fn)
+    """Shared best-first loop: `_seed_candidates` (seeds scored by
+    `seed_expand_fn`), then `_plain_rounds` (candidates by `expand_fn`)."""
+    seeded = _seed_candidates(adjacency, medoid, seed_expand_fn, batch,
+                              search_width=search_width, entry_points=entry_points)
     return _plain_rounds(adjacency, expand_fn, *seeded, k=k, max_steps=max_steps,
                          expand_width=expand_width)
 
@@ -368,10 +364,9 @@ def beam_search(
         return pairwise_distance(queries, seed_vecs, metric).to(torch.float32)
 
     return _frontier_search(
-        adjacency, medoid, expand, queries.shape[0],
+        adjacency, medoid, expand, seed_expand, queries.shape[0],
         search_width=search_width, k=k, max_steps=max_steps,
         expand_width=expand_width, entry_points=entry_points,
-        seed_expand_fn=seed_expand,
     )
 
 
@@ -483,10 +478,9 @@ def beam_search_pq(
         )
 
     res = _frontier_search(
-        adjacency, medoid, expand, b,
+        adjacency, medoid, expand, seed_expand, b,
         search_width=search_width, k=search_width, max_steps=max_steps,
         expand_width=expand_width, entry_points=entry_points,
-        seed_expand_fn=seed_expand,
     )
     if not rerank:
         return dataclasses.replace(res, ids=res.ids[:, :k], dists=res.dists[:, :k])
@@ -516,7 +510,6 @@ def beam_search_iq(
     metric: str = Metric.L2.value,
     expand_width: int = 1,
     entry_points: torch.Tensor | None = None,
-    onehot_cells: bool = True,
 ) -> SearchResult:
     """Int-quantized graph search: traversal guided by int8 / int4 rows
     (`pq/intq.py`), optionally an exact rerank of beam ∪ visited.
@@ -530,8 +523,6 @@ def beam_search_iq(
         lanes allowed).
       tables: `IQTables` from `IntQuantizer.query_tables(queries)`.
       dim / bits / n_cells: the quantizer's geometry.
-      onehot_cells: accepted for the JAX signature; the cell term is a
-        gather either way (same values, `pq/intq.py::_cell_term`).
     """
     from diskrag_tpu_torch.pq.intq import iq_score_gathered, iq_score_shared
 
@@ -539,17 +530,15 @@ def beam_search_iq(
     b = tables.qw.shape[0]
 
     def expand(ids):
-        return iq_score_gathered(tables, rows[ids], dim=dim, bits=bits, n_cells=n_cells,
-                                 onehot_cells=onehot_cells)
+        return iq_score_gathered(tables, rows[ids], dim=dim, bits=bits, n_cells=n_cells)
 
     def seed_expand(seeds):
         return iq_score_shared(tables, rows[seeds], dim=dim, bits=bits, n_cells=n_cells)
 
     res = _frontier_search(
-        adjacency, medoid, expand, b,
+        adjacency, medoid, expand, seed_expand, b,
         search_width=search_width, k=search_width, max_steps=max_steps,
         expand_width=expand_width, entry_points=entry_points,
-        seed_expand_fn=seed_expand,
     )
     if not rerank:
         return dataclasses.replace(res, ids=res.ids[:, :k], dists=res.dists[:, :k])

@@ -4,10 +4,11 @@ on-disk records, reference vamana_graph.py:719-760 +
 io/diskann_persist.py:209-235).
 
 Memory layout:
-  - device: adjacency int32[N, R] and a compressed traversal form — PQ
-    codes uint8[N, m] (`mode="pq"`, the ADC lookup by id, kernel B5, once a
-    round), IntQuantizer int8 rows (`mode="iq"`, `pq/intq.py`, plain
-    PyTorch) or bfloat16 vectors (`mode="bf16"`);
+  - device: adjacency int32[N, R] and a compressed traversal form — a
+    guide (`graph/guided.py`): PQ codes uint8[N, m] (`mode="pq"`, the ADC
+    lookup by id, kernel B5, once a round) or IntQuantizer int8 rows
+    (`mode="iq"`, `pq/intq.py`, plain PyTorch); or bfloat16 vectors
+    (`mode="bf16"`);
   - host: the float32 vectors in the packed record file (`index.dat`),
     read by the native batched reader (`diskrag_tpu_torch.native`);
   - a query batch: compressed-guided traversal on the device -> candidate
@@ -38,7 +39,8 @@ import numpy as np
 import torch
 
 from diskrag_tpu_torch.device import resolve_device
-from diskrag_tpu_torch.graph.search import beam_search, beam_search_iq, beam_search_pq
+from diskrag_tpu_torch.graph.guided import Guide, load_guide, traversal_mode
+from diskrag_tpu_torch.graph.search import beam_search
 from diskrag_tpu_torch.native import RecordReader
 from diskrag_tpu_torch.ops.topk import INVALID_ID
 from diskrag_tpu_torch.utils.profiling import count, span
@@ -122,19 +124,19 @@ class HostTierIndex:
     adjacency: torch.Tensor   # [N, R] on the device
     medoid: torch.Tensor
     reader: RecordReader      # host-side full vectors
-    mode: str = "pq"          # "pq" | "iq" | "bf16"
-    codes: torch.Tensor | None = None   # [N, m] uint8 (pq) / [N, rw] int8 (iq)
-    pq: object | None = None            # ProductQuantizer / ResidualPQ / IntQuantizer
+    guide: Guide | None = None  # pq / iq traversal; None: bf16
     vectors_bf16: torch.Tensor | None = None   # [N, D] bf16 (bf16 mode)
     metric: str = "l2"
     entry_points: torch.Tensor | None = None   # [S] extra search seeds
-    # residual-PQ serving aux (pq/residual.py): +8 bytes a point
-    pq_cells: torch.Tensor | None = None       # int32 [N]
-    pq_bias: torch.Tensor | None = None        # f32 [N]
 
     @property
     def device(self) -> torch.device:
         return self.adjacency.device
+
+    @property
+    def mode(self) -> str:
+        """"pq" | "iq" | "bf16"."""
+        return "bf16" if self.guide is None else self.guide.mode
 
     @classmethod
     def from_store(
@@ -154,8 +156,7 @@ class HostTierIndex:
         to the device: device memory peaks at exactly N * D * 2 bytes; the
         f32 master stays on the host, read through the record file for
         the rerank."""
-        from diskrag_tpu_torch.index.persist import IndexStore, load_pq_aux
-        from diskrag_tpu_torch.pq.residual import ResidualPQ, pq_from_arrays
+        from diskrag_tpu_torch.index.persist import IndexStore
 
         dev = resolve_device(device)
         store = IndexStore(index_dir)
@@ -165,34 +166,7 @@ class HostTierIndex:
                 f"host-tier mode needs the packed record file {store.compat_path} "
                 "(save with write_compat=True)"
             )
-        metric = meta.get("distance_metric", "l2")
-        pq_kind = meta.get("pq_kind", "plain")
-        if mode is None:
-            # ADC / iq scores rank by squared L2 only: never auto-pick a
-            # traversal that ranks by the wrong metric
-            if store.pq_model_path.exists() and metric == "l2":
-                mode = "iq" if pq_kind.startswith("int") else "pq"
-            else:
-                mode = "bf16"
-        if mode in ("pq", "iq") and metric != "l2":
-            raise ValueError(
-                f"host-tier {mode} traversal is L2-only (quantized scores "
-                f"rank by squared L2); this index uses metric={metric!r} — "
-                "serve it in bf16 mode, or normalize the vectors and build "
-                "with metric='l2' for angular data"
-            )
-        if mode == "pq" and pq_kind.startswith("int"):
-            raise ValueError(
-                f"host-tier pq traversal cannot score pq_kind={pq_kind!r} "
-                "(IntQuantizer rows) — use mode='iq' (or None for auto)"
-            )
-        if mode == "iq" and not pq_kind.startswith("int"):
-            raise ValueError(
-                f"host-tier iq traversal needs IntQuantizer artifacts; "
-                f"this index has pq_kind={pq_kind!r} — use mode='pq'"
-            )
-        if mode not in ("pq", "iq", "bf16"):
-            raise ValueError(f"unknown host-tier mode: {mode}")
+        mode = traversal_mode(store, meta, mode)
         if mode == "bf16" and not store.vectors_path.exists():
             # bf16 mode reads the f32 master from vectors.npy (the record
             # file interleaves it with neighbour ids)
@@ -206,25 +180,12 @@ class HostTierIndex:
             cache_capacity=cache_capacity,
         )
         adjacency = torch.as_tensor(np.load(store.adjacency_path), device=dev)
-        pq = codes = vec_bf16 = pq_cells = pq_bias = None
-        if mode in ("pq", "iq"):
-            with np.load(store.pq_model_path) as z:
-                pq = pq_from_arrays(dict(z), device=dev)
-            codes_np = np.load(store.pq_codes_path)
-            if mode == "iq" and gather_pad:
-                from diskrag_tpu_torch.pq.intq import pad_rows_for_gather
-
-                codes_np = pad_rows_for_gather(codes_np)
-            codes = torch.as_tensor(codes_np, device=dev)
-            if isinstance(pq, ResidualPQ):
-                cells, bias = load_pq_aux(store, expect_n=int(codes.shape[0]))
-                if cells is None:
-                    raise FileNotFoundError(
-                        f"residual-PQ host tier needs {store.pq_aux_path} "
-                        "(written by save_pq_artifacts; rebuild the index)"
-                    )
-                pq_cells = torch.as_tensor(cells, device=dev).to(torch.int32)
-                pq_bias = torch.as_tensor(bias, device=dev).to(torch.float32)
+        guide = vec_bf16 = None
+        if mode != "bf16":
+            guide = load_guide(store, device=dev)
+            if gather_pad:
+                guide = guide.gather_padded()
+            guide = guide.to(dev)
         else:
             vecs = np.load(store.vectors_path, mmap_mode="r")
             host_bf16 = torch.empty(vecs.shape, dtype=torch.bfloat16)
@@ -237,8 +198,8 @@ class HostTierIndex:
         return cls(
             adjacency=adjacency,
             medoid=torch.as_tensor(int(meta["medoid_idx"]), dtype=torch.int32, device=dev),
-            reader=reader, mode=mode, codes=codes, pq=pq,
-            pq_cells=pq_cells, pq_bias=pq_bias, vectors_bf16=vec_bf16, metric=metric,
+            reader=reader, guide=guide, vectors_bf16=vec_bf16,
+            metric=meta.get("distance_metric", "l2"),
             entry_points=None if eps is None else torch.as_tensor(
                 np.asarray(eps, np.int32), device=dev),
         )
@@ -246,31 +207,18 @@ class HostTierIndex:
     def device_bytes(self) -> int:
         """Bytes the tier holds on its device (graph, traversal form,
         seeds, residual aux)."""
+        guide = () if self.guide is None else self.guide.arrays()
         return sum(int(t.numel() * t.element_size()) for t in (
-            self.adjacency, self.codes, self.vectors_bf16, self.entry_points,
-            self.pq_cells, self.pq_bias) if t is not None)
+            self.adjacency, self.vectors_bf16, self.entry_points, *guide) if t is not None)
 
     def _traverse(self, q: torch.Tensor, *, search_width: int, expand_width: int):
         """One traversal of a query chunk on the device: (SearchResult,
         pool [B, P] = beam ∪ visited, still on the device)."""
-        if self.mode == "iq":
-            res = beam_search_iq(
-                self.codes, self.pq.query_tables(q), self.adjacency, self.medoid,
-                dim=self.pq.dim, bits=self.pq.bits, n_cells=self.pq.n_cells,
+        if self.guide is not None:
+            res = self.guide.search(
+                self.guide.tables(q), self.adjacency, self.medoid,
                 search_width=search_width, k=search_width, rerank=False,
                 expand_width=expand_width, entry_points=self.entry_points,
-            )
-        elif self.mode == "pq":
-            if self.pq_cells is not None:  # residual PQ (pq/residual.py)
-                tables = self.pq.inner_tables(q)
-                aux = {"point_cell": self.pq_cells, "point_bias": self.pq_bias,
-                       "cell_tables": self.pq.cell_tables(q)}
-            else:
-                tables, aux = self.pq.compute_distance_tables(q), {}
-            res = beam_search_pq(
-                self.codes, tables, self.adjacency, self.medoid,
-                search_width=search_width, k=search_width, rerank=False,
-                expand_width=expand_width, entry_points=self.entry_points, **aux,
             )
         else:
             res = beam_search(

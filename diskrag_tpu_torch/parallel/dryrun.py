@@ -20,11 +20,9 @@ import torch
 
 def dryrun_multichip(devices: list) -> dict:
     from diskrag_tpu_torch.graph.build import random_regular_init
+    from diskrag_tpu_torch.graph.guided import Guide
     from diskrag_tpu_torch.ops.medoid import approximate_medoid
-    from diskrag_tpu_torch.parallel.host_tier import (
-        _sharded_pool_impl,
-        _sharded_pool_pq_impl,
-    )
+    from diskrag_tpu_torch.parallel.host_tier import ShardedHostTier
     from diskrag_tpu_torch.parallel.mesh import make_mesh, place
     from diskrag_tpu_torch.parallel.sharded import (
         ShardedIndex,
@@ -78,25 +76,23 @@ def dryrun_multichip(devices: list) -> dict:
         raise AssertionError(f"flat: {tuple(fids.shape)}")
     out["flat"] = list(fids.shape)
 
-    # the host tier's pool step: bf16, PQ and residual-PQ traversal
-    common = (index.adjacency, index.medoids, index.global_ids, None)
-    kw = dict(search_width=16, k=16, max_steps=16, expand_width=2, mesh=mesh)
-    pool, rounds, _ = _sharded_pool_impl(v16, *common, queries, metric="l2", **kw)
-    out["pool_bf16"] = {"shape": list(pool.shape), "rounds": rounds}
+    # the host tier's pool step: bf16, PQ and residual-PQ traversal (no
+    # record file: the pool step reads none)
     flat = vecs.reshape(-1, d)
     pq = ProductQuantizer(n_subvectors=4, device=dev).fit(flat, seed=0, max_iter=4)
-    codes = pq.encode(flat).cpu().numpy().reshape(n_shards, ns, -1)
-    pool, rounds, _ = _sharded_pool_pq_impl(place(codes, mesh), pq.compute_distance_tables(queries),
-                                            *common, **kw)
-    out["pool_pq"] = {"shape": list(pool.shape), "rounds": rounds}
     rpq = ResidualPQ(n_subvectors=4, n_coarse=32, device=dev).fit(flat, seed=0)
     rcodes, rcids = rpq.encode(flat)
-    bias = rpq.point_bias(rcodes, rcids)
-    pool, rounds, _ = _sharded_pool_pq_impl(
-        place(rcodes.cpu().numpy().reshape(n_shards, ns, -1), mesh), rpq.inner_tables(queries),
-        *common, place(rcids.cpu().numpy().reshape(n_shards, ns), mesh),
-        place(bias.cpu().numpy().reshape(n_shards, ns), mesh), rpq.cell_tables(queries), **kw)
-    out["pool_residual_pq"] = {"shape": list(pool.shape), "rounds": rounds}
+    rguide = Guide(rpq, rcodes, rcids, rpq.point_bias(rcodes, rcids))
+    for key, guide in (("pool_bf16", None), ("pool_pq", Guide(pq, pq.encode(flat))),
+                       ("pool_residual_pq", rguide)):
+        # a guide's global arrays are regathered per shard through the global ids
+        tier = ShardedHostTier(
+            vectors_bf16=v16 if guide is None else None, adjacency=index.adjacency,
+            medoids=index.medoids, global_ids=index.global_ids, reader=None, mesh=mesh,
+            guide=None if guide is None else guide.regather(gids, None).map(
+                lambda a: place(a, mesh)))
+        pool, rounds, _ = tier._pool(queries, search_width=16, max_steps=16, expand_width=2)
+        out[key] = {"shape": list(pool.shape), "rounds": rounds}
     for key in ("pool_bf16", "pool_pq", "pool_residual_pq"):
         if out[key]["shape"][0] != 8 * n_data:
             raise AssertionError(f"{key}: {out[key]['shape']}")

@@ -4,11 +4,11 @@ traversal copy on its device, the f32 vectors in the host record file,
 the per-shard candidate pools merged.
 
 Query flow:
-  1. device: every shard traverses its local graph (bf16 vectors, PQ codes
-     with the ADC lookup by id, kernel B5, once a round, or IntQuantizer
-     rows), globalizes its candidate pool (beam ∪ visited) and the pools
-     are concatenated in shard order: one [B, S * P] int32 tensor, no
-     vectors cross devices;
+  1. device: every shard traverses its local graph (bf16 vectors, or a
+     guide, `graph/guided.py`: PQ codes with the ADC lookup by id, kernel
+     B5, once a round, or IntQuantizer rows), globalizes its candidate
+     pool (beam ∪ visited) and the pools are concatenated in shard order:
+     one [B, S * P] int32 tensor, no vectors cross devices;
   2. host: one exact rerank over the pooled ids against the f32 record
      file (`index.host_tier.exact_rerank_pool`).
 
@@ -26,12 +26,14 @@ import time
 import numpy as np
 import torch
 
+from diskrag_tpu_torch.graph.guided import Guide
+from diskrag_tpu_torch.graph.search import beam_search
 from diskrag_tpu_torch.index.host_tier import exact_rerank_pool
 from diskrag_tpu_torch.native import RecordReader
 from diskrag_tpu_torch.ops.distance import Metric
 from diskrag_tpu_torch.ops.topk import INVALID_ID
 from diskrag_tpu_torch.parallel.mesh import Mesh, PlacedShards, place
-from diskrag_tpu_torch.parallel.sharded import ShardedIndex, _host, _pad_batch, _stacked
+from diskrag_tpu_torch.parallel.sharded import ShardedIndex, _pad_batch, _stacked
 
 
 def _local_pool(res, gid: torch.Tensor) -> torch.Tensor:
@@ -64,78 +66,6 @@ def _pool_over_mesh(mesh: Mesh, b: int, global_ids: PlacedShards, traverse):
     return torch.cat(out), rounds, expanded
 
 
-def _sharded_pool_impl(vectors_bf16, adjacency, medoids, global_ids, entry_points, queries, *,
-                       search_width: int, k: int, max_steps: int, expand_width: int,
-                       metric: str, mesh: Mesh):
-    """Per-shard bf16 traversal -> the concatenated global candidate pools:
-    (int32 [B, S * (k + visited log)], rounds, nodes expanded)."""
-    from diskrag_tpu_torch.graph.search import beam_search
-
-    def traverse(i, j, rows, dev):
-        return beam_search(
-            vectors_bf16.blocks[i][j], adjacency.blocks[i][j], medoids.blocks[i][j],
-            queries[rows].to(dev), search_width=search_width, k=k, max_steps=max_steps,
-            metric=metric, expand_width=expand_width,
-            entry_points=None if entry_points is None else entry_points.blocks[i][j],
-        )
-
-    return _pool_over_mesh(mesh, queries.shape[0], global_ids, traverse)
-
-
-def _sharded_pool_pq_impl(codes, tables, adjacency, medoids, global_ids, entry_points,
-                          pq_cells=None, pq_bias=None, cell_tables=None, *, search_width: int,
-                          k: int, max_steps: int, expand_width: int, mesh: Mesh):
-    """PQ twin of `_sharded_pool_impl`: traversal guided by per-query ADC
-    tables [B, m, 256] over each shard's uint8 codes, one call of B5 by id
-    a round and shard (`graph.search.beam_search_pq`). With a residual PQ
-    pass the inner tables and all three aux operands (pq_cells int32
-    [S, Ns], pq_bias f32 [S, Ns] placed like the codes, cell_tables
-    [B, C]). The tables were computed on the whole batch; each data row
-    takes its rows."""
-    from diskrag_tpu_torch.graph.search import beam_search_pq
-
-    residual = pq_cells is not None
-
-    def traverse(i, j, rows, dev):
-        aux = {}
-        if residual:
-            aux = {"point_cell": pq_cells.blocks[i][j], "point_bias": pq_bias.blocks[i][j],
-                   "cell_tables": cell_tables[rows].to(dev)}
-        return beam_search_pq(
-            codes.blocks[i][j], tables[rows].to(dev), adjacency.blocks[i][j],
-            medoids.blocks[i][j], search_width=search_width, k=k, max_steps=max_steps,
-            rerank=False, expand_width=expand_width,
-            entry_points=None if entry_points is None else entry_points.blocks[i][j], **aux,
-        )
-
-    return _pool_over_mesh(mesh, tables.shape[0], global_ids, traverse)
-
-
-def _sharded_pool_iq_impl(codes, tables, adjacency, medoids, global_ids, entry_points, *,
-                          search_width: int, k: int, max_steps: int, expand_width: int,
-                          mesh: Mesh, dim: int, bits: int, n_cells: int):
-    """iq twin of `_sharded_pool_pq_impl`: traversal guided by each shard's
-    IntQuantizer int8 rows (`graph.search.beam_search_iq`, plain PyTorch);
-    `tables` (IQTables of the whole batch) are split over the data rows."""
-    from diskrag_tpu_torch.graph.search import beam_search_iq
-    from diskrag_tpu_torch.pq.intq import IQTables
-
-    def traverse(i, j, rows, dev):
-        t = IQTables(
-            qw=tables.qw[rows].to(dev), qn=tables.qn[rows].to(dev),
-            cell_t=None if tables.cell_t is None else tables.cell_t[rows].to(dev),
-            bias_lo=tables.bias_lo.to(dev), bias_scale=tables.bias_scale.to(dev),
-        )
-        return beam_search_iq(
-            codes.blocks[i][j], t, adjacency.blocks[i][j], medoids.blocks[i][j],
-            dim=dim, bits=bits, n_cells=n_cells, search_width=search_width, k=k,
-            max_steps=max_steps, rerank=False, expand_width=expand_width,
-            entry_points=None if entry_points is None else entry_points.blocks[i][j],
-        )
-
-    return _pool_over_mesh(mesh, tables.qw.shape[0], global_ids, traverse)
-
-
 def _pad_rows(index: ShardedIndex, pad_mask: np.ndarray) -> np.ndarray:
     """The f32 vectors of the wrap-around pad rows (at most S - 1), read
     alone: never the whole [S, Ns, D] set."""
@@ -151,9 +81,10 @@ class ShardedHostTier:
     """Sharded compressed-traversal tier + host-resident f32 rerank.
 
     mode "bf16": bf16 vectors per shard on the device (2 * D bytes a
-    node). "pq": uint8 PQ codes per shard (m bytes a node; B5 by id once a
-    round and shard). "iq": IntQuantizer int8 rows per shard (row_width
-    bytes a node, plain PyTorch)."""
+    node). "pq" and "iq": a guide over `PlacedShards` — uint8 PQ codes per
+    shard (m bytes a node; B5 by id once a round and shard), a residual
+    PQ's cells and biases beside them, or IntQuantizer int8 rows
+    (row_width bytes a node, plain PyTorch)."""
 
     vectors_bf16: PlacedShards | None   # [S, Ns, D] bf16 (bf16 mode)
     adjacency: PlacedShards             # [S, Ns, R]
@@ -163,15 +94,16 @@ class ShardedHostTier:
     mesh: Mesh
     metric: str = Metric.L2.value
     entry_points: PlacedShards | None = None
-    mode: str = "bf16"                  # "bf16" | "pq" | "iq"
-    codes: PlacedShards | None = None   # [S, Ns, m] uint8 (pq) / [S, Ns, W] int8 (iq)
-    pq: object | None = None            # ProductQuantizer | ResidualPQ | IntQuantizer
-    pq_cells: PlacedShards | None = None  # residual-PQ aux: int32 [S, Ns]
-    pq_bias: PlacedShards | None = None   # f32 [S, Ns]
+    guide: Guide | None = None          # over PlacedShards [S, Ns, ...]; None: bf16
 
     @property
     def n_shards(self) -> int:
         return int(self.adjacency.shape[0])
+
+    @property
+    def mode(self) -> str:
+        """"bf16" | "pq" | "iq"."""
+        return "bf16" if self.guide is None else self.guide.mode
 
     @classmethod
     def from_sharded_index(
@@ -207,79 +139,42 @@ class ShardedHostTier:
                 "build with metric='l2'"
             )
         gids = _stacked(index.global_ids)
-        safe_gids = np.clip(gids, 0, None)
-        pad_mask = gids < 0
-        if mode == "iq":
-            from diskrag_tpu_torch.pq.intq import pad_rows_for_gather
-
-            shard_rows = np.asarray(_host(codes), np.int8)[safe_gids]
-            if pad_mask.any():
-                shard_rows[pad_mask] = np.asarray(_host(pq.encode(_pad_rows(index, pad_mask))))
-            # the single-card tier's 256-byte gather pad
-            shard_rows = pad_rows_for_gather(shard_rows)
-            return cls(vectors_bf16=None, mode="iq", codes=place(shard_rows, mesh), pq=pq,
-                       **common)
-        from diskrag_tpu_torch.pq.residual import ResidualPQ
-
-        residual = isinstance(pq, ResidualPQ)
-        if residual and (pq_cells is None or pq_bias is None):
-            raise ValueError("residual pq mode needs global pq_cells + pq_bias "
-                             "(index/persist.py load_pq_aux)")
-        shard_codes = np.asarray(_host(codes), np.uint8)[safe_gids]
-        shard_cells = shard_bias = None
-        if residual:
-            shard_cells = np.asarray(_host(pq_cells), np.int32)[safe_gids]
-            shard_bias = np.asarray(_host(pq_bias), np.float32)[safe_gids]
-        if pad_mask.any():
-            # pad rows are wrap-around copies of real points: encode their
-            # own vectors so traversal through them ranks right (their -1
-            # global id still keeps them out of the pool)
-            pad_vecs = _pad_rows(index, pad_mask)
-            if residual:
-                pad_codes, pad_cids = pq.encode(pad_vecs)
-                shard_codes[pad_mask] = _host(pad_codes)
-                shard_cells[pad_mask] = _host(pad_cids)
-                shard_bias[pad_mask] = _host(pq.point_bias(pad_codes, pad_cids))
-            else:
-                shard_codes[pad_mask] = _host(pq.encode(pad_vecs))
-        return cls(
-            vectors_bf16=None, mode="pq", codes=place(shard_codes, mesh), pq=pq,
-            pq_cells=None if shard_cells is None else place(shard_cells, mesh),
-            pq_bias=None if shard_bias is None else place(shard_bias, mesh),
-            **common,
-        )
+        guide = Guide(pq, codes, pq_cells, pq_bias).regather(
+            gids, lambda: _pad_rows(index, gids < 0))
+        return cls(vectors_bf16=None, guide=guide.map(lambda a: place(a, mesh)), **common)
 
     def device_bytes(self) -> dict[str, int]:
         """Bytes the tier holds on each device (graph, traversal copy,
         seeds, ids, residual aux)."""
         out: dict[str, int] = {}
+        guide = () if self.guide is None else self.guide.arrays()
         for p in (self.adjacency, self.medoids, self.global_ids, self.entry_points,
-                  self.vectors_bf16, self.codes, self.pq_cells, self.pq_bias):
+                  self.vectors_bf16, *guide):
             if p is not None:
                 for dev, nb in p.nbytes_by_device().items():
                     out[dev] = out.get(dev, 0) + nb
         return out
 
     def _pool(self, q: torch.Tensor, *, search_width: int, max_steps: int, expand_width: int):
-        """One traversal of a batch padded to the data axis: (pool [B, S*P]
-        on the mesh's first device, rounds, nodes expanded). The query
-        tables are computed on the whole batch, then split over the data
-        rows."""
+        """One traversal of a batch padded to the data axis: every shard
+        traverses its graph over its bf16 rows, or over its block of the
+        guide (B5 by id once a round and shard, or int rows) from the query
+        tables of the whole batch split over the data rows. Returns (pool
+        [B, S*P] on the mesh's first device, rounds, nodes expanded)."""
         kw = dict(search_width=search_width, k=search_width, max_steps=max_steps,
-                  expand_width=expand_width, mesh=self.mesh)
-        common = (self.adjacency, self.medoids, self.global_ids, self.entry_points)
-        if self.mode == "iq":
-            return _sharded_pool_iq_impl(
-                self.codes, self.pq.query_tables(q), *common, dim=self.pq.dim,
-                bits=self.pq.bits, n_cells=self.pq.n_cells, **kw)
-        if self.mode == "pq":
-            if self.pq_cells is not None:  # residual PQ (pq/residual.py)
-                tables = self.pq.inner_tables(q)
-                aux = (self.pq_cells, self.pq_bias, self.pq.cell_tables(q))
-            else:
-                tables, aux = self.pq.compute_distance_tables(q), (None, None, None)
-            return _sharded_pool_pq_impl(self.codes, tables.contiguous(), *common, *aux, **kw)
-        return _sharded_pool_impl(self.vectors_bf16, *common, q, metric=self.metric, **kw)
+                  expand_width=expand_width)
+        tables = None if self.guide is None else self.guide.tables(q)
+
+        def traverse(i, j, rows, dev):
+            graph = (self.adjacency.blocks[i][j], self.medoids.blocks[i][j])
+            ep = None if self.entry_points is None else self.entry_points.blocks[i][j]
+            if tables is None:
+                return beam_search(self.vectors_bf16.blocks[i][j], *graph, q[rows].to(dev),
+                                   metric=self.metric, entry_points=ep, **kw)
+            return self.guide.block(i, j).search(tables.take(rows, dev), *graph, rerank=False,
+                                                 entry_points=ep, **kw)
+
+        return _pool_over_mesh(self.mesh, q.shape[0], self.global_ids, traverse)
 
     def _pool_to_host(self, q_np: np.ndarray, *, search_width: int, max_steps: int,
                       expand_width: int):

@@ -105,15 +105,6 @@ def pad_rows_for_gather(rows: np.ndarray, min_bytes: int = 256) -> np.ndarray:
     return np.pad(np.asarray(rows), [(0, 0)] * (rows.ndim - 1) + [(0, min_bytes - w)])
 
 
-def _cell_term(cell_t: torch.Tensor, cid: torch.Tensor, onehot: bool) -> torch.Tensor:
-    """cell_t [B, C], cid [B, Cand] -> [B, Cand]. The JAX package offers a
-    one-hot compare-select-reduce in place of the gather (a TPU lever);
-    one nonzero among zeros sums exactly, so both give the gather's values
-    and the port always gathers (`onehot` is accepted for the signature)."""
-    del onehot
-    return torch.gather(cell_t, 1, cid)
-
-
 def iq_score_gathered(
     tables: IQTables,
     rows: torch.Tensor,
@@ -121,17 +112,19 @@ def iq_score_gathered(
     dim: int,
     bits: int,
     n_cells: int,
-    onehot_cells: bool = True,
 ) -> torch.Tensor:
     """Score per-query gathered rows: rows int8 [B, Cand, W] -> [B, Cand]
     approximate squared L2 distances (the exact distance to the decoded
-    point, up to the 16-bit bias quantization)."""
+    point, up to the 16-bit bias quantization). The cell term is a gather:
+    the JAX package's one-hot compare-select-reduce in its place (a TPU
+    lever, `onehot_cells`) sums one nonzero among zeros, so gives the
+    same values."""
     z, cid, bias_q = _unpack_rows(rows, dim, bits, n_cells)
     cross = torch.bmm(z, tables.qw[:, :, None])[..., 0]
     out = tables.qn[:, None] - 2.0 * cross
     out = out + bias_q * tables.bias_scale + tables.bias_lo
     if n_cells > 0:
-        out = out + _cell_term(tables.cell_t, cid, onehot_cells)
+        out = out + torch.gather(tables.cell_t, 1, cid)
     return out
 
 

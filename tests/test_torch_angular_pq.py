@@ -86,10 +86,12 @@ def test_pq_accelerated_answers_are_the_angular_reference(data, built):
     assert recall_at_k(ids, gt, K) >= 0.9
 
     qt = torch.from_numpy(q)
-    tables, aux = eng._pq_serving_tables(qt)
+    g = eng.guide
     index = eng.index
-    res = beam_search_pq(eng.codes_t, tables, index.adjacency, index.medoid, search_width=L, k=L,
-                         rerank=False, expand_width=E, entry_points=index.entry_points, **aux)
+    res = beam_search_pq(g.codes, g.pq.inner_tables(qt), index.adjacency, index.medoid,
+                         search_width=L, k=L, rerank=False, expand_width=E,
+                         entry_points=index.entry_points, point_cell=g.cells, point_bias=g.bias,
+                         cell_tables=g.pq.cell_tables(qt))
     f32 = exact_rerank(eng.index.vectors, qt, res, K)
     assert np.array_equal(f32.ids.numpy(), ids)
     bf16 = exact_rerank(eng.index.vectors.to(torch.bfloat16), qt, res, K)
@@ -173,12 +175,13 @@ def test_an_index_without_an_expand_width_is_served_as_before(data, built, kind)
     index = eng.index
     common = dict(search_width=L, k=K, rerank=True, vectors=index.vectors, queries=q,
                   metric=index.metric, entry_points=index.entry_points)
+    g, pq = eng.guide, eng.guide.pq
     if kind == "rpq":
-        tables, aux = eng._pq_serving_tables(q)
-        res = beam_search_pq(eng.codes_t, tables, index.adjacency, index.medoid, **common, **aux)
+        res = beam_search_pq(g.codes, pq.inner_tables(q), index.adjacency, index.medoid,
+                             **common, point_cell=g.cells, point_bias=g.bias,
+                             cell_tables=pq.cell_tables(q))
     else:
-        pq = eng.pq
-        res = beam_search_iq(eng.codes_t, pq.query_tables(q), index.adjacency, index.medoid,
+        res = beam_search_iq(g.codes, pq.query_tables(q), index.adjacency, index.medoid,
                              dim=pq.dim, bits=pq.bits, n_cells=pq.n_cells, **common)
     assert stats["expand_width"] == 1
     assert np.array_equal(ids, res.ids.numpy())

@@ -143,9 +143,10 @@ def test_search_on_a_jax_built_index_matches_jax(mode, jax_dirs, queries, gt):
     theirs = JaxHostTier.from_store(index_dir, mode=None if mode != "bf16" else mode)
     kind, mode = mode, MODES[mode]
     if kind == "rpq64":
-        assert ours.codes.shape[1] == 64 and ours.pq_cells is not None
+        assert ours.guide.codes.shape[1] == 64 and ours.guide.cells is not None
     if kind == "iq4c":
-        assert ours.pq.bits == theirs.pq.bits == 4 and ours.pq.n_cells == theirs.pq.n_cells > 0
+        assert (ours.guide.pq.bits == theirs.pq.bits == 4
+                and ours.guide.pq.n_cells == theirs.pq.n_cells > 0)
     assert ours.mode == theirs.mode == mode and ours.reader.is_native
     d1, i1, s1 = ours.search(queries, **kw)
     d2, i2, s2 = theirs.search(queries, **kw)
@@ -156,7 +157,7 @@ def test_search_on_a_jax_built_index_matches_jax(mode, jax_dirs, queries, gt):
     assert s1["rounds"] > 0 and set(s1["stage_ms"]) == set(s2["stage_ms"])
     assert recall_at_k(i1, gt, 10) >= 0.85
     if mode == "iq":  # the 256-byte gather pad, as the JAX tier holds it
-        assert ours.codes.shape[1] == np.asarray(theirs.codes).shape[1] == 256
+        assert ours.guide.codes.shape[1] == np.asarray(theirs.codes).shape[1] == 256
     assert ours.device_bytes() > 0
 
 

@@ -149,10 +149,12 @@ def test_scores_match_jax(bits, n_cells, data, fitted):
     got = iq_score_shared(tt, torch.as_tensor(rows), **geo).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
     ids = np.random.default_rng(1).integers(0, len(pts), size=(len(q), 37))
+    # the port gathers the cell term; the JAX package's one-hot reduce in
+    # its place gives the same values
+    got = iq_score_gathered(tt, torch.as_tensor(rows[ids]), **geo)
     for onehot in (True, False):
         want = np.asarray(jax_score_gathered(jt, jnp.asarray(rows)[jnp.asarray(ids)],
                                              onehot_cells=onehot, **geo))
-        got = iq_score_gathered(tt, torch.as_tensor(rows[ids]), onehot_cells=onehot, **geo)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
     # the dense oracle path of the quantizer itself
     np.testing.assert_allclose(

@@ -29,6 +29,7 @@ import diskrag_tpu_torch.tools.verify_index, diskrag_tpu_torch.tools.perf_test
 import diskrag_tpu_torch.tools.dataset_benchmark
 import diskrag_tpu_torch.graph, diskrag_tpu_torch.graph.types, diskrag_tpu_torch.graph.search
 import diskrag_tpu_torch.graph.prune, diskrag_tpu_torch.graph.knn_build
+import diskrag_tpu_torch.graph.guided
 import diskrag_tpu_torch.pq, diskrag_tpu_torch.pq.kmeans, diskrag_tpu_torch.pq.adaptive
 import diskrag_tpu_torch.pq.product_quantizer, diskrag_tpu_torch.pq.residual
 import diskrag_tpu_torch.pq.intq, diskrag_tpu_torch.native, diskrag_tpu_torch.index.host_tier

@@ -78,7 +78,7 @@ def test_engine_serves_sharded_index(built, clustered_data, mode):
         assert stats["rounds"] > 0 and stats["n_shards"] == 4
     if mode == "host_tier":
         assert stats["mode"] == "pq" and out["results"][0]["distance"] < 1e-3
-        assert eng.host_tier.pq_cells is not None  # the default build's residual PQ
+        assert eng.host_tier.guide.cells is not None  # the default build's residual PQ
     assert eng.get_search_statistics()["total_searches"] == 6
 
 

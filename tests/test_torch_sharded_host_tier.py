@@ -95,10 +95,14 @@ def test_from_sharded_index_regathers_the_jax_operands(tiers):
     cells and biases, graph and ids: bit for bit the JAX tier's."""
     mode, jtier, carried, own = tiers
     assert own.mode == jtier.mode and own.n_shards == 4
-    for name in ("adjacency", "medoids", "global_ids", "entry_points", "codes", "pq_cells",
-                 "pq_bias"):
+    # the JAX tier's traversal fields, and where the port's guide holds each
+    guided = {"codes": "codes", "pq_cells": "cells", "pq_bias": "bias"}
+    for name in ("adjacency", "medoids", "global_ids", "entry_points", *guided):
         theirs = getattr(jtier, name)
-        ours = getattr(own, name)
+        if name not in guided:
+            ours = getattr(own, name)
+        else:
+            ours = None if own.guide is None else getattr(own.guide, guided[name])
         assert (theirs is None) == (ours is None), name
         if theirs is None:
             continue

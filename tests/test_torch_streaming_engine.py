@@ -126,7 +126,7 @@ def test_flush_then_both_packages_serve_the_inserted_rows(tmp_path, pq):
         _, got, stats = e.search_batch(extra[:6], k=1, use_pq_search=False)
         np.testing.assert_array_equal(got[:, 0], np.arange(N0, N0 + 6))
     if pq == "int8":
-        assert port.codes.shape[0] == N0 + 6 and port.search_batch(extra[:2], k=1)[2][
+        assert port.guide.codes.shape[0] == N0 + 6 and port.search_batch(extra[:2], k=1)[2][
             "search_type"] == "iq_accelerated"
 
 

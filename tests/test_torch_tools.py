@@ -236,7 +236,7 @@ def test_doctor_preserves_pq_kind(tmp_path):
     assert json.loads((index_dir / "meta.json").read_text())["pq_kind"] == "residual"
     assert (index_dir / "pq_aux.npz").exists()
     eng = SearchEngine("c", base_dir=base, device="cpu")
-    assert eng.use_pq and eng.pq_cells_t is not None
+    assert eng.use_pq and eng.guide.cells is not None
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
@@ -257,7 +257,8 @@ def test_doctor_refuses_quantizer_kinds_the_port_cannot_retrain(kind, tmp_path):
     assert meta["pq_kind"] == kind and meta["iq_n_cells"] == (0 if kind == "int8" else 23)
     assert not (mgr.get_index_dir("c") / "pq_aux.npz").exists()
     eng = SearchEngine("c", base_dir=base, device="cpu")
-    assert isinstance(eng.pq, IntQuantizer) and eng.codes.shape == (1500, meta["iq_row_width"])
+    assert (isinstance(eng.guide.pq, IntQuantizer)
+            and eng.guide.codes.shape == (1500, meta["iq_row_width"]))
     q = np.random.default_rng(3).normal(size=(4, 64)).astype(np.float32)
     assert eng.search_batch(q, k=5)[2]["search_type"] == "iq_accelerated"
 

@@ -277,8 +277,8 @@ def _both(vectors, adjacency, medoid, queries, *, width, e, entry_points, k, max
         return pairwise_distance(queries, vectors[seeds], "l2")
 
     steps = tsearch._default_steps(width, e, k, max_steps)
-    plain = tsearch._frontier_search(adjacency, medoid, expand, queries.shape[0],
-                                     max_steps=steps, seed_expand_fn=seed_expand, **kw)
+    plain = tsearch._frontier_search(adjacency, medoid, expand, seed_expand, queries.shape[0],
+                                     max_steps=steps, **kw)
     torch.cuda.synchronize()
     assert launch_counts()["G1"] == 1
     return kern, plain
@@ -439,9 +439,9 @@ def _seed_both(vectors, queries, medoid, entry_points, width):
     def seed_expand(seeds):
         return pairwise_distance(queries, vectors[seeds], "l2")
 
-    want = tsearch._seed_candidates(vectors.new_zeros((1, 1), dtype=torch.int32), medoid, None,
-                                    queries.shape[0], search_width=width,
-                                    entry_points=entry_points, seed_expand_fn=seed_expand)
+    want = tsearch._seed_candidates(vectors.new_zeros((1, 1), dtype=torch.int32), medoid,
+                                    seed_expand, queries.shape[0], search_width=width,
+                                    entry_points=entry_points)
     return got, want
 
 

@@ -101,7 +101,7 @@ def test_index_built_by_either_package_serves_in_the_other(data, built, package,
         assert abs(te.diagnostics["pq_exact_correlation"]
                    - je.diagnostics["pq_exact_correlation"]) < 1e-3
         assert te.diagnostics["pq_ratio_band_fraction"] >= 0.9
-    assert (te.pq_cells_t is not None) == (kind == "residual")
+    assert (te.guide is not None and te.guide.cells is not None) == (kind == "residual")
     want_type = "exact" if kind == "none" else "pq_accelerated"
     for l_search in (None, 24):
         jd, ji, js = je.search_batch(q, k=K, l_search=l_search)
@@ -213,9 +213,9 @@ def test_torn_residual_aux_is_recomputed(data, built, tmp_path, caplog, tear):
     with caplog.at_level(logging.WARNING):
         te = TorchEngine("c", base_dir=str(base), device="cpu")
     assert "recomputing residual-PQ serving arrays" in caplog.text
-    assert (te.pq_cells_t.numpy() == cells).mean() >= 0.999
-    same = te.pq_cells_t.numpy() == cells
-    np.testing.assert_allclose(te.pq_bias_t.numpy()[same], bias[same], rtol=1e-4, atol=1e-3)
+    assert (te.guide.cells.numpy() == cells).mean() >= 0.999
+    same = te.guide.cells.numpy() == cells
+    np.testing.assert_allclose(te.guide.bias.numpy()[same], bias[same], rtol=1e-4, atol=1e-3)
     _, _, ts = te.search_batch(data[1], k=K)
     assert ts["search_type"] == "pq_accelerated"
 
@@ -237,7 +237,7 @@ def test_cosine_index_with_pq_falls_through_to_exact(data, tmp_path):
     assert meta["use_pq"] and meta["pq_kind"] == "plain"  # "auto" off l2: plain PQ
     te = TorchEngine("c", base_dir=str(tmp_path), device="cpu")
     je = JaxEngine("c", base_dir=str(tmp_path))
-    assert te.use_pq and isinstance(te.pq, ProductQuantizer)
+    assert te.use_pq and isinstance(te.guide.pq, ProductQuantizer)
     td, ti, ts = te.search_batch(q, k=K)
     jd, ji, js = je.search_batch(q, k=K)
     assert ts["search_type"] == js["search_type"] == "exact"  # ADC ranks by L2 only
