@@ -1994,6 +1994,7 @@ G1_CELL_SHAPES = ((1, 32, 1), (512, 32, 1))
 G1_SWEEP_SHAPES = ((1000, 16, 8),)
 G1_ID_SHARE = 0.995  # rows with identical top-10 ids, and with equal visited sets, on floats
 G1_DIST_TOL = 1e-5  # of qn + vn, the scale the norm expansion rounds at
+G1_STAGES = ("select_adjacency", "score", "cut_dedupe_merge")  # a round, by the stage clock
 
 
 def g1_bound_ms(vectors, adjacency, queries, plain, seed_width: int) -> tuple[float, str]:
@@ -2023,6 +2024,63 @@ def g1_bound_ms(vectors, adjacency, queries, plain, seed_width: int) -> tuple[fl
     t_bytes = nbytes / PEAK_BYTES
     t_ops = 3.0 * d * scored / PEAK_F32_OPS
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+def g1_stage_split(vecs, adjacency, qs, seeded, *, expand_width: int, max_steps: int) -> dict:
+    """G1's round in stages, from its stage-clock build (`-DG1_STAGE_CLOCK`,
+    a library of its own; the default build carries no timer): thread 0's
+    %globaltimer at a round's start, after barrier 1, after barrier 2 and
+    after the merge, for every query. Returns the mean microseconds a round
+    of select and adjacency (start to barrier 1), the scoring (barrier 1 to
+    2), the cut, dedupe and merge (barrier 2 to the end) and the whole
+    round, over every executed round of every query, from the second of two
+    launches (the first warms the caches)."""
+    import ctypes
+
+    import torch
+
+    from diskrag_tpu_torch.kernels import _build
+    from diskrag_tpu_torch.ops import traverse
+
+    defines = ("G1_STAGE_CLOCK",)
+    lib = _build.load("beam_traverse", defines)
+    lib.beam_traverse_stage_buffer.argtypes = [ctypes.c_void_p]
+    b, l = seeded[0].shape
+    stamps = torch.zeros((b, max_steps, 4), dtype=torch.int64, device=vecs.device)
+    lib.beam_traverse_stage_buffer(stamps.data_ptr())
+    seeded = tuple(t.contiguous() for t in seeded)
+    for _ in range(2):
+        stamps.zero_()
+        out = traverse._traverse_outputs(b, l, max_steps * expand_width, vecs.device, zeroed=True)
+        traverse._launch_traverse(vecs, adjacency, qs.contiguous(), seeded, out,
+                                  expand_width=expand_width, max_steps=max_steps, dev=vecs.device,
+                                  stream=torch.cuda.current_stream(vecs.device).cuda_stream,
+                                  defines=defines)
+        torch.cuda.synchronize()
+    t = stamps.double()
+    done = t[..., 3] > 0
+    parts = [t[..., i + 1] - t[..., i] for i in range(3)] + [t[..., 3] - t[..., 0]]
+    split = {name: float(x[done].mean()) / 1e3 for name, x in zip(G1_STAGES + ("round",), parts)}
+    return {"us_a_round": split, "rounds_timed": int(done.sum())}
+
+
+def g1_stage_clock_sass() -> dict:
+    """%globaltimer reads (S2UR / CS2R of SR_GLOBALTIMER*) in G1's kernels:
+    none in the default library, some in the stage-clock build."""
+    from diskrag_tpu_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    require(tool.exists(), f"no cuobjdump beside nvcc ({tool}): G1's stage clock unchecked")
+    found = {}
+    for name, defines in (("default", ()), ("stage_clock", ("G1_STAGE_CLOCK",))):
+        _build.load("beam_traverse", defines)
+        lib = _build._lib_path(_build.CSRC / "beam_traverse.cu", defines)
+        sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        found[name] = sass.count("GLOBALTIMER")
+    require(found["default"] == 0 < found["stage_clock"],
+            f"G1's stage clock in the wrong build: {found}")
+    return found
 
 
 def _sorted_log(res):
@@ -2107,8 +2165,11 @@ def g1_rows(smi: str, index, q, gt, shapes, cell: str) -> dict:
     (`device_ms`) and launch to launch (`cuda_ms`), the plain rounds from
     the same state (CUDA events around whole calls: the host's dispatch
     and its waits a round), the whole `beam_search` (seeding and G1) and
-    the bound (`g1_bound_ms`). `launches`: the counts of one `beam_search`
-    at the shape, set to 0 just before: G1 once and nothing else."""
+    the bound (`g1_bound_ms`); beside them whether the launch takes the warp
+    path (`traverse_plan`) and the round's stages from the stage-clock build
+    (`g1_stage_split`; the default build is checked to carry no timer).
+    `launches`: the counts of one `beam_search` at the shape, set to 0 just
+    before: G1 once and nothing else."""
     import torch
 
     from diskrag_tpu_torch.graph import search as tsearch
@@ -2118,6 +2179,7 @@ def g1_rows(smi: str, index, q, gt, shapes, cell: str) -> dict:
     qd = torch.as_tensor(q, dtype=torch.float32, device="cuda")
     ints = (torch.round(index.vectors * 4), torch.round(qd * 4))
     rows = {}
+    sass = g1_stage_clock_sass()
     for b, width, e in shapes:
         what = f"{cell} B={b} L={width} E={e}"
         steps = tsearch._default_steps(width, e, MAIN_K, None)
@@ -2162,7 +2224,10 @@ def g1_rows(smi: str, index, q, gt, shapes, cell: str) -> dict:
                 search_ms=cuda_ms(lambda: tsearch.beam_search(
                     vecs, index.adjacency, index.medoid, qs, **kw), 20),
                 bound_ms=bound, bound_by=by, rounds=int(kern.n_steps),
-                device_us_a_round=ms * 1e3 / max(int(kern.n_steps), 1))
+                device_us_a_round=ms * 1e3 / max(int(kern.n_steps), 1),
+                warp_path=traverse.traverse_plan(e, index.adjacency.shape[1], width),
+                stages=g1_stage_split(vecs, index.adjacency, qs, seeded, expand_width=e,
+                                      max_steps=steps), stage_clock_sass=sass)
         emit({"phase": "g1", "cell": cell, **row, "card": smi})
         rows[f"b{b}_l{width}_e{e}"] = row
     del ints

@@ -60,53 +60,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _lib_path(src: pathlib.Path) -> pathlib.Path:
+def _lib_path(src: pathlib.Path, defines: tuple[str, ...] = ()) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + _define_flags(defines)).encode())
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"{src.stem}{tag}-{h.hexdigest()[:16]}.so"
+
+
+def _define_flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return tuple(f"-D{d}" for d in defines)
+
+
+def _compile(jobs: dict[str, tuple[pathlib.Path, pathlib.Path, tuple[str, ...]]]) -> None:
+    """Run nvcc on every (source, library, defines) of `jobs` at once."""
+    nvcc = _nvcc()
+    procs = {}
+    for stem, (src, out, defines) in jobs.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[stem] = (
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ),
+            tmp, out,
+        )
+    failed = []
+    for stem, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[stem] = log
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def build_all() -> dict[str, pathlib.Path]:
     """Compile every stale `csrc/*.cu` in parallel; returns {stem: path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {s.stem: (s, _lib_path(s)) for s in sorted(CSRC.glob("*.cu"))}
-    stale = {k: v for k, v in targets.items() if not v[1].exists()}
+    stale = {k: (src, out, ()) for k, (src, out) in targets.items() if not out.exists()}
     if stale:
-        nvcc = _nvcc()
-        procs = {}
-        for stem, (src, out) in stale.items():
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            procs[stem] = (
-                subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True,
-                ),
-                tmp, out,
-            )
-        failed = []
-        for stem, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            build_logs[stem] = log
-            if proc.returncode != 0:
-                failed.append(f"{stem}.cu:\n{log}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        _compile(stale)
     return {k: v[1] for k, v in targets.items()}
 
 
-def load(stem: str) -> ctypes.CDLL:
+def load(stem: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library for `csrc/<stem>.cu`, building all stale
-    sources on the first call."""
+    sources on the first call. With `defines` (macro names, each passed as
+    -D), a separate library of that source alone built with them: a
+    measurement build, such as G1's stage clock, never the default one."""
     with _lock:
-        lib = _libs.get(stem)
-        if lib is None:
+        key = ":".join((stem, *defines))
+        lib = _libs.get(key)
+        if lib is None and defines:
+            src = CSRC / f"{stem}.cu"
+            out = _lib_path(src, defines)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                _compile({key: (src, out, defines)})
+            lib = _libs[key] = ctypes.CDLL(str(out))
+        elif lib is None:
             paths = build_all()
             for name, path in paths.items():
                 if name not in _libs:

@@ -18,7 +18,8 @@ operands, or raise on operands they do not take. Each launch is counted in
 `beam_seed.launches` (kernel id G2) or `beam_traverse.launches` (G1) and,
 with tracing on (`utils/profiling.py`), records a `graph.seed` or a
 `graph.traverse` span around the launch and adds one to the counter
-`graph.seed_kernel` or `graph.traverse_kernel`.
+`graph.seed_kernel` or `graph.traverse_kernel`; a G1 launch on the warp
+path (`traverse_plan`) also adds one to `graph.traverse_warp_path`.
 
 Both kernels compute `_gathered_distance`'s formula in f32,
 max(qn + vn - 2 q.v, 0), their sums taken in another order than PyTorch's,
@@ -31,6 +32,14 @@ card, at B = 512 sixteen queries a tile, so each seed row is read 32 times
 and not 512. With several slices the last block of a tile to finish merges
 the slices' lists; it finds that it is last through a counter of the
 tile's finished slices, which it sets back to zero (`_tile_counters`).
+
+G1's launcher takes its path and block from E, R and L alone: where E x R
+and L are at most 64 a round's cut, dedupe and merge run in one warp's
+registers (the warp path: the exact cells' L 32, E 1, R 48), with just
+enough threads to score every neighbour row in one pass; wider shapes (the
+wave build's E 8 x R 64, L up to 256) take the block path, whose cut is a
+block-wide sort. Both are one algorithm; only the number of keys a round
+orders differs. `traverse_plan` reads the same two limits for the counter.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ SEED_CHUNK = 128  # seeds scored between two selections
 SEED_MERGE_KEYS = 4096  # slices x L of a query, at most
 SEED_TILE_BYTES = 48 * 1024  # a tile's scoring state in shared memory, at most
 SEED_BLOCKS_PER_SM = 2
+
+WARP_KEYS = 64  # G1's warp path: E x R and L at most this (csrc/beam_traverse.cu's kWarpKeys)
 
 
 def refusal(
@@ -104,8 +115,8 @@ _G2_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c
 
 
 @functools.cache
-def _launcher(stem: str):
-    fn = getattr(_build.load(stem), f"{stem}_launch")
+def _launcher(stem: str, defines: tuple[str, ...] = ()):
+    fn = getattr(_build.load(stem, defines), f"{stem}_launch")
     fn.argtypes = _G1_ARGTYPES if stem == "beam_traverse" else _G2_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -134,6 +145,12 @@ def seed_plan(b: int, s: int, l: int, d: int, sms: int) -> tuple[int, int, int]:
     ns = max(1, min(SEED_BLOCKS_PER_SM * sms // max(tiles, 1), SEED_MERGE_KEYS // l,
                     -(-s // SEED_CHUNK)))
     return qt, tiles, -(-s // -(-s // ns))  # no empty slice
+
+
+def traverse_plan(e: int, r: int, l: int) -> bool:
+    """Whether G1 takes its warp path at these shapes: E x R and L at most
+    `WARP_KEYS`, the launcher's own test."""
+    return e * r <= WARP_KEYS and l <= WARP_KEYS
 
 
 @functools.cache
@@ -199,18 +216,23 @@ def _launch_seed(args, zero, dev, stream: int) -> None:
 
 
 def _launch_traverse(vectors, adjacency, queries, seeded, out, *, expand_width: int,
-                     max_steps: int, dev, stream: int) -> None:
+                     max_steps: int, dev, stream: int, defines: tuple[str, ...] = ()) -> None:
+    """G1's launch on `stream`; `defines` picks a build of the kernel with
+    those macros (the stage clock's, `G1_STAGE_CLOCK`), never the engine's."""
     n, d = vectors.shape
     cand_ids, cand_dists, expanded = seeded
     b, l = cand_ids.shape
+    r = adjacency.shape[1]
     with profiling.span("graph.traverse", batch=b):
-        err = _launcher("beam_traverse")(
+        err = _launcher("beam_traverse", defines)(
             vectors.data_ptr(), adjacency.data_ptr(), queries.data_ptr(), cand_ids.data_ptr(),
-            cand_dists.data_ptr(), expanded.data_ptr(), n, b, d, adjacency.shape[1], l,
-            expand_width, max_steps, *(t.data_ptr() for t in out), dev.index, stream,
+            cand_dists.data_ptr(), expanded.data_ptr(), n, b, d, r, l, expand_width, max_steps,
+            *(t.data_ptr() for t in out), dev.index, stream,
         )
     count(beam_traverse)
     profiling.count("graph.traverse_kernel")
+    if traverse_plan(expand_width, r, l):
+        profiling.count("graph.traverse_warp_path")
     _build.check(err, "beam_traverse_launch")
 
 

@@ -4,7 +4,8 @@ in one CUDA kernel.
 
 On the CPU: which exact searches go to the kernels (`refusal`; a refused
 search keeps the plain seeding and round loop and launches nothing), G2's
-grid plan and both wrappers' checks. The tests marked `cuda` (they skip
+grid plan, G1's path (`traverse_plan`), the largest shapes `refusal`
+passes, and both wrappers' checks. The tests marked `cuda` (they skip
 without a card) hold G2 against the plain seeding and G1 against the plain
 rounds from the same seeded state on a card:
 
@@ -190,6 +191,59 @@ def test_seed_plan_takes_the_grid_from_the_shapes(case, b, s, l, d):
         assert (qt, tiles, ns) == (16, 32, 8)
 
 
+# (case, E, R, L, warp path): the exact cells, the boundaries of the warp
+# path on E x R (64 / 65) and on L (64 / 65), the wave build, the 200k sweep,
+# `five_entry_points`' E 4 and a width of 256
+TRAVERSE_PLANS = [
+    ("exact_cells", 1, 48, 32, True),
+    ("e1_r64", 1, 64, 32, True),
+    ("e1_r65", 1, 65, 32, False),
+    ("e8_r8", 8, 8, 64, True),
+    ("e13_r5", 13, 5, 64, False),
+    ("l64", 1, 48, 64, True),
+    ("l65", 1, 48, 65, False),
+    ("wave_l64_e8_r64", 8, 64, 64, False),
+    ("sweep_l16_e8", 8, 48, 16, False),
+    ("five_entry_points_e4", 4, 48, 32, False),
+    ("e1_r4", 1, 4, 8, True),
+    ("l256", 1, 48, 256, False),
+]
+
+
+@pytest.mark.parametrize("case,e,r,l,warp", TRAVERSE_PLANS, ids=[c[0] for c in TRAVERSE_PLANS])
+def test_traverse_plan_takes_the_warp_path_exactly_inside_its_limits(case, e, r, l, warp):
+    """The warp path where E x R and L are both at most 64, the block path
+    elsewhere."""
+    assert traverse.traverse_plan(e, r, l) is warp
+
+
+# (case, D, R, L, E, max_steps): the largest of each operand `refusal` passes
+# (D 2048, L 256, E x R 1024, max_steps x E 1024) together and apart, at both
+# paths' limits: the shapes whose shared arrays are largest (the launcher
+# refuses a block above 48 KB)
+EXTREMES = [
+    ("all_largest", 2048, 4, 256, 256, 4),
+    ("fresh_1024_l256", 2048, 64, 256, 16, 64),
+    ("visited_513", 2048, 64, 256, 1, 513),
+    ("warp_largest", 2048, 64, 64, 1, 1024),
+    ("warp_e64", 2048, 1, 64, 64, 16),
+    ("exact_cells", 128, 48, 32, 1, 64),
+    ("wave", 128, 64, 64, 8, 16),
+]
+
+
+@pytest.mark.parametrize("case,d,r,l,e,steps", EXTREMES, ids=[c[0] for c in EXTREMES])
+def test_refusal_passes_the_largest_shapes_of_each_operand(case, d, r, l, e, steps):
+    """On the CPU each extreme shape is refused for the device alone, so on
+    a card G1 serves it (`test_g1_runs_at_the_largest_shapes_refusal_passes`)."""
+    vecs = torch.zeros((4, d))
+    adj = torch.zeros((4, r), dtype=torch.int32)
+    q = torch.zeros((1, d))
+    why = traverse.refusal(vecs, adj, q, search_width=l, expand_width=e, max_steps=steps,
+                           metric="l2")
+    assert why is not None and "CUDA device" in why, why
+
+
 # (case, operand, replacement, exception, words)
 SEED_WRAPPER = [
     ("f64_vectors", "vectors", lambda a: a.double(), TypeError, "float32 vectors"),
@@ -284,7 +338,7 @@ def _both(vectors, adjacency, medoid, queries, *, width, e, entry_points, k, max
     return kern, plain
 
 
-def _padded(adjacency, width=64, seed=3):
+def _padded(adjacency, width, seed=3):
     """The R = 48 rows padded with -1 to `width`, and a tenth of the rest
     knocked out to -1 too."""
     n, r = adjacency.shape
@@ -295,25 +349,38 @@ def _padded(adjacency, width=64, seed=3):
                        adj).contiguous()
 
 
-# (case, batch, L, E, entry points, max_steps, padded adjacency)
+# (case, batch, L, E, entry points, max_steps, adjacency padded to this R
+# (0: the graph's 48), vectors). The warp path takes E x R and L up to 64:
+# "e1_r64" and "l64_e1" are its edges, "e1_r65" the block path's first
+# shape; "ties" makes every other vector a copy of the one before it, so
+# that distances tie exactly between distinct ids.
 CARD_CASES = [
-    ("cell_b1", 1, 32, 1, "all", None, False),
-    ("cell_b7", 7, 32, 1, "all", None, False),
-    ("cell_b512", 512, 32, 1, "all", None, False),
-    ("wave_l64_e8_r64", 512, 64, 8, "all", None, True),
-    ("cap_hit", 512, 32, 1, "all", 6, False),
-    ("medoid_only", 512, 32, 1, None, None, False),
-    ("five_entry_points", 512, 32, 4, "five", None, False),
+    ("cell_b1", 1, 32, 1, "all", None, 0, "own"),
+    ("cell_b7", 7, 32, 1, "all", None, 0, "own"),
+    ("cell_b512", 512, 32, 1, "all", None, 0, "own"),
+    ("wave_l64_e8_r64", 512, 64, 8, "all", None, 64, "own"),
+    ("cap_hit", 512, 32, 1, "all", 6, 0, "own"),
+    ("cap_hit_l64", 512, 64, 1, "all", 6, 0, "own"),
+    ("medoid_only", 512, 32, 1, None, None, 0, "own"),
+    ("five_entry_points", 512, 32, 4, "five", None, 0, "own"),
+    ("e1_r64", 512, 32, 1, "all", None, 64, "own"),
+    ("e1_r65", 512, 32, 1, "all", None, 65, "own"),
+    ("l64_e1", 512, 64, 1, "all", None, 0, "own"),
+    ("l256_e1", 64, 256, 1, "all", None, 0, "own"),
+    ("ties", 512, 32, 1, "all", None, 0, "ties"),
 ]
 
 
 def _case(sets, name, case):
-    _, b, width, e, eps, max_steps, padded = case
+    _, b, width, e, eps, max_steps, pad, data = case
     index, qs, gt = sets[name]
-    adj = _padded(index.adjacency) if padded else index.adjacency
+    adj = _padded(index.adjacency, pad) if pad else index.adjacency
     ep = {"all": index.entry_points, "five": index.entry_points[:5], None: None}[eps]
-    return index, adj, qs[:b], gt[:b], dict(width=width, e=e, entry_points=ep,
-                                            max_steps=max_steps)
+    vectors = index.vectors
+    if data == "ties":
+        vectors = vectors[torch.arange(vectors.shape[0], device=vectors.device) // 2 * 2]
+    return index, vectors, adj, qs[:b], gt[:b], dict(width=width, e=e, entry_points=ep,
+                                                     max_steps=max_steps)
 
 
 @pytest.mark.cuda
@@ -321,17 +388,48 @@ def _case(sets, name, case):
 def test_g1_is_the_plain_rounds_bit_for_bit_on_integer_data(card_sets, case):
     """Where no sum rounds, G1 is the plain rounds on every row: the whole
     beam (ids and distances), the visited log, n_expanded and n_steps."""
-    index, adj, qs, _, kw = _case(card_sets, "ints", case)
-    kern, plain = _both(index.vectors, adj, index.medoid, qs, k=kw["width"], **kw)
+    index, vectors, adj, qs, _, kw = _case(card_sets, "ints", case)
+    kern, plain = _both(vectors, adj, index.medoid, qs, k=kw["width"], **kw)
     for field in ("ids", "dists", "visited_ids", "visited_dists", "n_expanded", "n_steps"):
         assert torch.equal(getattr(kern, field), getattr(plain, field)), field
     assert int(kern.n_steps) > 0
-    if case[0] == "cap_hit":
+    if case[0].startswith("cap_hit"):
         assert int(kern.n_steps) == 6 and bool((kern.n_expanded == 6).all())
+    if case[0] == "ties":  # the beams hold exact ties between distinct ids
+        d, ids = plain.dists, plain.ids
+        assert bool(((d[:, 1:] == d[:, :-1]) & (ids[:, 1:] != ids[:, :-1])
+                     & torch.isfinite(d[:, 1:])).any())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
+@pytest.mark.parametrize("case,d,r,l,e,steps", EXTREMES, ids=[c[0] for c in EXTREMES])
+def test_g1_runs_at_the_largest_shapes_refusal_passes(case, d, r, l, e, steps):
+    """At each extreme shape the launcher takes the search (its block fits
+    the 48 KB it gets) and G1 is the plain rounds bit for bit: 512 small
+    integer points, a random adjacency with -1 pads and repeats, 8
+    queries, `max_steps` as given."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: G1 is compiled and run only on one")
+    n = 512
+    rng = np.random.default_rng(d + r + l + e + steps)
+    vecs = torch.from_numpy(rng.integers(-3, 4, size=(n, d)).astype(np.float32)).cuda()
+    adj = torch.from_numpy(rng.integers(-1, n, size=(n, r)).astype(np.int32)).cuda()
+    qs = torch.from_numpy(rng.integers(-3, 4, size=(8, d)).astype(np.float32)).cuda()
+    medoid = torch.tensor(0, dtype=torch.int32, device="cuda")
+    kern, plain = _both(vecs, adj, medoid, qs, width=l, e=e, entry_points=None, k=10,
+                        max_steps=steps)
+    for field in ("ids", "dists", "visited_ids", "visited_dists", "n_expanded", "n_steps"):
+        assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+    assert int(kern.n_steps) > 0
+
+
+# The tie case is for integer data: on floats the seeding and the rounds
+# round each twin's distance apart, so its exact ties become near-ties
+FLOAT_CASES = [c for c in CARD_CASES if c[7] != "ties"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLOAT_CASES, ids=[c[0] for c in FLOAT_CASES])
 def test_g1_matches_plain_rounds_on_float_data(card_sets, case):
     """On the SIFT-like set: the top-10 ids identical and the visited logs
     equal as sets each on >= 99.5% of rows (every row at B = 1 and 7);
@@ -341,8 +439,8 @@ def test_g1_matches_plain_rounds_on_float_data(card_sets, case):
     breaks the other way can change which node a round expands while the
     top 10 stays: the share of rows allows for that, the integer test
     holds the logic bit for bit."""
-    index, adj, qs, gt, kw = _case(card_sets, "floats", case)
-    kern, plain = _both(index.vectors, adj, index.medoid, qs, k=10, **kw)
+    index, vectors, adj, qs, gt, kw = _case(card_sets, "floats", case)
+    kern, plain = _both(vectors, adj, index.medoid, qs, k=10, **kw)
     same = (kern.ids == plain.ids).all(1)
     k_log, k_order = torch.sort(kern.visited_ids, dim=1)
     p_log, p_order = torch.sort(plain.visited_ids, dim=1)
@@ -362,7 +460,7 @@ def test_g1_matches_plain_rounds_on_float_data(card_sets, case):
                          torch.gather(plain.visited_dists, 1, p_order)[both], p_log[both])):
         fin = torch.isfinite(pd)
         assert torch.equal(fin, torch.isfinite(kd))
-        v = index.vectors[ids.clamp_min(0).long()]
+        v = vectors[ids.clamp_min(0).long()]
         scale = (qs[both] ** 2).sum(1, keepdim=True) + (v * v).sum(-1)
         assert torch.all((kd - pd).abs()[fin] <= 1e-5 * scale[fin])
 
@@ -388,6 +486,33 @@ def test_an_exact_search_at_the_cells_shape_is_one_traverse_span(card_sets):
     assert sum(r.name == "graph.traverse" for r in records) == 1
     assert sum(r.name == "graph.seed" for r in records) == 1
     assert not any(r.name.startswith("graph.round") for r in records)
+
+
+# (case, L, E, adjacency padded to this R (0: the graph's 48), G1 launches
+# on the warp path)
+WARP_PATH_COUNTS = [("cell", 32, 1, 0, 1), ("wave_l64_e8_r64", 64, 8, 64, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,width,e,pad,want", WARP_PATH_COUNTS,
+                         ids=[c[0] for c in WARP_PATH_COUNTS])
+def test_traverse_warp_path_counts_the_searches_on_the_warp_path(card_sets, case, width, e, pad,
+                                                                 want):
+    """With tracing on, `graph.traverse_warp_path` counts one a search at
+    the cells' shape (L 32, E 1, R 48), equal to `graph.traverse_kernel`,
+    and none at the wave build's (L 64, E 8, R 64)."""
+    index, qs, _ = card_sets["floats"]
+    adj = _padded(index.adjacency, pad) if pad else index.adjacency
+    with profiling.tracing():
+        profiling.counters(reset=True)
+        for b in (1, 512):
+            tsearch.beam_search(index.vectors, adj, index.medoid, qs[:b], search_width=width,
+                                k=10, expand_width=e, entry_points=index.entry_points)
+        torch.cuda.synchronize()
+        profiling.drain()
+        counters = profiling.counters(reset=True)
+    assert counters.get("graph.traverse_kernel") == 2
+    assert counters.get("graph.traverse_warp_path", 0) == 2 * want
 
 
 @pytest.mark.cuda
